@@ -33,5 +33,8 @@ class BuildWithNative(build_py):
         super().run()
 
 
+# dgsparse_tpu_torch ships its CUDA sources: they are compiled with nvcc on
+# first use on a CUDA host (dgsparse_tpu_torch/kernels/_build.py).
 setup(cmdclass={"build_py": BuildWithNative},
-      package_data={"dgsparse_tpu": ["libdgsparse_host.so"]})
+      package_data={"dgsparse_tpu": ["libdgsparse_host.so"],
+                    "dgsparse_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]})
