@@ -3,9 +3,12 @@
 The JAX package `dgsparse_tpu` stays beside it as the reference; each
 ported piece keeps its counterpart's module path and names and is tested
 against it. This package imports torch and never JAX. What is ported so
-far is the GCN forward: CSR formats, SUM/MEAN SpMM, and the GCN model. Its
-one kernel, `csrc/spmm_csr.cu` (CUDA C++ for Hopper, sm_90a), replaces the
-Pallas `segment_matmul`; tensors on the CPU run its plain PyTorch version.
+far: CSR formats, SUM/MEAN SpMM (single- and multi-head) with both
+gradients, SDDMM, edge softmax, and the GCN and GAT models with their
+training steps (`entry.py`). Two kernels, CUDA C++ for Hopper (sm_90a),
+carry them: `csrc/spmm_csr.cu` replaces the Pallas `segment_matmul` and
+`csrc/sddmm_csr.cu` the Pallas `sddmm_esc`; tensors on the CPU run their
+plain PyTorch versions.
 """
 
 __version__ = "0.1.0"
@@ -13,8 +16,12 @@ __version__ = "0.1.0"
 from dgsparse_tpu_torch.core import ftransform
 from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
 from dgsparse_tpu_torch.core.transform import coo2csr, csr2coo, csr2csc
+from dgsparse_tpu_torch.ops.edge_softmax import edge_softmax
+from dgsparse_tpu_torch.ops.sddmm import sddmm, sddmm_coo
 from dgsparse_tpu_torch.ops.spmm import spmm, spmm_mean, spmm_sum
+from dgsparse_tpu_torch.ops.spmm_mh import spmm_multihead
 from dgsparse_tpu_torch.ops.types import Algorithm, ComputeOp, ReduceOp
+from dgsparse_tpu_torch import nn  # noqa: E402  (nn.GCN, nn.GAT)
 
 
 def version() -> dict:
@@ -31,11 +38,16 @@ def version() -> dict:
     }
 
 
-def self_check(device="cpu") -> None:
-    """One SpMM on a tiny graph on `device`, checked against a numpy
-    oracle. On a CUDA device this builds and launches the kernel."""
+def self_check(device="cuda") -> None:
+    """One SpMM on a tiny graph on `device` (the card unless the caller
+    names the CPU), checked against a numpy oracle. On a CUDA device this
+    builds and launches the kernel."""
     import numpy as np
     import torch
+
+    from dgsparse_tpu_torch.entry import resolve_device
+
+    device = resolve_device(device)
 
     rowptr = np.array([0, 2, 3, 3, 5], np.int32)
     col = np.array([1, 3, 0, 2, 2], np.int32)
@@ -64,6 +76,11 @@ __all__ = [
     "spmm",
     "spmm_sum",
     "spmm_mean",
+    "spmm_multihead",
+    "sddmm",
+    "sddmm_coo",
+    "edge_softmax",
+    "nn",
     "self_check",
     "version",
     "__version__",

@@ -290,6 +290,16 @@ class SparseTensor:
     def to(self, device) -> "SparseTensor":
         return SparseTensor._wrap(self.storage.to(device), self.has_value)
 
+    def set_values(self, values: Optional[torch.Tensor]) -> "SparseTensor":
+        """A SparseTensor sharing this one's structure with new values
+        (None: implicit ones). The values keep their autograd history, so
+        computed edge weights can become an SpMM's differentiable values."""
+        if values is not None and values.shape[0] != self.nnz:
+            raise ValueError(
+                f"{values.shape[0]} values for {self.nnz} edges")
+        return SparseTensor._wrap(self.storage._replace(values=values),
+                                  values is not None)
+
     # --- shape ---
     def sparse_sizes(self) -> Tuple[int, int]:
         return self.storage.sparse_sizes()

@@ -65,6 +65,20 @@ def csr2coo(rowptr: torch.Tensor,
     return expand_rowptr(rowptr, col.shape[0]), col
 
 
+def gather_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """table[index] along dim 0, through index_select on a column-major
+    copy of a 2-D table with more than one column.
+
+    On the H100, PyTorch gathers rows of 16 bytes (4 fp32) from a
+    contiguous table some 40x slower than from a column-major one
+    (`chip_smoke.py`, phase 8, times both); the copy costs one pass over
+    the table. The backward is index_add_.
+    """
+    if table.dim() == 2 and table.shape[1] > 1:
+        table = table.t().contiguous().t()
+    return table.index_select(0, index)
+
+
 def row_degrees(rowptr: torch.Tensor) -> torch.Tensor:
     return rowptr[1:] - rowptr[:-1]
 

@@ -22,6 +22,13 @@
 //     no atomics, so results are deterministic and the output needs no
 //     zero-fill. Columns within a row need not be sorted.
 // Rows map to gridDim.x (up to 2^31-1 blocks), feature slices to gridDim.y.
+//
+// Heads (the counterpart of `spmm_esc_mh`, which folds H heads into the
+// feature axis of one `segment_matmul`): with values [nnz, H] and X
+// [N, H*F], feature j of an edge is scaled by values[e, j / F]. One launch
+// serves every head; each lane reads the value of its own head (lanes of
+// one head read one address). A vector never straddles two heads: VEC
+// divides F. H = 1 runs the single-value path unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,19 +68,21 @@ struct alignas(sizeof(T) * VEC) Packed {
 // out[m, f] = (sum over e in [rowptr[m], rowptr[m+1]) of w[e] * src[r(e), f])
 //             / (MEAN ? max(deg, 1) : 1)
 // with r(e) = col[e] and w[e] = val ? val[e] : 1 when GATHER, else r(e) = e
-// and w[e] = 1.
-template <typename T, int VEC, bool GATHER>
+// and w[e] = 1. HEADS: w[e] = val[e * heads + f / head_feat] (val not NULL).
+template <typename T, int VEC, bool GATHER, bool HEADS>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     csr_reduce_kernel(const int* __restrict__ rowptr,
                       const int* __restrict__ col,
                       const float* __restrict__ val,
                       const T* __restrict__ src, T* __restrict__ out,
-                      int num_rows, int feat, int mean) {
+                      int num_rows, int feat, int mean, int heads,
+                      int head_feat) {
   const int row = blockIdx.x * kWarpsPerBlock + threadIdx.y;
   if (row >= num_rows) return;  // uniform across the warp
   const int lane = threadIdx.x;
   const int f0 = (blockIdx.y * kWarp + lane) * VEC;
   const bool active = f0 < feat;  // VEC divides feat: the whole vector fits
+  const int head = HEADS && active ? f0 / head_feat : 0;
   const int start = rowptr[row];
   const int end = rowptr[row + 1];
 
@@ -87,14 +96,16 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     float w = 1.f;
     if (e < end) {
       src_row = GATHER ? col[e] : e;
-      if (GATHER && val != nullptr) w = val[e];
+      if (GATHER && !HEADS && val != nullptr) w = val[e];
     }
     const int n = min(kWarp, end - base);
 #pragma unroll 4
     for (int j = 0; j < n; ++j) {
       const int r = __shfl_sync(kFullMask, src_row, j);
-      const float wj = __shfl_sync(kFullMask, w, j);
+      float wj = __shfl_sync(kFullMask, w, j);
       if (active) {
+        if (HEADS)
+          wj = val[static_cast<int64_t>(base + j) * heads + head];
         const Packed<T, VEC> x = *reinterpret_cast<const Packed<T, VEC>*>(
             src + static_cast<int64_t>(r) * feat + f0);
 #pragma unroll
@@ -115,36 +126,38 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// Widest vector (at most 16 bytes) that divides feat, still gives every lane
-// of a warp work, and that both pointers are aligned for.
+// Widest vector (at most 16 bytes) that divides the head width (so it
+// divides feat too), still gives every lane of a warp work, and that both
+// pointers are aligned for.
 template <typename T>
-int pick_vec(int feat, const void* src, const void* out) {
+int pick_vec(int feat, int head_feat, const void* src, const void* out) {
   for (int vec = 16 / static_cast<int>(sizeof(T)); vec > 1; vec /= 2) {
     const int bytes = vec * static_cast<int>(sizeof(T));
-    if (feat % vec == 0 && feat >= kWarp * vec && aligned(src, bytes) &&
+    if (head_feat % vec == 0 && feat >= kWarp * vec && aligned(src, bytes) &&
         aligned(out, bytes))
       return vec;
   }
   return 1;
 }
 
-template <typename T, int VEC, bool GATHER>
+template <typename T, int VEC, bool GATHER, bool HEADS>
 void launch_vec(dim3 grid, dim3 block, cudaStream_t stream, const int* rowptr,
                 const int* col, const float* val, const void* src, void* out,
-                int num_rows, int feat, int mean) {
-  csr_reduce_kernel<T, VEC, GATHER><<<grid, block, 0, stream>>>(
+                int num_rows, int feat, int mean, int heads) {
+  csr_reduce_kernel<T, VEC, GATHER, HEADS><<<grid, block, 0, stream>>>(
       rowptr, col, val, static_cast<const T*>(src), static_cast<T*>(out),
-      num_rows, feat, mean);
+      num_rows, feat, mean, heads, feat / heads);
 }
 
-template <typename T, bool GATHER>
+template <typename T, bool GATHER, bool HEADS>
 int launch(int device, const int* rowptr, const int* col, const float* val,
            const void* src, void* out, int num_rows, int feat, int mean,
-           void* stream) {
-  if (num_rows <= 0 || feat <= 0) return cudaErrorInvalidValue;
+           int heads, void* stream) {
+  if (num_rows <= 0 || feat <= 0 || heads <= 0 || feat % heads != 0)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int vec = pick_vec<T>(feat, src, out);
+  const int vec = pick_vec<T>(feat, feat / heads, src, out);
   const int slice = kWarp * vec;
   const dim3 block(kWarp, kWarpsPerBlock);
   const dim3 grid((num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock,
@@ -155,21 +168,25 @@ int launch(int device, const int* rowptr, const int* col, const float* val,
     case 8:
       // only reachable for 2-byte types (16 bytes / 2)
       if constexpr (sizeof(T) == 2) {
-        launch_vec<T, 8, GATHER>(grid, block, s, rowptr, col, val, src, out,
-                                 num_rows, feat, mean);
+        launch_vec<T, 8, GATHER, HEADS>(grid, block, s, rowptr, col, val,
+                                        src, out, num_rows, feat, mean,
+                                        heads);
       }
       break;
     case 4:
-      launch_vec<T, 4, GATHER>(grid, block, s, rowptr, col, val, src, out,
-                               num_rows, feat, mean);
+      launch_vec<T, 4, GATHER, HEADS>(grid, block, s, rowptr, col, val,
+                                      src, out, num_rows, feat, mean,
+                                      heads);
       break;
     case 2:
-      launch_vec<T, 2, GATHER>(grid, block, s, rowptr, col, val, src, out,
-                               num_rows, feat, mean);
+      launch_vec<T, 2, GATHER, HEADS>(grid, block, s, rowptr, col, val,
+                                      src, out, num_rows, feat, mean,
+                                      heads);
       break;
     default:
-      launch_vec<T, 1, GATHER>(grid, block, s, rowptr, col, val, src, out,
-                               num_rows, feat, mean);
+      launch_vec<T, 1, GATHER, HEADS>(grid, block, s, rowptr, col, val,
+                                      src, out, num_rows, feat, mean,
+                                      heads);
   }
   return cudaGetLastError();
 }
@@ -178,18 +195,31 @@ int launch(int device, const int* rowptr, const int* col, const float* val,
 
 extern "C" {
 
-// out[M, F] = A · X for CSR A (rowptr [M+1], col [nnz] int32, val [nnz] fp32
-// or NULL for implicit ones) and X [N, F] in `dtype` (0 fp32, 1 bf16);
+// out[M, F] = A · X for CSR A (rowptr [M+1], col [nnz] int32, val [nnz, H]
+// fp32 or NULL for implicit ones) and X [N, F] in `dtype` (0 fp32, 1 bf16),
+// F = H * (features per head); feature j takes val[e, j / (F / H)].
 // mean != 0 divides each row by max(deg, 1). Returns a cudaError_t.
 int dg_csr_spmm(int dtype, int device, const int* rowptr, const int* col,
                 const float* val, const void* x, void* out, int num_rows,
-                int feat, int mean, void* stream) {
+                int feat, int heads, int mean, void* stream) {
+  if (heads > 1 && val != nullptr) {
+    if (dtype == kFloat32)
+      return launch<float, true, true>(device, rowptr, col, val, x, out,
+                                       num_rows, feat, mean, heads, stream);
+    if (dtype == kBFloat16)
+      return launch<__nv_bfloat16, true, true>(device, rowptr, col, val, x,
+                                               out, num_rows, feat, mean,
+                                               heads, stream);
+    return cudaErrorInvalidValue;
+  }
+  // one value per edge (or none): the single-head kernel, whatever `heads`
   if (dtype == kFloat32)
-    return launch<float, true>(device, rowptr, col, val, x, out, num_rows,
-                               feat, mean, stream);
+    return launch<float, true, false>(device, rowptr, col, val, x, out,
+                                      num_rows, feat, mean, 1, stream);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16, true>(device, rowptr, col, val, x, out,
-                                       num_rows, feat, mean, stream);
+    return launch<__nv_bfloat16, true, false>(device, rowptr, col, val, x,
+                                              out, num_rows, feat, mean, 1,
+                                              stream);
   return cudaErrorInvalidValue;
 }
 
@@ -199,12 +229,13 @@ int dg_segment_sum_csr(int dtype, int device, const int* rowptr,
                        const void* contrib, void* out, int num_rows, int feat,
                        void* stream) {
   if (dtype == kFloat32)
-    return launch<float, false>(device, rowptr, nullptr, nullptr, contrib,
-                                out, num_rows, feat, 0, stream);
+    return launch<float, false, false>(device, rowptr, nullptr, nullptr,
+                                       contrib, out, num_rows, feat, 0, 1,
+                                       stream);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16, false>(device, rowptr, nullptr, nullptr,
-                                        contrib, out, num_rows, feat, 0,
-                                        stream);
+    return launch<__nv_bfloat16, false, false>(device, rowptr, nullptr,
+                                               nullptr, contrib, out,
+                                               num_rows, feat, 0, 1, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -9,6 +9,7 @@ half-written file. There is no fallback: a missing nvcc or a failed build
 raises.
 """
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -84,6 +85,14 @@ def build(name: str) -> Built:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return Built(so, text, seconds, False)
+
+
+def build_all(names) -> dict:
+    """`build` each of `names` at once, one nvcc process each; a failed
+    build raises."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,7 +1,9 @@
-"""Plain PyTorch SpMM for SUM/MEAN: the CPU path and the port's oracle.
+"""Plain PyTorch SpMM (SUM/MEAN, single- and multi-head) and SDDMM: the
+CPU path and the port's oracle.
 
-Counterpart of the SUM/MEAN part of `dgsparse_tpu/kernels/xla.py`, with
-the same semantics (reference CUDA kernels):
+Counterpart of the SUM/MEAN and SDDMM parts of `dgsparse_tpu/kernels/xla.py`
+and of `_xla_mh` in `dgsparse_tpu/ops/spmm_mh.py`, with the same semantics
+(reference CUDA kernels):
 - empty rows produce 0,
 - MEAN divides by max(row degree, 1),
 - missing values mean implicit 1.0,
@@ -22,8 +24,10 @@ import torch
 from dgsparse_tpu_torch.ops.types import ComputeOp, ReduceOp
 
 # Largest [chunk, F] float32 contribution buffer the forward materializes
-# at once (the JAX package's _SPMM_CHUNK_BUDGET).
+# at once (the JAX package's _SPMM_CHUNK_BUDGET), and the same for the
+# SDDMM's gathered buffers (_SDDMM_CHUNK_BUDGET).
 _SPMM_CHUNK_BUDGET = 512 << 20
+_SDDMM_CHUNK_BUDGET = 512 << 20
 
 
 def spmm_chunk_edges(f: int) -> int:
@@ -111,3 +115,102 @@ def spmm_forward(
             degrees = torch.bincount(coo_row.long(), minlength=num_rows)
         out = _mean_divide(out, degrees)
     return out.to(dense.dtype), None
+
+
+def spmm_mh(
+    coo_row: torch.Tensor,
+    col: torch.Tensor,
+    values: torch.Tensor,
+    dense: torch.Tensor,
+    num_rows: int,
+    reduce: ReduceOp,
+    degrees: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-head SpMM: out[m, h] = reduce_{e=(m,c)} values[e, h] * dense[c, h]
+    for dense [N, H, F] and values [nnz, H]. Returns [num_rows, H, F];
+    edge-chunked as `spmm_forward`."""
+    _check_sum_mean(reduce)
+    _, h, f = dense.shape
+    nnz = col.shape[0]
+    per = spmm_chunk_edges(h * f)
+    out = torch.zeros((num_rows, h, f), dtype=torch.float32,
+                      device=dense.device)
+    for e0 in range(0, nnz, per):
+        e1 = min(e0 + per, nnz)
+        contrib = dense[col[e0:e1].long()].float() \
+            * values[e0:e1, :, None].float()
+        out.index_add_(0, coo_row[e0:e1].long(), contrib)
+    if reduce == ReduceOp.MEAN:
+        if degrees is None:
+            degrees = torch.bincount(coo_row.long(), minlength=num_rows)
+        out = out / torch.clamp(degrees, min=1).float()[:, None, None]
+    return out.to(dense.dtype)
+
+
+def _per_edge_degrees(out: torch.Tensor, coo_row: torch.Tensor,
+                      degrees: Optional[torch.Tensor]) -> torch.Tensor:
+    if degrees is None:
+        raise ValueError("degrees required for MEAN sddmm")
+    deg = torch.clamp(degrees, min=1).float()[coo_row.long()]
+    return deg.reshape(deg.shape + (1,) * (out.dim() - 1))
+
+
+def sddmm(
+    coo_row: torch.Tensor,
+    col: torch.Tensor,
+    d1: torch.Tensor,
+    d2: torch.Tensor,
+    reduce: ReduceOp = ReduceOp.SUM,
+    degrees: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-edge dots out[e] = dot(d1[row_e], d2[col_e]) over the last axis:
+    d1 [M, F], d2 [N, F] give [nnz]; [M, H, F] and [N, H, F] give [nnz, H].
+    MEAN divides by max(row degree, 1). Sums and returns float32."""
+    out = (d1[coo_row.long()].float() * d2[col.long()].float()).sum(-1)
+    if reduce == ReduceOp.MEAN:
+        out = out / _per_edge_degrees(out, coo_row, degrees)
+    return out
+
+
+def sddmm_chunked(
+    coo_row: torch.Tensor,
+    col: torch.Tensor,
+    d1: torch.Tensor,
+    d2: torch.Tensor,
+    reduce: ReduceOp = ReduceOp.SUM,
+    degrees: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`sddmm` with the two gathered [nnz, ...] buffers materialized one
+    edge chunk at a time (at most 512 MiB each)."""
+    nnz = coo_row.shape[0]
+    per = max(_SDDMM_CHUNK_BUDGET // (4 * max(d1.shape[1:].numel(), 1)), 1)
+    if nnz <= per:
+        return sddmm(coo_row, col, d1, d2, reduce, degrees)
+    out = torch.cat([sddmm(coo_row[e0:e0 + per], col[e0:e0 + per], d1, d2)
+                     for e0 in range(0, nnz, per)])
+    if reduce == ReduceOp.MEAN:
+        out = out / _per_edge_degrees(out, coo_row, degrees)
+    return out
+
+
+def sddmm_bwd_chunked(
+    seg_ids: torch.Tensor,
+    other_ids: torch.Tensor,
+    g: torch.Tensor,
+    other: torch.Tensor,
+    num_segments: int,
+) -> torch.Tensor:
+    """d_d1 / d_d2 of the SDDMM: the segment sum over seg_ids of
+    g[e] * other[other_ids[e]], one edge chunk at a time. Sums and returns
+    float32 [num_segments, F]."""
+    nnz = seg_ids.shape[0]
+    f = other.shape[-1]
+    per = max(_SDDMM_CHUNK_BUDGET // (4 * max(f, 1)), 1)
+    out = torch.zeros((num_segments, f), dtype=torch.float32,
+                      device=other.device)
+    for e0 in range(0, nnz, per):
+        e1 = min(e0 + per, nnz)
+        contrib = other[other_ids[e0:e1].long()].float() \
+            * g[e0:e1, None].float()
+        out.index_add_(0, seg_ids[e0:e1].long(), contrib)
+    return out

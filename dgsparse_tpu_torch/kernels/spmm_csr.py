@@ -1,10 +1,12 @@
-"""CSR SpMM (SUM/MEAN) and CSR segment sum: the Hopper kernel and its plain
-version.
+"""CSR SpMM (SUM/MEAN, one or H heads) and CSR segment sum: the Hopper
+kernel and its plain version.
 
 Counterpart of `dgsparse_tpu/kernels/pallas_spmm.py::segment_matmul` and of
-the `spmm_esc`/`gspmm_esc` (MUL) forward that drives it. The kernel is
-`csrc/spmm_csr.cu` (CUDA C++, sm_90a), built by `_build.py` and called
-through ctypes on PyTorch's current stream.
+the `spmm_esc`/`gspmm_esc` (MUL) and `spmm_esc_mh` forwards that drive it.
+The kernel is `csrc/spmm_csr.cu` (CUDA C++, sm_90a), built by `_build.py`
+and called through ctypes on PyTorch's current stream. Run over the CSC
+view (colptr, row, values permuted by csr2csc) it is the transpose the
+backward needs.
 
 Routing: `csr_spmm` and `segment_sum_csr` take the plain version in
 `kernels/reference.py` for tensors on the CPU, and launch the kernel for
@@ -20,12 +22,10 @@ from typing import Optional
 import torch
 
 from dgsparse_tpu_torch.core.transform import expand_rowptr
-from dgsparse_tpu_torch.kernels import reference
+from dgsparse_tpu_torch.kernels import _launch, reference
 from dgsparse_tpu_torch.ops.types import ReduceOp, as_reduce
 
 LAUNCHES = {"csr_spmm": 0, "segment_sum_csr": 0}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
@@ -39,41 +39,24 @@ def _lib():
 
     lib = _build.load("spmm_csr")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dg_csr_spmm.argtypes = [i, i, p, p, p, p, p, i, i, i, p]
+    lib.dg_csr_spmm.argtypes = [i, i, p, p, p, p, p, i, i, i, i, p]
     lib.dg_csr_spmm.restype = i
     lib.dg_segment_sum_csr.argtypes = [i, i, p, p, p, i, i, p]
     lib.dg_segment_sum_csr.restype = i
     return lib
 
 
-def _check(device: torch.device, **tensors) -> None:
-    if device.type != "cuda":
+def _heads(values: Optional[torch.Tensor], feat: int) -> int:
+    """Heads of an SpMM: values [nnz] is one, values [nnz, H] is H, and
+    then H must divide the feature width."""
+    if values is None or values.dim() == 1:
+        return 1
+    heads = values.shape[1]
+    if values.dim() != 2 or heads == 0 or feat % heads:
         raise ValueError(
-            f"the CUDA kernel needs tensors on a CUDA device, got {device}")
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _check_dense(name: str, t: torch.Tensor) -> None:
-    if t.dim() != 2:
-        raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
-    if t.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-
-
-def _check_index(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.int32 or t.dim() != 1:
-        raise TypeError(f"{name} must be a 1-D int32 tensor")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+            f"values {tuple(values.shape)} must be [nnz] or [nnz, H] with H "
+            f"dividing the feature width {feat}")
+    return heads
 
 
 # --- csr_spmm ----------------------------------------------------------------
@@ -86,6 +69,15 @@ def csr_spmm_plain(rowptr, col, values, dense, reduce=ReduceOp.SUM,
         coo_row = expand_rowptr(rowptr, col.shape[0])
     num_rows = rowptr.shape[0] - 1
     degrees = rowptr[1:] - rowptr[:-1] if reduce == ReduceOp.MEAN else None
+    heads = _heads(values, dense.shape[1])
+    if heads > 1:
+        n, hf = dense.shape
+        out = reference.spmm_mh(coo_row, col, values,
+                                dense.reshape(n, heads, hf // heads),
+                                num_rows, reduce, degrees)
+        return out.reshape(num_rows, hf)
+    if values is not None:
+        values = values.reshape(-1)             # [nnz] or [nnz, 1]
     out, _ = reference.spmm_forward(coo_row, col, values, dense, num_rows,
                                     reduce, degrees)
     return out
@@ -94,20 +86,23 @@ def csr_spmm_plain(rowptr, col, values, dense, reduce=ReduceOp.SUM,
 def csr_spmm_cuda(rowptr, col, values, dense,
                   reduce=ReduceOp.SUM) -> torch.Tensor:
     """The kernel: out[m] = sum_{e in row m} values[e] * dense[col[e]]
-    (values None means 1.0), MEAN divides by max(deg, 1). Raises unless
+    (values None means 1.0; values [nnz, H] scale feature j by
+    values[e, j // (F / H)]), MEAN divides by max(deg, 1). Raises unless
     every tensor is on one CUDA device with the types it takes."""
     reduce = as_reduce(reduce)
     if reduce not in (ReduceOp.SUM, ReduceOp.MEAN):
         raise NotImplementedError(f"csr_spmm handles SUM/MEAN, got {reduce}")
-    _check(dense.device, rowptr=rowptr, col=col, values=values, dense=dense)
-    _check_dense("dense", dense)
-    _check_index("rowptr", rowptr)
-    _check_index("col", col)
+    _launch.check_device(dense.device, rowptr=rowptr, col=col, values=values,
+                         dense=dense)
+    _launch.check_dense("dense", dense)
+    _launch.check_index("rowptr", rowptr)
+    _launch.check_index("col", col)
     num_rows = rowptr.shape[0] - 1
-    if values is not None and (values.dtype != torch.float32
-                               or values.shape != col.shape):
-        raise TypeError("values must be float32 with one entry per edge")
     feat = dense.shape[1]
+    heads = _heads(values, feat)
+    if values is not None and (values.dtype != torch.float32
+                               or values.shape[0] != col.shape[0]):
+        raise TypeError("values must be float32 with one row per edge")
     if num_rows == 0 or col.numel() == 0 or feat == 0:
         # a zero-size grid is an invalid launch: nothing to launch
         return torch.zeros((num_rows, feat), dtype=dense.dtype,
@@ -115,13 +110,12 @@ def csr_spmm_cuda(rowptr, col, values, dense,
     out = torch.empty((num_rows, feat), dtype=dense.dtype,
                       device=dense.device)
     err = _lib().dg_csr_spmm(
-        _DTYPE_CODE[dense.dtype], dense.device.index or 0,
+        _launch.DTYPE_CODE[dense.dtype], dense.device.index or 0,
         rowptr.data_ptr(), col.data_ptr(),
         None if values is None else values.data_ptr(),
-        dense.data_ptr(), out.data_ptr(), num_rows, feat,
-        int(reduce == ReduceOp.MEAN),
-        torch.cuda.current_stream(dense.device).cuda_stream)
-    _raise_on(err, "csr_spmm")
+        dense.data_ptr(), out.data_ptr(), num_rows, feat, heads,
+        int(reduce == ReduceOp.MEAN), _launch.stream(dense.device))
+    _launch.raise_on(err, "csr_spmm")
     LAUNCHES["csr_spmm"] += 1
     return out
 
@@ -150,9 +144,9 @@ def segment_sum_csr_plain(rowptr, contrib,
 def segment_sum_csr_cuda(rowptr, contrib) -> torch.Tensor:
     """The kernel: out[m] = sum of contrib[rowptr[m]:rowptr[m+1]] (rows of
     contributions already in CSR edge order)."""
-    _check(contrib.device, rowptr=rowptr, contrib=contrib)
-    _check_dense("contrib", contrib)
-    _check_index("rowptr", rowptr)
+    _launch.check_device(contrib.device, rowptr=rowptr, contrib=contrib)
+    _launch.check_dense("contrib", contrib)
+    _launch.check_index("rowptr", rowptr)
     num_rows = rowptr.shape[0] - 1
     feat = contrib.shape[1]
     if num_rows == 0 or contrib.shape[0] == 0 or feat == 0:
@@ -161,10 +155,10 @@ def segment_sum_csr_cuda(rowptr, contrib) -> torch.Tensor:
     out = torch.empty((num_rows, feat), dtype=contrib.dtype,
                       device=contrib.device)
     err = _lib().dg_segment_sum_csr(
-        _DTYPE_CODE[contrib.dtype], contrib.device.index or 0,
+        _launch.DTYPE_CODE[contrib.dtype], contrib.device.index or 0,
         rowptr.data_ptr(), contrib.data_ptr(), out.data_ptr(), num_rows,
-        feat, torch.cuda.current_stream(contrib.device).cuda_stream)
-    _raise_on(err, "segment_sum_csr")
+        feat, _launch.stream(contrib.device))
+    _launch.raise_on(err, "segment_sum_csr")
     LAUNCHES["segment_sum_csr"] += 1
     return out
 

@@ -114,7 +114,7 @@ def test_gcn_norm_is_bitwise_jax(self_loops):
 def test_entry_graph_matches_jax_recipe():
     # the Cora-shaped graph of __graft_entry__._synthetic_graph
     cfg = CONFIGS["cora"]
-    adj, x, _ = synthetic_graph("cora")
+    adj, x, _ = synthetic_graph("cora", device="cpu")
     n = cfg.num_nodes
     j = jx_gcn.get_gcn_dcsr_from_edge_index(
         _edge_index(n, cfg.avg_degree, seed=0), n)
@@ -132,7 +132,7 @@ def test_load_flax_params_checks_shapes(fresh):
 
 
 def test_dropout_only_in_training():
-    adj, x, _ = synthetic_graph("cora")
+    adj, x, _ = synthetic_graph("cora", device="cpu")
     model = pt_gcn.GCN(128, 64, 7, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         a, b = model.eval()(x, adj), model.eval()(x, adj)

@@ -3,9 +3,14 @@
 The JAX side runs `Algorithm.PALLAS_EDGE_TILE`, which is the Pallas
 `segment_matmul` inside `spmm_esc` (interpret mode on the CPU), and
 `Algorithm.XLA_SEGMENT`. Tolerance 1e-5: both sides sum in float32 in
-another order.
+another order. Gradients (`d_dense` over the transpose, `d_values` by
+SDDMM) at rtol 1e-4, against `jax.grad` of `jnp.vdot(out, ct)` with a
+random cotangent.
 """
 
+import types
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,12 +109,74 @@ def test_kernel_entries_refuse_cpu_tensors():
     assert spmm_csr.LAUNCHES == {"csr_spmm": 0, "segment_sum_csr": 0}
 
 
+@pytest.mark.parametrize("feat,reduce,has_value", [
+    (1, "sum", True), (7, "mean", True), (16, "sum", False),
+    (32, "mean", False), (33, "sum", True),
+])
+def test_spmm_grads_match_jax_edge_tile_and_xla(feat, reduce, has_value):
+    p, j, (_, col, v) = _pair(120, 100, seed=feat + 50,
+                              has_value=has_value)
+    rng = np.random.default_rng(feat + 51)
+    x = rng.standard_normal((100, feat)).astype(np.float32)
+    ct = rng.standard_normal((120, feat)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    if has_value:
+        vt = torch.from_numpy(v).requires_grad_()
+        p = p.set_values(vt)
+    torch.sum(pt.spmm(p, xt, reduce) * torch.from_numpy(ct)).backward()
+    for alg in (jx.Algorithm.PALLAS_EDGE_TILE, jx.Algorithm.XLA_SEGMENT):
+        def loss(vals, dense):
+            a = j.set_values(vals) if has_value else j
+            return jnp.vdot(jx.spmm(a, dense, reduce, alg), jnp.asarray(ct))
+
+        vals = jnp.asarray(v) if has_value else None
+        gv, gx = jax.grad(loss, argnums=(0, 1))(vals, jnp.asarray(x))
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx),
+                                   rtol=1e-4, atol=1e-5, err_msg=alg.name)
+        if has_value:
+            np.testing.assert_allclose(vt.grad.numpy(), np.asarray(gv),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=alg.name)
+
+
+def test_constant_values_get_no_gradient_and_no_sddmm():
+    # a GCN's adjacency: values that do not require grad skip d_values
+    from dgsparse_tpu_torch.kernels import sddmm_csr
+
+    p, _, _ = _pair(40, 30, seed=12, has_value=True)
+    x = torch.randn(30, 8, requires_grad=True,
+                    generator=torch.Generator().manual_seed(1))
+    calls = []
+    real = sddmm_csr.sddmm_csr_plain
+    sddmm_csr.sddmm_csr_plain = lambda *a, **k: calls.append(1) or real(
+        *a, **k)
+    try:
+        pt.spmm_sum(p, x).sum().backward()
+    finally:
+        sddmm_csr.sddmm_csr_plain = real
+    assert x.grad is not None and calls == []
+    assert p.storage.values().grad is None
+
+
+def test_set_values_keeps_structure_and_history():
+    p, _, _ = _pair(30, 20, seed=13, has_value=False)
+    w = torch.rand(p.nnz, requires_grad=True)
+    q = p.set_values(w * 2)
+    assert q.has_value and q.storage.rowptr() is p.storage.rowptr()
+    assert q.storage.values().grad_fn is not None
+    with pytest.raises(ValueError):
+        p.set_values(torch.ones(p.nnz + 1))
+
+
 def test_backward_raises():
-    p, _, _ = _pair(30, 30, seed=7, has_value=True)
-    x = torch.randn(30, 4, requires_grad=True)
-    out = pt.spmm_sum(p, x)
-    with pytest.raises(NotImplementedError, match="training"):
-        out.sum().backward()
+    # MAX/MIN have no backward until their kernel is ported
+    from dgsparse_tpu_torch.ops.spmm import _SpMM
+    from dgsparse_tpu_torch.ops.types import ReduceOp
+
+    for reduce in (ReduceOp.MAX, ReduceOp.MIN):
+        ctx = types.SimpleNamespace(reduce=reduce)
+        with pytest.raises(NotImplementedError, match="MAX/MIN"):
+            _SpMM.backward(ctx, torch.ones(3, 4))
 
 
 def test_spmm_shape_and_reduce_checks():
