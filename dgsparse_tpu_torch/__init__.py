@@ -3,12 +3,15 @@
 The JAX package `dgsparse_tpu` stays beside it as the reference; each
 ported piece keeps its counterpart's module path and names and is tested
 against it. This package imports torch and never JAX. What is ported so
-far: CSR formats, SUM/MEAN SpMM (single- and multi-head) with both
-gradients, SDDMM, edge softmax, and the GCN and GAT models with their
-training steps (`entry.py`). Two kernels, CUDA C++ for Hopper (sm_90a),
-carry them: `csrc/spmm_csr.cu` replaces the Pallas `segment_matmul` and
-`csrc/sddmm_csr.cu` the Pallas `sddmm_esc`; tensors on the CPU run their
-plain PyTorch versions.
+far: CSR formats, SpMM with SUM/MEAN/MAX/MIN (single- and multi-head,
+CSR and COO) with both gradients, the semiring `gspmm` grid, SDDMM, edge
+softmax, the sorted segment sum, the GCN, GAT, GIN, SAGE and DGCNN models,
+and GCN, GAT and GIN-max serving and training (`entry.py`). Three kernel
+sources, CUDA C++ for Hopper (sm_90a), carry them: `csrc/spmm_csr.cu`
+replaces the Pallas `segment_matmul`, `csrc/sddmm_csr.cu` the Pallas
+`sddmm_esc`, and `csrc/spmm_maxmin.cu` the Pallas `spmm_maxmin_esc` and
+its XLA winner-mask backward; tensors on the CPU run their plain PyTorch
+versions.
 """
 
 __version__ = "0.1.0"
@@ -17,11 +20,15 @@ from dgsparse_tpu_torch.core import ftransform
 from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
 from dgsparse_tpu_torch.core.transform import coo2csr, csr2coo, csr2csc
 from dgsparse_tpu_torch.ops.edge_softmax import edge_softmax
+from dgsparse_tpu_torch.ops.gspmm import GSpMM_u, GSpMM_u_e, gspmm
 from dgsparse_tpu_torch.ops.sddmm import sddmm, sddmm_coo
-from dgsparse_tpu_torch.ops.spmm import spmm, spmm_mean, spmm_sum
+from dgsparse_tpu_torch.ops.segment import sorted_segment_sum
+from dgsparse_tpu_torch.ops.spmm import (spmm, spmm_max, spmm_mean, spmm_min,
+                                         spmm_sum)
+from dgsparse_tpu_torch.ops.spmm_coo import spmm_coo
 from dgsparse_tpu_torch.ops.spmm_mh import spmm_multihead
 from dgsparse_tpu_torch.ops.types import Algorithm, ComputeOp, ReduceOp
-from dgsparse_tpu_torch import nn  # noqa: E402  (nn.GCN, nn.GAT)
+from dgsparse_tpu_torch import nn  # noqa: E402  (nn.GCN, nn.GIN, ...)
 
 
 def version() -> dict:
@@ -76,7 +83,14 @@ __all__ = [
     "spmm",
     "spmm_sum",
     "spmm_mean",
+    "spmm_max",
+    "spmm_min",
     "spmm_multihead",
+    "spmm_coo",
+    "gspmm",
+    "GSpMM_u_e",
+    "GSpMM_u",
+    "sorted_segment_sum",
     "sddmm",
     "sddmm_coo",
     "edge_softmax",

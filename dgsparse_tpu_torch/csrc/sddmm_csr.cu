@@ -28,24 +28,13 @@
 //     output once: no atomics, no zero-fill, deterministic.
 // Rows map to gridDim.x; empty rows write nothing (they own no edges).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
-#include <cstdint>
+using namespace dg;
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxK = 8;  // elements a lane holds per chunk: 256 features
-constexpr unsigned kFullMask = 0xffffffffu;
-
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Lane lg of a head's group holds features ch*LPH*K + lg + k*LPH, k < K.
 template <typename T, int K, int LPH>

@@ -30,40 +30,11 @@
 // one head read one address). A vector never straddles two heads: VEC
 // divides F. H = 1 runs the single-value path unchanged.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
-#include <cstdint>
+using namespace dg;
 
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// VEC consecutive elements moved as one aligned load or store.
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Packed {
-  T v[VEC];
-};
 
 // out[m, f] = (sum over e in [rowptr[m], rowptr[m+1]) of w[e] * src[r(e), f])
 //             / (MEAN ? max(deg, 1) : 1)
@@ -120,10 +91,6 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   for (int k = 0; k < VEC; ++k) y.v[k] = from_float<T>(acc[k] / denom);
   *reinterpret_cast<Packed<T, VEC>*>(out + static_cast<int64_t>(row) * feat +
                                      f0) = y;
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // Widest vector (at most 16 bytes) that divides the head width (so it

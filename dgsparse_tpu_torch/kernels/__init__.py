@@ -6,15 +6,17 @@ reset all of them at once.
 """
 
 
+def _modules():
+    from dgsparse_tpu_torch.kernels import sddmm_csr, spmm_csr, spmm_maxmin
+
+    return spmm_csr, sddmm_csr, spmm_maxmin
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset, all modules."""
-    from dgsparse_tpu_torch.kernels import sddmm_csr, spmm_csr
-
-    return {**spmm_csr.LAUNCHES, **sddmm_csr.LAUNCHES}
+    return {k: v for m in _modules() for k, v in m.LAUNCHES.items()}
 
 
 def reset_launch_counts() -> None:
-    from dgsparse_tpu_torch.kernels import sddmm_csr, spmm_csr
-
-    spmm_csr.reset_launch_counts()
-    sddmm_csr.reset_launch_counts()
+    for m in _modules():
+        m.reset_launch_counts()

@@ -36,6 +36,26 @@ def check_index(name: str, t: torch.Tensor) -> None:
         raise TypeError(f"{name} must be a 1-D int32 tensor")
 
 
+def heads_of(values, feat: int) -> int:
+    """Heads of per-edge values: None or [nnz] is one, [nnz, H] is H, and
+    then H must divide the feature width."""
+    if values is None or values.dim() == 1:
+        return 1
+    heads = values.shape[1]
+    if values.dim() != 2 or heads == 0 or feat % heads:
+        raise ValueError(
+            f"values {tuple(values.shape)} must be [nnz] or [nnz, H] with H "
+            f"dividing the feature width {feat}")
+    return heads
+
+
+def check_values(name: str, values, nnz: int) -> None:
+    """Per-edge values (None skipped) in float32, one row per edge."""
+    if values is not None and (values.dtype != torch.float32
+                               or values.shape[0] != nnz):
+        raise TypeError(f"{name} must be float32 with one row per edge")
+
+
 def stream(device: torch.device) -> int:
     """PyTorch's current stream on `device`, as the kernels take it."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -46,19 +46,6 @@ def _lib():
     return lib
 
 
-def _heads(values: Optional[torch.Tensor], feat: int) -> int:
-    """Heads of an SpMM: values [nnz] is one, values [nnz, H] is H, and
-    then H must divide the feature width."""
-    if values is None or values.dim() == 1:
-        return 1
-    heads = values.shape[1]
-    if values.dim() != 2 or heads == 0 or feat % heads:
-        raise ValueError(
-            f"values {tuple(values.shape)} must be [nnz] or [nnz, H] with H "
-            f"dividing the feature width {feat}")
-    return heads
-
-
 # --- csr_spmm ----------------------------------------------------------------
 
 def csr_spmm_plain(rowptr, col, values, dense, reduce=ReduceOp.SUM,
@@ -69,7 +56,7 @@ def csr_spmm_plain(rowptr, col, values, dense, reduce=ReduceOp.SUM,
         coo_row = expand_rowptr(rowptr, col.shape[0])
     num_rows = rowptr.shape[0] - 1
     degrees = rowptr[1:] - rowptr[:-1] if reduce == ReduceOp.MEAN else None
-    heads = _heads(values, dense.shape[1])
+    heads = _launch.heads_of(values, dense.shape[1])
     if heads > 1:
         n, hf = dense.shape
         out = reference.spmm_mh(coo_row, col, values,
@@ -99,10 +86,8 @@ def csr_spmm_cuda(rowptr, col, values, dense,
     _launch.check_index("col", col)
     num_rows = rowptr.shape[0] - 1
     feat = dense.shape[1]
-    heads = _heads(values, feat)
-    if values is not None and (values.dtype != torch.float32
-                               or values.shape[0] != col.shape[0]):
-        raise TypeError("values must be float32 with one row per edge")
+    heads = _launch.heads_of(values, feat)
+    _launch.check_values("values", values, col.shape[0])
     if num_rows == 0 or col.numel() == 0 or feat == 0:
         # a zero-size grid is an invalid launch: nothing to launch
         return torch.zeros((num_rows, feat), dtype=dense.dtype,

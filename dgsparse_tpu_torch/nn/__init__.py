@@ -1,24 +1,29 @@
-"""Graph neural network modules (counterpart of dgsparse_tpu/nn)."""
+"""Graph neural network modules (counterpart of dgsparse_tpu/nn).
 
-from dgsparse_tpu_torch.nn import gat as _gat
-from dgsparse_tpu_torch.nn import gcn as _gcn
+Module and parameter names follow flax's, so `load_flax_params` copies a
+JAX model's params into any of them by path.
+"""
+
+from dgsparse_tpu_torch.nn._flax import load_flax_params
+from dgsparse_tpu_torch.nn.edgeconv import DGCNN, EdgeConv
 from dgsparse_tpu_torch.nn.gat import GAT, GATConv
 from dgsparse_tpu_torch.nn.gcn import (GCN, GCNConv, gcn_norm_from_edge_index,
                                        get_gcn_dcsr_from_edge_index)
-
-
-def load_flax_params(model, params):
-    """Copy the JAX package's flax params into a GCN or a GAT."""
-    if isinstance(model, GAT):
-        return _gat.load_flax_params(model, params)
-    return _gcn.load_flax_params(model, params)
-
+from dgsparse_tpu_torch.nn.gin import GIN, MLP, GINConv
+from dgsparse_tpu_torch.nn.sage import SAGE, SAGEConv
 
 __all__ = [
+    "DGCNN",
+    "EdgeConv",
     "GAT",
     "GATConv",
     "GCN",
     "GCNConv",
+    "GIN",
+    "GINConv",
+    "MLP",
+    "SAGE",
+    "SAGEConv",
     "gcn_norm_from_edge_index",
     "get_gcn_dcsr_from_edge_index",
     "load_flax_params",

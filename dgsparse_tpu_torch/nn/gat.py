@@ -14,13 +14,13 @@ kernel).
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from dgsparse_tpu_torch.core.formats import SparseTensor
 from dgsparse_tpu_torch.core.transform import gather_rows
+from dgsparse_tpu_torch.nn._flax import init_like_flax_dense
 from dgsparse_tpu_torch.ops.edge_softmax import edge_softmax
 from dgsparse_tpu_torch.ops.spmm_mh import spmm_multihead
 from dgsparse_tpu_torch.ops.types import Algorithm
@@ -50,9 +50,7 @@ class GATConv(nn.Module):
         """flax's defaults: the Dense kernel LeCun-normal truncated at two
         standard deviations; a_dst/a_src glorot-uniform over fan_in = H,
         fan_out = F."""
-        std = math.sqrt(1.0 / self.proj.in_features) / .87962566103423978
-        nn.init.trunc_normal_(self.proj.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
+        init_like_flax_dense(self.proj, generator)
         limit = math.sqrt(6.0 / (self.num_heads + self.out_features))
         for a in (self.a_dst, self.a_src):
             a.uniform_(-limit, limit, generator=generator)
@@ -86,24 +84,3 @@ class GAT(nn.Module):
 
     def forward(self, x: torch.Tensor, adj: SparseTensor) -> torch.Tensor:
         return self.gat2(F.elu(self.gat1(x, adj)), adj)
-
-
-@torch.no_grad()
-def load_flax_params(model: GAT, params) -> GAT:
-    """Copy the JAX package's flax GAT params (numpy arrays, with or
-    without the top-level 'params' key) into `model`: each `proj.kernel`
-    [in, H*F] becomes the Linear weight's transpose, `a_dst`/`a_src` [H, F]
-    are copied as they are."""
-    params = params.get("params", params)
-    for name in ("gat1", "gat2"):
-        layer, p = getattr(model, name), params[name]
-        pairs = ((layer.proj.weight, np.asarray(p["proj"]["kernel"]).T),
-                 (layer.a_dst, np.asarray(p["a_dst"])),
-                 (layer.a_src, np.asarray(p["a_src"])))
-        for target, value in pairs:
-            if tuple(value.shape) != tuple(target.shape):
-                raise ValueError(
-                    f"{name}: flax array of shape {value.shape} does not "
-                    f"fit {tuple(target.shape)}")
-            target.copy_(torch.tensor(value))
-    return model

@@ -6,7 +6,6 @@ host-side numpy step, producing a SparseTensor once; the model is a
 package, the bias is added before the aggregation: A·(XW + b).
 """
 
-import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -15,6 +14,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from dgsparse_tpu_torch.core.formats import SparseTensor
+from dgsparse_tpu_torch.nn._flax import (  # noqa: F401  (load_flax_params)
+    init_like_flax_dense, load_flax_params)
 from dgsparse_tpu_torch.ops.spmm import spmm_sum
 from dgsparse_tpu_torch.ops.types import Algorithm
 
@@ -61,15 +62,9 @@ class GCNConv(nn.Module):
         self.linear = nn.Linear(in_features, out_features)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self,
                          generator: Optional[torch.Generator] = None) -> None:
-        """flax Dense's defaults: a LeCun-normal kernel truncated at two
-        standard deviations, and a zero bias."""
-        std = math.sqrt(1.0 / self.linear.in_features) / .87962566103423978
-        nn.init.trunc_normal_(self.linear.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-        self.linear.bias.zero_()
+        init_like_flax_dense(self.linear, generator)
 
     def forward(self, x: torch.Tensor, adj: SparseTensor) -> torch.Tensor:
         return spmm_sum(adj, self.linear(x), self.algorithm)
@@ -94,24 +89,3 @@ class GCN(nn.Module):
         x = F.relu(self.conv1(x, adj))
         x = F.dropout(x, self.dropout, training=self.training)
         return self.conv2(x, adj)
-
-
-@torch.no_grad()
-def load_flax_params(model: GCN, params) -> GCN:
-    """Copy the JAX package's flax GCN params (numpy arrays, with or
-    without the top-level 'params' key) into `model`. flax stores each
-    Dense kernel as [in, out], so nn.Linear.weight gets its transpose."""
-    params = params.get("params", params)
-    for name in ("conv1", "conv2"):
-        dense = params[name]["linear"]
-        linear = getattr(model, name).linear
-        kernel = torch.tensor(np.asarray(dense["kernel"])).T
-        bias = torch.tensor(np.asarray(dense["bias"]))
-        if kernel.shape != linear.weight.shape \
-                or bias.shape != linear.bias.shape:
-            raise ValueError(
-                f"{name}: flax kernel {tuple(kernel.shape[::-1])} / bias "
-                f"{tuple(bias.shape)} do not fit {linear}")
-        linear.weight.copy_(kernel)
-        linear.bias.copy_(bias)
-    return model

@@ -48,3 +48,8 @@ def as_reduce(op) -> ReduceOp:
         return op
     return ReduceOp(str(op).lower())
 
+
+def as_compute(op) -> ComputeOp:
+    if isinstance(op, ComputeOp):
+        return op
+    return ComputeOp(str(op).lower())

@@ -1,8 +1,8 @@
-"""Deterministic synthetic graphs, a slow numpy SpMM oracle, a check for
-sums taken in different orders, and the port's side of the frozen
-training fixture.
+"""Deterministic synthetic graphs, slow numpy SpMM and semiring SpMM
+oracles, a check for sums taken in different orders, and the port's side
+of the frozen training fixtures.
 
-`random_csr` and `spmm_oracle` are copies of those in
+`random_csr`, `spmm_oracle` and `gspmm_oracle` are copies of those in
 `dgsparse_tpu/utils/testing.py`, so the port and `chip_smoke.py` build the
 same seeded graphs without importing JAX.
 """
@@ -98,12 +98,43 @@ def spmm_oracle(
     return out
 
 
-# --- the training fixture (tests/fixtures/torch_port/train_small.npz) --------
+def gspmm_oracle(rowptr, col, values, dense, reduce, compute):
+    """Semiring oracle: compute(edge, feat) then reduce."""
+    m = len(rowptr) - 1
+    out = np.zeros((m, dense.shape[1]), dense.dtype)
+    for r in range(m):
+        s, e = int(rowptr[r]), int(rowptr[r + 1])
+        if s == e:
+            continue
+        feat = dense[col[s:e]]
+        if values is None:
+            c = feat
+        else:
+            ev = values[s:e, None]
+            c = {
+                "add": feat + ev,
+                "sub": feat - ev,
+                "mul": feat * ev,
+                "div": feat / ev,
+            }[compute]
+        out[r] = {
+            "sum": c.sum(0),
+            "mean": c.mean(0),
+            "max": c.max(0),
+            "min": c.min(0),
+        }[reduce]
+    return out
+
+
+# --- the training fixtures (tests/fixtures/torch_port/*.npz) -----------------
 #
-# Keys: the graph ("rowptr", "col", "vals", "x", "y") and, per model name
-# ("gcn", "gat"), "<name>/dims" (the constructor's sizes), the initial flax
-# params under "<name>/params/<flax path>", the JAX losses of 3 Adam steps
-# "<name>/losses" and the step-1 gradients "<name>/grads/<flax path>".
+# train_small.npz keys: the graph ("rowptr", "col", "vals", "x", "y") and,
+# per model name ("gcn", "gat"), "<name>/dims" (the constructor's sizes),
+# the initial flax params under "<name>/params/<flax path>", the JAX losses
+# of 3 Adam steps "<name>/losses" and the step-1 gradients
+# "<name>/grads/<flax path>". gin_small.npz has the same keys for "gin"
+# (dims: in, hidden, out, num_layers; MAX aggregation), a graph without
+# "vals", and the eval-mode forward of the initial params, "gin/out".
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
@@ -128,30 +159,46 @@ def _torch_param(model, path: str):
     return getattr(model, leaf), False
 
 
+def fixture_model(fx: dict, name: str, device):
+    """(model, adj, x, y) of the fixture's `name` model on `device`, with
+    the fixture's initial flax params, in eval mode."""
+    import torch
+
+    from dgsparse_tpu_torch.core.formats import SparseTensor
+    from dgsparse_tpu_torch.nn import GAT, GCN, GIN, load_flax_params
+
+    n = fx["x"].shape[0]
+    vals = torch.from_numpy(fx["vals"]) if "vals" in fx else None
+    adj = SparseTensor.from_csr(fx["rowptr"], fx["col"], vals,
+                                sparse_sizes=(n, n), device=device)
+    dims = [int(d) for d in fx[f"{name}/dims"]]
+    if name == "gin":
+        model = GIN(*dims[:3], num_layers=dims[3], aggregator_type="max")
+    else:
+        model = GCN(*dims) if name == "gcn" else GAT(*dims)
+    model = model.to(device).eval()
+    load_flax_params(model, _unflatten(_fixture_params(fx, name)))
+    x = torch.from_numpy(fx["x"]).to(device)
+    y = torch.from_numpy(fx["y"]).long().to(device)
+    return model, adj, x, y
+
+
+def _fixture_params(fx: dict, name: str) -> Dict[str, np.ndarray]:
+    prefix = f"{name}/params/"
+    return {k[len(prefix):]: v for k, v in fx.items() if k.startswith(prefix)}
+
+
 def run_train_fixture(fx: dict, name: str, device, steps: int = 3
                       ) -> Tuple[List[float], Dict[str, np.ndarray]]:
     """The port's run of the fixture's `name` model on `device`: the loss
     of each of `steps` Adam steps and the step-1 gradients keyed by flax
     path, in flax layout. Same graph, inputs, initial params and protocol
     as the JAX run that wrote the fixture."""
-    import torch
-
-    from dgsparse_tpu_torch.core.formats import SparseTensor
     from dgsparse_tpu_torch.entry import build_optimizer, train_step
-    from dgsparse_tpu_torch.nn import GAT, GCN, load_flax_params
 
-    n = fx["x"].shape[0]
-    adj = SparseTensor.from_csr(fx["rowptr"], fx["col"],
-                                torch.from_numpy(fx["vals"]),
-                                sparse_sizes=(n, n), device=device)
-    dims = [int(d) for d in fx[f"{name}/dims"]]
-    model = (GCN(*dims) if name == "gcn" else GAT(*dims)).to(device).eval()
-    prefix = f"{name}/params/"
-    flat = {k[len(prefix):]: v for k, v in fx.items() if k.startswith(prefix)}
-    load_flax_params(model, _unflatten(flat))
+    model, adj, x, y = fixture_model(fx, name, device)
+    flat = _fixture_params(fx, name)
     opt = build_optimizer(model)
-    x = torch.from_numpy(fx["x"]).to(device)
-    y = torch.from_numpy(fx["y"]).long().to(device)
     losses, grads = [], {}
     for step in range(steps):
         losses.append(float(train_step(model, opt, x, adj, y)))
@@ -161,6 +208,18 @@ def run_train_fixture(fx: dict, name: str, device, steps: int = 3
                 g = param.grad.T if transposed else param.grad
                 grads[path] = g.detach().cpu().numpy()
     return losses, grads
+
+
+def run_gin_fixture(fx: dict, device, steps: int = 3):
+    """The port's run of gin_small.npz on `device`: (the eval-mode forward
+    of the initial params, the losses of `steps` Adam steps, the step-1
+    gradients keyed by flax path)."""
+    import torch
+
+    model, adj, x, _ = fixture_model(fx, "gin", device)
+    with torch.inference_mode():
+        out = model(x, adj).cpu().numpy()
+    return (out, *run_train_fixture(fx, "gin", device, steps))
 
 
 def assert_train_close(losses, grads, ref_losses, ref_grads,

@@ -153,6 +153,11 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, dgsparse_tpu_torch, dgsparse_tpu_torch.entry, "
             "dgsparse_tpu_torch.nn, dgsparse_tpu_torch.utils.bench, "
             "dgsparse_tpu_torch.kernels.spmm_csr, "
+            "dgsparse_tpu_torch.kernels.spmm_maxmin, "
+            "dgsparse_tpu_torch.ops.gspmm, dgsparse_tpu_torch.ops.segment, "
+            "dgsparse_tpu_torch.ops.spmm_coo, dgsparse_tpu_torch.nn.gin, "
+            "dgsparse_tpu_torch.nn.sage, dgsparse_tpu_torch.nn.edgeconv, "
+            "dgsparse_tpu_torch.utils.testing, "
             "dgsparse_tpu_torch.kernels._build; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'dgsparse_tpu.', 'flax'))"

@@ -122,8 +122,8 @@ def test_gat_init_follows_flax_defaults():
 def test_spmm_multihead_refuses_what_is_not_ported():
     p, _, nnz = _pair(seed=8)
     x = torch.ones(N, H, F)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.spmm_multihead(p, torch.ones(nnz, H), x, "max")
+    with pytest.raises(ValueError):
+        pt.spmm_multihead(p, torch.ones(nnz, H), x, "prod")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.spmm_multihead(p, [object()] * H, x)
     with pytest.raises(ValueError):

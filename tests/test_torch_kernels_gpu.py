@@ -232,7 +232,9 @@ def test_sddmm_launch_counts_and_empty_inputs(cuda):
     sddmm_csr.sddmm_csr(rowptr, col, torch.ones(3000, 8, device=cuda),
                         torch.ones(2500, 8, device=cuda), 2)
     assert launch_counts() == {"csr_spmm": 0, "segment_sum_csr": 0,
-                               "sddmm_csr": 1}
+                               "sddmm_csr": 1, "spmm_maxmin": 0,
+                               "spmm_maxmin_d_dense": 0,
+                               "spmm_maxmin_d_values": 0}
     empty = torch.zeros(4, dtype=torch.int32, device=cuda)
     out = sddmm_csr.sddmm_csr(empty, empty[:0], torch.ones(3, 8, device=cuda),
                               torch.ones(5, 8, device=cuda))
@@ -288,3 +290,170 @@ def test_train_entry_on_card(cuda, config):
     counts = launch_counts()
     assert (counts["csr_spmm"], counts["sddmm_csr"]) == (3 * csr, 3 * sddmm)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# --- spmm_maxmin and its backward --------------------------------------------
+#
+# The forward's values and winning edges match the plain version exactly:
+# both combine in float32 (IEEE division) and keep the earliest winner. The
+# backward's sums (a column's winners, a row's features) are taken in
+# another order, hence `assert_sum_close`.
+
+def _maxmin_inputs(cuda, seed, heads, feat, compute, integer=False):
+    rowptr, col, _ = _graph(cuda, seed, False)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if integer:
+        x = torch.randint(-2, 3, (2500, heads * feat), generator=g,
+                          device=cuda).float()
+    else:
+        x = torch.randn(2500, heads * feat, generator=g, device=cuda)
+    values = None
+    if compute is not None:
+        # |v| in [0.5, 2]: DIV and its gradient divide by the values
+        values = (torch.rand(col.numel(), heads, generator=g, device=cuda)
+                  * 1.5 + 0.5) * (torch.randint(0, 2, (col.numel(), heads),
+                                                generator=g, device=cuda)
+                                  * 2 - 1)
+        if integer:
+            values = values.sign()
+    return rowptr, col, values, x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+@pytest.mark.parametrize("compute", [None, "add", "sub", "mul", "div"])
+@pytest.mark.parametrize("heads,feat", [(1, 7), (1, 64), (1, 256), (4, 16)])
+def test_spmm_maxmin_matches_plain(cuda, heads, feat, compute, reduce,
+                                   dtype):
+    from dgsparse_tpu_torch.kernels import spmm_maxmin
+
+    rowptr, col, values, x = _maxmin_inputs(cuda, feat + heads, heads, feat,
+                                            compute)
+    x = x.to(getattr(torch, dtype))
+    op = compute or "mul"
+    out, arg = spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x, reduce,
+                                            op)
+    ref, ref_arg = spmm_maxmin.spmm_maxmin_plain(rowptr, col, values, x,
+                                                 reduce, op)
+    torch.cuda.synchronize()
+    assert out.dtype == x.dtype and arg.dtype == torch.int32
+    assert torch.equal(arg, ref_arg)
+    assert torch.equal(out, ref)
+    empty = rowptr[1:] == rowptr[:-1]
+    assert bool((arg[empty] == col.numel()).all())
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("compute", [None, "mul"])
+def test_spmm_maxmin_ties_keep_the_earliest_edge(cuda, heads, compute):
+    from dgsparse_tpu_torch.kernels import spmm_maxmin
+
+    rowptr, col, values, x = _maxmin_inputs(cuda, 7, heads, 32, compute,
+                                            integer=True)
+    for reduce in ("max", "min"):
+        out, arg = spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x,
+                                                reduce)
+        ref, ref_arg = spmm_maxmin.spmm_maxmin_plain(rowptr, col, values, x,
+                                                     reduce)
+        torch.cuda.synchronize()
+        assert torch.equal(arg, ref_arg) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weights", [None, "one", "heads"])
+def test_spmm_maxmin_d_dense_matches_plain(cuda, weights, dtype):
+    from dgsparse_tpu_torch.kernels import spmm_maxmin
+
+    heads = 4 if weights == "heads" else 1
+    rowptr, col, values, x = _maxmin_inputs(cuda, 11, heads, 64 // heads,
+                                            None if weights is None
+                                            else "mul")
+    adj = pt.SparseTensor.from_csr(rowptr.cpu(), col.cpu(),
+                                   sparse_sizes=(3000, 2500), device=cuda)
+    st = adj.storage
+    _, arg = spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x)
+    g = torch.randn(3000, 64, device=cuda).to(getattr(torch, dtype))
+    w = None if values is None else values[st.csr2csc().long()].contiguous()
+    out = spmm_maxmin.spmm_maxmin_d_dense_cuda(st.colptr(), st.row(),
+                                               st.csr2csc(), w, arg, g)
+    ref = spmm_maxmin.spmm_maxmin_d_dense_plain(st.colptr(), st.row(),
+                                                st.csr2csc(), w, arg, g)
+    abs_sum = spmm_maxmin.spmm_maxmin_d_dense_plain(
+        st.colptr(), st.row(), st.csr2csc(),
+        None if w is None else w.abs(), arg, g.float().abs())
+    torch.cuda.synchronize()
+    assert out.dtype == g.dtype
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dot", [True, False])
+@pytest.mark.parametrize("heads,feat", [(1, 7), (1, 300), (4, 16)])
+def test_spmm_maxmin_d_values_matches_plain(cuda, heads, feat, dot, dtype):
+    from dgsparse_tpu_torch.kernels import spmm_maxmin
+
+    rowptr, col, values, x = _maxmin_inputs(cuda, feat + 20, heads, feat,
+                                            "mul")
+    x = x.to(getattr(torch, dtype))
+    _, arg = spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x)
+    g = torch.randn(3000, heads * feat, device=cuda).to(x.dtype)
+    dense = x if dot else None
+    out = spmm_maxmin.spmm_maxmin_d_values_cuda(rowptr, col, arg, g, dense,
+                                                heads)
+    ref = spmm_maxmin.spmm_maxmin_d_values_plain(rowptr, col, arg, g, dense,
+                                                 heads)
+    abs_sum = spmm_maxmin.spmm_maxmin_d_values_plain(
+        rowptr, col, arg, g.float().abs(),
+        None if dense is None else dense.float().abs(), heads)
+    torch.cuda.synchronize()
+    assert out.shape == (col.numel(), heads) and out.dtype == torch.float32
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+
+
+def test_spmm_maxmin_launch_counts_and_bad_inputs(cuda):
+    from dgsparse_tpu_torch.kernels import spmm_maxmin
+
+    reset_launch_counts()
+    rowptr, col, values, x = _maxmin_inputs(cuda, 12, 1, 8, "mul")
+    out, arg = spmm_maxmin.spmm_maxmin(rowptr, col, values, x, "min")
+    assert spmm_maxmin.LAUNCHES["spmm_maxmin"] == 1
+    empty = torch.zeros(4, dtype=torch.int32, device=cuda)
+    out, arg = spmm_maxmin.spmm_maxmin(empty, empty[:0], None,
+                                       torch.ones(5, 8, device=cuda))
+    assert out.shape == (3, 8) and not out.any() and not arg.any()
+    assert spmm_maxmin.LAUNCHES["spmm_maxmin"] == 1   # no launch, nnz == 0
+    with pytest.raises(TypeError):
+        spmm_maxmin.spmm_maxmin_cuda(rowptr.long(), col, values, x)
+    with pytest.raises(TypeError):
+        spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values.double(), x)
+    with pytest.raises(ValueError):
+        spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x.t())
+    with pytest.raises(ValueError):
+        spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x, "sum")
+
+
+def test_gin_matches_frozen_jax_fixture(cuda):
+    from dgsparse_tpu_torch.utils.testing import run_gin_fixture
+
+    with np.load(FIXTURES / "gin_small.npz") as fx:
+        fx = dict(fx)
+    reset_launch_counts()
+    out, losses, grads = run_gin_fixture(fx, cuda, steps=3)
+    counts = launch_counts()
+    # 2 forwards per step plus the eval forward; 1 d_dense per step
+    assert (counts["spmm_maxmin"], counts["spmm_maxmin_d_dense"],
+            counts["spmm_maxmin_d_values"]) == (2 + 3 * 2, 3, 0)
+    np.testing.assert_allclose(out, fx["gin/out"], rtol=1e-4, atol=1e-4)
+    prefix = "gin/grads/"
+    assert_train_close(losses, grads, fx["gin/losses"],
+                       {k[len(prefix):]: v for k, v in fx.items()
+                        if k.startswith(prefix)})
+
+
+def test_gin_max_entry_on_card(cuda):
+    reset_launch_counts()
+    losses = entry.train("gin-max-cora", 3)
+    counts = launch_counts()
+    assert (counts["spmm_maxmin"], counts["spmm_maxmin_d_dense"],
+            counts["spmm_maxmin_d_values"]) == (6, 3, 0)
+    assert np.isfinite(losses).all()

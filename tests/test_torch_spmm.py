@@ -8,8 +8,6 @@ SDDMM) at rtol 1e-4, against `jax.grad` of `jnp.vdot(out, ct)` with a
 random cotangent.
 """
 
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,14 +167,25 @@ def test_set_values_keeps_structure_and_history():
 
 
 def test_backward_raises():
-    # MAX/MIN have no backward until their kernel is ported
-    from dgsparse_tpu_torch.ops.spmm import _SpMM
-    from dgsparse_tpu_torch.ops.types import ReduceOp
+    # the MAX/MIN backward's kernel entries refuse CPU tensors rather than
+    # run anything else, and a SUM/MEAN SpMM takes no other compute than MUL
+    from dgsparse_tpu_torch.kernels import spmm_maxmin
+    from dgsparse_tpu_torch.ops.spmm import aggregate
+    from dgsparse_tpu_torch.ops.types import ComputeOp, ReduceOp
 
-    for reduce in (ReduceOp.MAX, ReduceOp.MIN):
-        ctx = types.SimpleNamespace(reduce=reduce)
-        with pytest.raises(NotImplementedError, match="MAX/MIN"):
-            _SpMM.backward(ctx, torch.ones(3, 4))
+    p, _, (rowptr, col, _) = _pair(20, 10, seed=14, has_value=False)
+    st = p.storage
+    g = torch.ones(20, 4)
+    arg = torch.zeros(20, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm_maxmin.spmm_maxmin_d_dense_cuda(st.colptr(), st.row(),
+                                             st.csr2csc(), None, arg, g)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm_maxmin.spmm_maxmin_d_values_cuda(st.rowptr(), st.col(), arg, g,
+                                              None)
+    for reduce in (ReduceOp.SUM, ReduceOp.MEAN):
+        with pytest.raises(ValueError, match="multiplies"):
+            aggregate(None, torch.ones(10, 1, 4), st, reduce, ComputeOp.ADD)
 
 
 def test_spmm_shape_and_reduce_checks():
@@ -185,8 +194,10 @@ def test_spmm_shape_and_reduce_checks():
         pt.spmm_sum(p, torch.ones(21, 4))
     with pytest.raises(ValueError):
         pt.spmm_sum(p, torch.ones(20))
-    with pytest.raises(NotImplementedError):
-        pt.spmm(p, torch.ones(20, 4), "max")
+    with pytest.raises(ValueError):
+        pt.spmm(p, torch.ones(20, 4), "prod")
+    with pytest.raises(ValueError):
+        pt.spmm_max(p, torch.ones(21, 4))
 
 
 def test_empty_graph_gives_zeros():
