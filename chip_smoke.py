@@ -6,9 +6,9 @@
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without a result line:
   1. device: the card's name and power limit; TF32 off.
-  2. build: csrc/spmm_csr.cu, csrc/sddmm_csr.cu and csrc/spmm_maxmin.cu
-     for sm_90a, one nvcc each, started together, with ptxas's resource
-     lines.
+  2. build: csrc/spmm_csr.cu, csrc/sddmm_csr.cu, csrc/spmm_maxmin.cu,
+     csrc/spmm_cells.cu and csrc/spmm_bell.cu for sm_90a, one nvcc each,
+     started together, with ptxas's resource lines.
   3. kernels vs their plain PyTorch versions on the card, on a
      p2p-Gnutella31-shaped synthetic graph and on a graph with empty rows:
      - csr_spmm and segment_sum_csr at F=32 (p2p) and F in {1, 7, 32, 64,
@@ -35,28 +35,40 @@ exits non-zero without a result line:
      - d_dense (weights none, per edge, per head) and d_values ("dot" and
        "sum", 1 and 4 heads), both dtypes, at 1e-5 / 1e-2 scaled by the
        terms' absolute sum.
+     Then the hybrid tiers' kernels, spmm_dense_cells (forward and
+     transpose), spmm_bell (SUM and MEAN) and sddmm_cells, against their
+     plain versions, fp32 and bf16, on a small clustered graph where every
+     tier is non-empty and one row block has no dense cell (F in {1, 41,
+     64, 130}) and on the Reddit-scale storage (F = 64 and 41).
   4. fixtures: the port's GCN forward against the JAX package's frozen
      output (tests/fixtures/torch_port/gcn_small.npz) at 1e-4; its GCN and
      GAT training against the frozen JAX training run (train_small.npz),
      and its 3-layer GIN-max forward and training against gin_small.npz:
      3 Adam steps on the kernel path, losses at 1e-4, step-1 gradients at
-     rtol 1e-4 and atol 1e-5 * max|g|.
+     rtol 1e-4 and atol 1e-5 * max|g|; and a GCN on the hybrid route
+     against the JAX package's PALLAS_ROW_TILE run (hybrid_small.npz): the
+     forward and 2 Adam steps, with exact launches.
   5. main path 1, serving: 5 forward requests each of the GCN at the Cora
-     shape and at the arxiv scale, and of the 3-layer GIN-max on both
-     graphs (`entry.SERVE_CONFIGS`), eval mode under inference_mode,
-     through the kernels (per forward: GCN 2 csr_spmm, GIN 2 spmm_maxmin,
-     nothing else), checked finite and against the same model with the
-     plain versions at 1e-4.
+     shape, at the arxiv scale and at the Reddit scale (232,965 nodes,
+     ~114.8 M edges, 602 -> 64 -> 41, on its hybrid plan), and of the
+     3-layer GIN-max on Cora and arxiv (`entry.SERVE_CONFIGS`), eval mode
+     under inference_mode, through the kernels (per forward: GCN 2
+     csr_spmm, the Reddit GCN 2 spmm_dense_cells, 2 spmm_bell and 2
+     csr_spmm for the residue, GIN 2 spmm_maxmin, nothing else), checked
+     finite and against the same model with the plain versions at 1e-4.
   6. main path 2, training: 5 Adam steps each of gcn-cora, gat-cora,
-     gcn-arxiv, gat-arxiv, gin-max-cora and gin-max-arxiv
+     gcn-arxiv, gat-arxiv, gin-max-cora, gin-max-arxiv and gcn-reddit
      (`entry.TRAIN_CONFIGS`) through the kernels, with exact launches per
      step (GCN: csr_spmm 4; GAT: csr_spmm 4, sddmm_csr 2; GIN-max:
-     spmm_maxmin 2, its d_dense 1, its d_values 0), finite losses (falling
+     spmm_maxmin 2, its d_dense 1, its d_values 0; the Reddit GCN:
+     spmm_dense_cells 4, spmm_bell 2, csr_spmm 4), finite losses (falling
      over the 5 steps for GCN and GAT), per-step latency (host clock
      around synchronize) and max_memory_allocated. Before that run, the
      same step 1 against the plain versions on the card: logits at 1e-4,
      and the gradients of every parameter at rtol 1e-4, atol
-     1e-5 * max|g|, from one shared forward (`_oracle` says why).
+     1e-5 * max|g|, from one shared forward (`_oracle` says why). Then
+     the sddmm path: `sddmm` on the Reddit-scale storage at F = 64 (1
+     sddmm_cells, 1 sddmm_csr) against the CSR-only sddmm_csr.
   7. numbers: CUDA-event times, in float32, of each kernel, its plain
      version and one PyTorch call computing the same function where there
      is one (torch.sparse CSR matmul, i.e. cuSPARSE, for the SpMM, over a
@@ -68,12 +80,16 @@ exits non-zero without a result line:
      of both main paths, beside the bound: the larger of the compulsory
      bytes (each input read once, each output written once) over
      3.35 TB/s and the operations over 67 TFLOP/s (H100 SXM data sheet,
-     fp32).
+     fp32). At Reddit scale (F = 64 and 41): spmm_dense_cells forward and
+     transpose, spmm_bell and sddmm_cells beside their plain versions and
+     torch.bmm over the gathered blocks (cuSPARSE over the BELL edges for
+     spmm_bell), and the whole hybrid SpMM against csr_spmm and cuSPARSE
+     over the full CSR.
   8. profile: the time of the per-edge gather of an [N, 4] fp32 table,
      contiguous and column-major; torch.profiler over 3 training steps
      each of gcn-arxiv, gat-arxiv and gin-max-arxiv after 2 warm-up
-     steps, device time per step by kernel and the device's busy share of
-     the wall time.
+     steps, and of gcn-reddit, device time per step by kernel and the
+     device's busy share of the wall time.
 Then one JSON line of per-kernel results, the card's name and power
 limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -93,6 +109,7 @@ FIXTURES = os.path.join(HERE, "tests", "fixtures", "torch_port")
 FIXTURE = os.path.join(FIXTURES, "gcn_small.npz")
 TRAIN_FIXTURE = os.path.join(FIXTURES, "train_small.npz")
 GIN_FIXTURE = os.path.join(FIXTURES, "gin_small.npz")
+HYBRID_FIXTURE = os.path.join(FIXTURES, "hybrid_small.npz")
 # bench.py:57-61 — the p2p-Gnutella31 shape; the .mtx is not in the repo
 P2P_NODES, P2P_EDGES = 62586, 147892
 FEATS = (1, 7, 32, 64, 128, 256)
@@ -104,23 +121,34 @@ STEPS = 5
 # H100 SXM data sheet: HBM and fp32 peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin")
+KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin", "spmm_cells", "spmm_bell")
 # the wrappers the main paths launch, as `kernels.launch_counts` names them
 KERNEL_NAMES = ("csr_spmm", "sddmm_csr", "spmm_maxmin",
-                "spmm_maxmin_d_dense", "spmm_maxmin_d_values")
+                "spmm_maxmin_d_dense", "spmm_maxmin_d_values",
+                "spmm_dense_cells", "spmm_bell", "sddmm_cells")
 _NONE = dict.fromkeys(KERNEL_NAMES, 0)
 # kernel launches per training step: the forward and d_dense of both
 # layers, plus d_values of both layers where the edge values are
 # attention weights (a GCN's adjacency is constant); a 3-layer GIN-max
-# maxes twice and differentiates only the second aggregation, over a
-# graph without values
+# maxes twice and differentiates only the second aggregation, over a bare
+# graph without values; a GCN on a graph with a hybrid plan
+# ("gcn-hybrid") runs per layer the cells, BELL and residue (CSR) tiers
+# forward and the cells and non-cell CSC (CSR kernel) tiers in d_dense
 STEP_LAUNCHES = {"gcn": {**_NONE, "csr_spmm": 4},
                  "gat": {**_NONE, "csr_spmm": 4, "sddmm_csr": 2},
                  "gin": {**_NONE, "spmm_maxmin": 2,
-                         "spmm_maxmin_d_dense": 1}}
+                         "spmm_maxmin_d_dense": 1},
+                 "gcn-hybrid": {**_NONE, "spmm_dense_cells": 4,
+                                "spmm_bell": 2, "csr_spmm": 4}}
 # ... and per served forward
 FORWARD_LAUNCHES = {"gcn": {**_NONE, "csr_spmm": 2},
-                    "gin": {**_NONE, "spmm_maxmin": 2}}
+                    "gin": {**_NONE, "spmm_maxmin": 2},
+                    "gcn-hybrid": {**_NONE, "spmm_dense_cells": 2,
+                                   "spmm_bell": 2, "csr_spmm": 2}}
+# the hybrid kernels' widths: every tier of a small clustered graph, and the
+# Reddit-scale GCN's two layers
+HYBRID_FEATS = (1, 41, 64, 130)
+REDDIT_FEATS = (64, 41)
 # the max/min kernel phase: the compute ops (None: copy_u) and widths
 MAXMIN_COMPUTES = (None, "add", "sub", "mul", "div")
 MAXMIN_FEATS = {"p2p": (32,), "arxiv": (128, 256)}
@@ -434,6 +462,133 @@ def phase_maxmin_kernels(torch, cuda, gin_graphs):
     return errs
 
 
+def _device_bytes(obj, seen=None) -> int:
+    """Bytes of the distinct device tensors reachable from a storage, plan
+    or dict (shared tensors counted once)."""
+    import dataclasses
+
+    import torch
+
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        key = obj.untyped_storage().data_ptr()
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.untyped_storage().nbytes()
+    if isinstance(obj, dict):
+        return sum(_device_bytes(v, seen) for v in obj.values())
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return sum(_device_bytes(getattr(obj, f.name), seen)
+                   for f in dataclasses.fields(obj))
+    if hasattr(obj, "__dict__") and type(obj).__name__ == "Storage":
+        return _device_bytes(vars(obj), seen)
+    return 0
+
+
+def _hybrid_stats(st):
+    """One line on a storage's hybrid tiers."""
+    hp = st.ell_plan()
+    c, b = hp.cells, hp.bell
+    return (f"{hp.nnz} edges: {0 if c is None else c.num_cells} dense cells "
+            f"holding {0 if c is None else c.nnz} edges "
+            f"({0 if c is None else 4 * c.cell_slots} B of fp32 blocks), "
+            f"BELL {0 if b is None else b.nnz} edges in "
+            f"{0 if b is None else b.num_tiles} tiles of "
+            f"{0 if b is None else b.edge_tile}, residue {hp.res.nnz} edges; "
+            f"dense fraction {hp.dense_fraction:.4f}")
+
+
+def phase_hybrid_kernels(torch, cuda, reddit):
+    """spmm_dense_cells (forward and transpose), spmm_bell and sddmm_cells
+    against their plain versions: on a small clustered graph where every
+    tier is non-empty and one row block has no dense cell, at F in
+    HYBRID_FEATS, and on the Reddit-scale storage at F = 64 and 41; float32
+    at 1e-5 and bfloat16 at 1e-2, scaled by the terms' absolute sum."""
+    import numpy as np
+
+    from dgsparse_tpu_torch import SparseTensor
+    from dgsparse_tpu_torch.kernels import spmm_bell as B
+    from dgsparse_tpu_torch.kernels import spmm_cells as C
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close, hybrid_csr
+
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0}
+            for k in ("spmm_dense_cells", "spmm_bell", "sddmm_cells")}
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def randn(*shape, dtype="float32"):
+        return torch.randn(*shape, generator=gen, device=cuda).to(
+            getattr(torch, dtype))
+
+    def check(kernel, dtype, out, ref, abs_sum):
+        torch.cuda.synchronize()
+        e = assert_sum_close(out, ref, abs_sum, TOL[dtype])
+        errs[kernel][dtype] = max(errs[kernel][dtype], e)
+        return e
+
+    def cases(tag, st, feats):
+        hp, tiers = st.ell_plan(), st.tier_values()
+        plan, cells = hp.cells, tiers["cells"]
+        deg = st.rowptr()[1:] - st.rowptr()[:-1]
+        for feat in feats:
+            worst = {k: [] for k in errs}
+            for dtype in ("float32", "bfloat16"):
+                for transpose in (False, True):
+                    n_in = plan.num_rows if transpose else plan.num_cols
+                    x = randn(n_in, feat, dtype=dtype)
+                    out = C.spmm_dense_cells_cuda(plan, cells, x, transpose)
+                    ref = C.spmm_dense_cells_plain(plan, cells, x, transpose)
+                    abs_sum = C.spmm_dense_cells_plain(
+                        plan, cells.abs(), x.float().abs(), transpose)
+                    worst["spmm_dense_cells"].append(check(
+                        "spmm_dense_cells", dtype, out, ref, abs_sum))
+                x = randn(hp.num_cols, feat, dtype=dtype)
+                for reduce in ("sum", "mean"):
+                    args = (hp.bell, tiers["bell"], x, reduce, deg)
+                    out = B.spmm_bell_cuda(*args)
+                    ref = B.spmm_bell_plain(*args)
+                    abs_sum = B.spmm_bell_plain(hp.bell, tiers["bell"].abs(),
+                                                x.float().abs(), reduce, deg)
+                    worst["spmm_bell"].append(check("spmm_bell", dtype, out,
+                                                    ref, abs_sum))
+                d1 = randn(hp.num_rows, feat, dtype=dtype)
+                d2 = randn(hp.num_cols, feat, dtype=dtype)
+                out = C.sddmm_cells_cuda(plan, d1, d2)
+                ref = C.sddmm_cells_plain(plan, d1, d2)
+                abs_sum = C.sddmm_cells_plain(plan, d1.float().abs(),
+                                              d2.float().abs())
+                worst["sddmm_cells"].append(check("sddmm_cells", dtype, out,
+                                                  ref, abs_sum))
+            log(f"[hybrid] {tag} F={feat} fp32/bf16: spmm_dense_cells "
+                f"forward and transpose max_abs_err "
+                f"{max(worst['spmm_dense_cells']):.3e}, spmm_bell sum/mean "
+                f"{max(worst['spmm_bell']):.3e}, sddmm_cells "
+                f"{max(worst['sddmm_cells']):.3e}")
+
+    rowptr, col, vals = hybrid_csr()
+    n = len(rowptr) - 1
+    small = SparseTensor.from_csr(rowptr, col, torch.from_numpy(vals),
+                                  sparse_sizes=(n, n), device=cuda).storage
+    hp = small.ell_plan()
+    no_cell = set(range(-(-n // 128))) - set(hp.cells.cell_rb.tolist())
+    if not no_cell or hp.bell is None or hp.res.nnz == 0:
+        raise AssertionError("the small graph must fill every tier and "
+                             "leave a row block without a dense cell")
+    log(f"[hybrid] small clustered graph, {n} nodes, "
+        f"{_hybrid_stats(small)}; row blocks without a cell "
+        f"{sorted(no_cell)}")
+    cases("small", small, HYBRID_FEATS)
+    st = reddit.storage
+    log(f"[hybrid] reddit: {st.num_rows} nodes, {_hybrid_stats(st)}; the "
+        f"storage holds {_device_bytes(st)} B on the card, of which the "
+        f"hybrid plan {_device_bytes(st.ell_plan())} B and its cached tier "
+        f"values {_device_bytes(st.tier_values())} B")
+    cases("reddit", st, REDDIT_FEATS)
+    if np.isnan(max(max(v.values()) for v in errs.values())):
+        raise AssertionError("NaN error")
+    return errs
+
+
 def _fixture_params(fx):
     return {f"conv{i}": {"linear": {"kernel": fx[f"conv{i}_kernel"],
                                     "bias": fx[f"conv{i}_bias"]}}
@@ -447,6 +602,7 @@ def phase_fixture(torch, cuda):
     from dgsparse_tpu_torch.kernels import launch_counts, reset_launch_counts
     from dgsparse_tpu_torch.nn import GCN, load_flax_params
     from dgsparse_tpu_torch.utils.testing import (assert_train_close,
+                                                  fixture_model,
                                                   run_gin_fixture,
                                                   run_train_fixture)
 
@@ -508,6 +664,38 @@ def phase_fixture(torch, cuda):
         f"{loss_err:.3e}, step-1 grads max_abs_err {grad_err:.3e}, "
         f"launches {counts}")
 
+    # the GCN on the hybrid route (JAX's PALLAS_ROW_TILE)
+    with np.load(HYBRID_FIXTURE) as f:
+        fx = dict(f)
+    model, adj, x, _ = fixture_model(fx, "gcn", cuda)
+    if adj.storage.ell_plan() is None:
+        raise AssertionError("the hybrid fixture's graph has no hybrid plan")
+    reset_launch_counts()
+    with torch.inference_mode():
+        out = model(x, adj)
+    counts = _counts()
+    if counts != FORWARD_LAUNCHES["gcn-hybrid"]:
+        raise AssertionError(f"hybrid fixture forward: launches {counts}")
+    e = max_err(out, torch.from_numpy(fx["gcn/out"]).to(cuda), 1e-4)
+    reset_launch_counts()
+    losses, grads = run_train_fixture(fx, "gcn", cuda, steps=2)
+    counts = _counts()
+    expected = {k: 2 * v for k, v in STEP_LAUNCHES["gcn-hybrid"].items()}
+    if counts != expected:
+        raise AssertionError(f"hybrid fixture: launches {counts} in 2 "
+                             f"steps, expected {expected}")
+    prefix = "gcn/grads/"
+    loss_err, grad_err = assert_train_close(
+        losses, grads, fx["gcn/losses"],
+        {k[len(prefix):]: v for k, v in fx.items() if k.startswith(prefix)})
+    log(f"[fixture] hybrid GCN {fx['gcn/dims'].tolist()} on "
+        f"{_hybrid_stats(adj.storage)} vs the JAX package's "
+        f"PALLAS_ROW_TILE run: forward max_abs_err {e:.3e}; 2 Adam steps, "
+        f"losses {[round(v, 6) for v in losses]}, max loss err "
+        f"{loss_err:.3e}, step-1 grads max_abs_err {grad_err:.3e}, "
+        f"launches per step "
+        f"{ {k: v // 2 for k, v in counts.items() if v} }")
+
 
 def _describe(model):
     """The model's class and its dense widths, input to output."""
@@ -543,6 +731,7 @@ def phase_slice(torch, cuda, graphs):
 
     reset_launch_counts()
     per_config = {}
+    resident = torch.cuda.memory_allocated()
     for config, (adj, x, model, _) in runs.items():
         torch.cuda.reset_peak_memory_stats()
         before = _counts()
@@ -564,8 +753,8 @@ def phase_slice(torch, cuda, graphs):
         adj, _, model, ref = runs[config]
         tc = SERVE_CONFIGS[config]
         cfg = CONFIGS[tc.graph]
-        expected = {k: REQUESTS * v
-                    for k, v in FORWARD_LAUNCHES[tc.model].items()}
+        expected = {k: REQUESTS * v for k, v in
+                    FORWARD_LAUNCHES[_launch_kind(tc, adj)].items()}
         if n_launch != expected:
             raise AssertionError(
                 f"{config}: launches {n_launch} in {REQUESTS} forwards, "
@@ -578,8 +767,8 @@ def phase_slice(torch, cuda, graphs):
         log(f"[slice] {config}: {REQUESTS} requests, latency ms "
             f"{[round(t, 4) for t in latencies]}, launches "
             f"{ {k: v for k, v in n_launch.items() if v} }, "
-            f"max_memory_allocated {peak} B, vs the plain versions "
-            f"max_abs_err {e:.3e}")
+            f"max_memory_allocated {peak} B (all graphs resident: "
+            f"{resident} B), vs the plain versions max_abs_err {e:.3e}")
     return runs, launches
 
 
@@ -588,24 +777,34 @@ def _graph_key(tc):
     return f"{tc.graph}-gin" if tc.model == "gin" else tc.graph
 
 
+def _launch_kind(tc, adj):
+    """The key of a configuration's launches: its model's, or for a GCN on
+    a graph with a hybrid plan "gcn-hybrid"."""
+    return (f"{tc.model}-hybrid" if adj.storage.ell_plan() is not None
+            else tc.model)
+
+
 def build_graphs(torch, cuda):
     """Each graph the main paths take, built once: the GCN-normalized
-    Cora and arxiv graphs and their bare structures for GIN."""
+    Cora, arxiv and Reddit-scale graphs and the bare Cora and arxiv
+    structures for GIN; the Reddit-scale build's phases timed."""
     from dgsparse_tpu_torch.entry import synthetic_graph
 
     graphs = {}
-    for config in ("cora", "arxiv"):
-        for gin in (False, True):
-            t0 = time.perf_counter()
-            data = synthetic_graph(config, seed=0, device=cuda,
-                                   gcn_norm=not gin)
-            torch.cuda.synchronize()
-            key = f"{config}-gin" if gin else config
-            graphs[key] = data
-            log(f"[graphs] {key}: {data[0].sparse_sizes()[0]} nodes, "
-                f"{data[0].nnz} nnz "
-                f"{'(bare structure)' if gin else 'with self-loops'}; host "
-                f"build and upload {time.perf_counter() - t0:.2f} s")
+    for config, gin in (("cora", False), ("cora", True), ("arxiv", False),
+                        ("arxiv", True), ("reddit", False)):
+        t0 = time.perf_counter()
+        data = synthetic_graph(config, seed=0, device=cuda,
+                               gcn_norm=not gin)
+        torch.cuda.synchronize()
+        key = f"{config}-gin" if gin else config
+        graphs[key] = data
+        phases = data[0].storage.build_seconds
+        log(f"[graphs] {key}: {data[0].sparse_sizes()[0]} nodes, "
+            f"{data[0].nnz} nnz "
+            f"{'(bare structure)' if gin else 'with self-loops'}; host "
+            f"build and upload {time.perf_counter() - t0:.2f} s; phases "
+            f"{ {k: round(v, 3) for k, v in phases.items()} }")
     return graphs
 
 
@@ -614,6 +813,8 @@ def plain_kernels():
     """The kernels' plain versions in place of their launches, on the
     card: the oracle of the serving and training phases."""
     from dgsparse_tpu_torch.kernels import sddmm_csr as S
+    from dgsparse_tpu_torch.kernels import spmm_bell as B
+    from dgsparse_tpu_torch.kernels import spmm_cells as C
     from dgsparse_tpu_torch.kernels import spmm_csr as K
     from dgsparse_tpu_torch.kernels import spmm_maxmin as M
 
@@ -621,7 +822,10 @@ def plain_kernels():
              (S, "sddmm_csr_cuda", S.sddmm_csr_plain),
              (M, "spmm_maxmin_cuda", M.spmm_maxmin_plain),
              (M, "spmm_maxmin_d_dense_cuda", M.spmm_maxmin_d_dense_plain),
-             (M, "spmm_maxmin_d_values_cuda", M.spmm_maxmin_d_values_plain)]
+             (M, "spmm_maxmin_d_values_cuda", M.spmm_maxmin_d_values_plain),
+             (C, "spmm_dense_cells_cuda", C.spmm_dense_cells_plain),
+             (C, "sddmm_cells_cuda", C.sddmm_cells_plain),
+             (B, "spmm_bell_cuda", B.spmm_bell_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -679,6 +883,7 @@ def phase_training(torch, cuda, graphs):
 
     reset_launch_counts()
     runs = {}
+    resident = torch.cuda.memory_allocated()
     for config, (model, opt, (adj, x, y), _) in prepared.items():
         torch.cuda.reset_peak_memory_stats()
         losses, latencies, per_step = [], [], []
@@ -700,7 +905,7 @@ def phase_training(torch, cuda, graphs):
     step_ms = {}
     for config, (losses, latencies, per_step, peak) in runs.items():
         tc = TRAIN_CONFIGS[config]
-        expected = STEP_LAUNCHES[tc.model]
+        expected = STEP_LAUNCHES[_launch_kind(tc, prepared[config][2][0])]
         if any(p != expected for p in per_step):
             raise AssertionError(
                 f"{config}: launches per step {per_step}, expected "
@@ -728,7 +933,8 @@ def phase_training(torch, cuda, graphs):
             f"{[round(v, 6) for v in losses]}, step latency ms "
             f"{[round(t, 4) for t in latencies]}, launches per step "
             f"{ {k: v for k, v in per_step[0].items() if v} }, "
-            f"max_memory_allocated {peak} B; step 1 vs the "
+            f"max_memory_allocated {peak} B (before the steps: "
+            f"{resident} B resident); step 1 vs the "
             f"plain versions: logits max_abs_err {fwd_err:.3e}, gradients "
             f"max_abs_err {grad_err:.3e}")
         step_ms[config] = latencies
@@ -757,7 +963,7 @@ def phase_profile(torch, cuda, graphs, steps=3):
         log(f"[profile] index_select of [{st.num_rows}, 4] fp32 rows by "
             f"{st.nnz} edges, {label}: {us:.1f} us")
 
-    for config in ("gcn-arxiv", "gat-arxiv", "gin-max-arxiv"):
+    for config in ("gcn-arxiv", "gat-arxiv", "gin-max-arxiv", "gcn-reddit"):
         data = graphs[_graph_key(TRAIN_CONFIGS[config])]
         model, opt, (adj, x, y) = build_trainer(config, seed=0, device=cuda,
                                                 data=data)
@@ -841,8 +1047,8 @@ def phase_numbers(torch, cuda, runs, graphs):
                    32)]
     for config, (adj, _, model, _) in runs.items():
         tc = SERVE_CONFIGS[config]
-        if tc.model != "gcn":
-            continue
+        if _launch_kind(tc, adj) != "gcn":
+            continue            # the hybrid route is timed on its own
         st = adj.storage
         for layer in ("conv1", "conv2"):
             feat = getattr(model, layer).linear.out_features
@@ -942,6 +1148,153 @@ def phase_numbers(torch, cuda, runs, graphs):
                 + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
     results.update(_maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p,
                                    col_p2p))
+    return results
+
+
+def phase_sddmm_hybrid(torch, cuda, reddit):
+    """The sddmm path on the Reddit-scale storage at F = 64: `sddmm` takes
+    the hybrid route (1 sddmm_cells, 1 sddmm_csr over the non-cell edges)
+    and is held to the CSR-only sddmm_csr kernel on the same inputs at
+    1e-5 scaled by the terms' absolute sum. Returns the path's launches."""
+    import dgsparse_tpu_torch as pt
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.kernels import sddmm_csr as S
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    st = reddit.storage
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    d1 = torch.randn(st.num_rows, 64, generator=gen, device=cuda)
+    d2 = torch.randn(st.num_cols, 64, generator=gen, device=cuda)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = pt.sddmm(reddit, d1, d2)
+    torch.cuda.synchronize()
+    launches = _counts()
+    expected = {**_NONE, "sddmm_cells": 1, "sddmm_csr": 1}
+    if launches != expected:
+        raise AssertionError(f"sddmm on the hybrid storage: launches "
+                             f"{launches}, expected {expected}")
+    ref = S.sddmm_csr_cuda(st.rowptr(), st.col(), d1, d2).reshape(-1)
+    abs_sum = S.sddmm_csr_cuda(st.rowptr(), st.col(), d1.abs(),
+                               d2.abs()).reshape(-1)
+    e = assert_sum_close(out, ref, abs_sum, TOL["float32"])
+    log(f"[sddmm] reddit F=64: {st.nnz} edges through the hybrid route, "
+        f"launches { {k: v for k, v in launches.items() if v} }; vs the "
+        f"CSR-only sddmm_csr max_abs_err {e:.3e}")
+    return launches
+
+
+def _window_bytes(ids, block, feat, itemsize):
+    """Bytes of the distinct 128-row blocks `ids` of a [*, F] table."""
+    return len(set(ids.tolist())) * block * feat * itemsize
+
+
+def phase_hybrid_numbers(torch, cuda, reddit):
+    """CUDA-event times (fp32, best of two turns) on the Reddit-scale
+    storage at F = 64 and 41 of spmm_dense_cells (forward and transpose),
+    spmm_bell and sddmm_cells beside their plain versions, one PyTorch call
+    each (torch.bmm over the gathered cell and window blocks, TF32 off;
+    cuSPARSE over the BELL tier's sub-CSR) and their bounds; then the whole
+    hybrid SpMM against csr_spmm and cuSPARSE over the full CSR."""
+    import numpy as np
+
+    from dgsparse_tpu_torch.kernels import spmm_bell as B
+    from dgsparse_tpu_torch.kernels import spmm_cells as C
+    from dgsparse_tpu_torch.kernels import spmm_csr as K
+    from dgsparse_tpu_torch.ops.hybrid import spmm_hybrid
+
+    st = reddit.storage
+    hp, tiers = st.ell_plan(), st.tier_values()
+    plan, cells = hp.cells, tiers["cells"]
+    m, n = st.num_rows, st.num_cols
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    results = {"spmm_dense_cells": {}, "spmm_bell": {}, "sddmm_cells": {},
+               "hybrid_spmm": {}}
+
+    def blocks(x, block, which):
+        nb = -(-x.shape[0] // block)
+        xp = torch.zeros(nb * block, x.shape[1], device=cuda)
+        xp[:x.shape[0]] = x
+        return xp.view(nb, block, -1)[which.long()].contiguous()
+
+    def report(kernel, label, ms, call):
+        ms["library_call"] = call
+        results[kernel][label] = ms
+        log(f"[numbers] {kernel} {label} (fp32): "
+            + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
+                        for k in ("kernel", "plain", "library") if k in ms)
+            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
+
+    # the BELL tier as a CSR of its own edges, for cuSPARSE
+    ep = hp.bell.eperm
+    ids = np.sort(ep[ep >= 0])
+    b_rowptr = torch.from_numpy(np.searchsorted(
+        ids, st.rowptr().cpu().numpy()).astype(np.int32)).to(cuda)
+    ids_t = torch.from_numpy(ids.astype(np.int64)).to(cuda)
+    bell_csr = torch.sparse_csr_tensor(b_rowptr, st.col()[ids_t],
+                                       st.values()[ids_t], size=(m, n))
+    cell_flops = 2.0 * plan.num_cells * 128 * 128
+    for feat in REDDIT_FEATS:
+        x = torch.randn(n, feat, generator=gen, device=cuda)
+        g = torch.randn(m, feat, generator=gen, device=cuda)
+        for transpose, inp in ((False, x), (True, g)):
+            blk = blocks(inp, 128, plan.cell_rb if transpose else plan.cell_cw)
+            a = cells.transpose(1, 2) if transpose else cells
+            args = (plan, cells, inp, transpose)
+            ms = _time_turns({"kernel": (C.spmm_dense_cells_cuda, args),
+                              "plain": (C.spmm_dense_cells_plain, args),
+                              "library": (torch.bmm, (a, blk))})
+            out_rows = n if transpose else m
+            ms["bound"], ms["bound_by"] = bound(
+                4 * (cells.numel() + inp.numel() + out_rows * feat),
+                cell_flops * feat)
+            report("spmm_dense_cells",
+                   f"reddit {'transpose' if transpose else 'forward'} "
+                   f"F={feat}", ms, "torch.bmm(cells, gathered window "
+                   "blocks [ncells, 128, F]), TF32 off")
+        args = (hp.bell, tiers["bell"], x)
+        ms = _time_turns({"kernel": (B.spmm_bell_cuda, args),
+                          "plain": (B.spmm_bell_plain, args),
+                          "library": (torch.matmul, (bell_csr, x))})
+        ms["bound"], ms["bound_by"] = bound(
+            _window_bytes(hp.bell.tile_cw.cpu().numpy()[
+                :int(hp.bell.tile_ptr[-1])], 128, feat, 4)
+            + 12 * hp.bell.padded_edges + 4 * m * feat,
+            2.0 * hp.bell.nnz * feat)
+        report("spmm_bell", f"reddit F={feat}", ms,
+               "torch.matmul(sparse_csr of the BELL edges, dense) (cuSPARSE)")
+        d1 = torch.randn(m, feat, generator=gen, device=cuda)
+        d2 = torch.randn(n, feat, generator=gen, device=cuda)
+        args = (plan, d1, d2)
+        ms = _time_turns({
+            "kernel": (C.sddmm_cells_cuda, args),
+            "plain": (C.sddmm_cells_plain, args),
+            "library": (torch.bmm, (blocks(d1, 128, plan.cell_rb),
+                                    blocks(d2, 128, plan.cell_cw).transpose(
+                                        1, 2)))})
+        ms["bound"], ms["bound_by"] = bound(
+            4 * (d1.numel() + d2.numel() + cells.numel()), cell_flops * feat)
+        report("sddmm_cells", f"reddit F={feat}", ms,
+               "torch.bmm(gathered d1 blocks, gathered d2 blocksᵀ), TF32 off")
+
+        # the whole SpMM: the three tiers, the CSR kernel, cuSPARSE
+        full = torch.sparse_csr_tensor(st.rowptr(), st.col(), st.values(),
+                                       size=(m, n))
+        ms = _time_turns({
+            "hybrid": (spmm_hybrid, (st, tiers, x)),
+            "csr_spmm": (K.csr_spmm_cuda, (st.rowptr(), st.col(),
+                                           st.values(), x)),
+            "library": (torch.matmul, (full, x))})
+        ms["bound"], ms["bound_by"] = bound(
+            4 * ((m + 1) + 2 * st.nnz + n * feat + m * feat),
+            2.0 * st.nnz * feat)
+        ms["library_call"] = "torch.matmul(sparse_csr, dense) (cuSPARSE)"
+        results["hybrid_spmm"][f"reddit F={feat}"] = ms
+        log(f"[numbers] whole SpMM reddit F={feat} (fp32, {st.nnz} nnz): "
+            f"hybrid tiers {ms['hybrid'] * 1e3:.2f} us, csr_spmm "
+            f"{ms['csr_spmm'] * 1e3:.2f} us, cuSPARSE "
+            f"{ms['library'] * 1e3:.2f} us, CSR bound "
+            f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
     return results
 
 
@@ -1049,14 +1402,14 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
 
 
 def _kernel_entry(name, source, replaces, launches, errs, shapes, timed,
-                  card):
+                  card, main="training"):
     t = shapes[timed]
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": launches["training"],
+        "launches": launches[main],
         "launches_by_path": launches,
         "max_abs_err": errs["float32"],
         "max_abs_err_bf16": errs["bfloat16"],
@@ -1082,10 +1435,13 @@ def run(torch, cuda) -> int:
         graphs = build_graphs(torch, cuda)
         errs.update(phase_maxmin_kernels(torch, cuda, {
             "arxiv": graphs["arxiv-gin"]}))
+        errs.update(phase_hybrid_kernels(torch, cuda, graphs["reddit"][0]))
         phase_fixture(torch, cuda)
         runs, serving = phase_slice(torch, cuda, graphs)
         training, _ = phase_training(torch, cuda, graphs)
+        sddmm_path = phase_sddmm_hybrid(torch, cuda, graphs["reddit"][0])
         times = phase_numbers(torch, cuda, runs, graphs)
+        times.update(phase_hybrid_numbers(torch, cuda, graphs["reddit"][0]))
         phase_profile(torch, cuda, graphs)
         if "jax" in sys.modules:
             raise AssertionError("JAX was imported")
@@ -1096,7 +1452,12 @@ def run(torch, cuda) -> int:
                 ("sddmm_csr", "training", training),
                 ("spmm_maxmin", "serving", serving),
                 ("spmm_maxmin", "training", training),
-                ("spmm_maxmin_d_dense", "training", training)):
+                ("spmm_maxmin_d_dense", "training", training),
+                ("spmm_dense_cells", "serving", serving),
+                ("spmm_dense_cells", "training", training),
+                ("spmm_bell", "serving", serving),
+                ("spmm_bell", "training", training),
+                ("sddmm_cells", "sddmm", sddmm_path)):
             if counts[kernel] <= 0:
                 raise AssertionError(
                     f"{kernel} never launched on the {path} path")
@@ -1106,7 +1467,8 @@ def run(torch, cuda) -> int:
 
     def paths(*names):
         return {"serving": sum(serving[k] for k in names),
-                "training": sum(training[k] for k in names)}
+                "training": sum(training[k] for k in names),
+                "sddmm": sum(sddmm_path[k] for k in names)}
 
     kernels = [
         _kernel_entry(
@@ -1130,6 +1492,20 @@ def run(torch, cuda) -> int:
             paths("spmm_maxmin_d_dense", "spmm_maxmin_d_values"),
             errs["spmm_maxmin_bwd"], times["spmm_maxmin_bwd"],
             "arxiv gin1 backward d_dense F=256", card),
+        _kernel_entry(
+            "spmm_dense_cells", "dgsparse_tpu_torch/csrc/spmm_cells.cu",
+            "dgsparse_tpu/kernels/pallas_spmm.py:645",
+            paths("spmm_dense_cells"), errs["spmm_dense_cells"],
+            times["spmm_dense_cells"], "reddit forward F=64", card),
+        _kernel_entry(
+            "spmm_bell", "dgsparse_tpu_torch/csrc/spmm_bell.cu",
+            "dgsparse_tpu/kernels/pallas_spmm.py:844", paths("spmm_bell"),
+            errs["spmm_bell"], times["spmm_bell"], "reddit F=64", card),
+        _kernel_entry(
+            "sddmm_cells", "dgsparse_tpu_torch/csrc/spmm_cells.cu",
+            "dgsparse_tpu/kernels/pallas_sddmm.py:125", paths("sddmm_cells"),
+            errs["sddmm_cells"], times["sddmm_cells"], "reddit F=64", card,
+            main="sddmm"),
     ]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -5,15 +5,20 @@ dgsparse/storage.py, dgsparse/tensor.py): int32 CSR indices, optional
 values (implicit ones when absent), and the CSC view (colptr, row, the
 csr2csc permutation, per-edge row ids in CSR order and per-edge column ids
 in CSC order) built once on the host at construction, so no op derives
-structure per call. The JAX package's kernel plans (edge-tile, ELL, BELL,
-hybrid, slot caches) have no counterpart: the CUDA kernel reads CSR as is.
+structure per call. Of the JAX package's kernel plans only the hybrid one
+has a counterpart (`core/planner.py::HybridPlan`, built under the same
+gate, `Storage.ell_plan()`), with its construction-time cache of each
+tier's values; the edge-tile, ELL and slot plans have none: the CSR
+kernels read CSR as is.
 """
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from dgsparse_tpu_torch.core import planner as P
 from dgsparse_tpu_torch.core import transform as T
 
 
@@ -42,11 +47,25 @@ def _device_of(*xs) -> torch.device:
     return torch.device("cpu")
 
 
+def _move(obj, device):
+    """A Storage field on `device`: tensors, plans and dicts of tensors
+    move; anything else stays."""
+    if isinstance(obj, dict):
+        return {k: _move(v, device) for k, v in obj.items()}
+    return obj.to(device) if hasattr(obj, "to") else obj
+
+
 class Storage:
     """CSR arrays plus the CSC view, all built at construction.
 
     Tensors: rowptr, col, values (or None), colptr, row_csc, csr2csc perm,
     coo_row, csc_col. Sizes: num_rows, num_cols, nnz.
+
+    With `build_plans` (the default), a graph of nnz >= 4096 and average
+    degree >= 16 also gets a `HybridPlan` when at least 30 % of its edges
+    fall in filled cells: the gate of `dgsparse_tpu/core/formats.py:202-234`.
+    The tiers' values are then cached for the values given here (or for
+    implicit ones); `build_seconds` times the construction's phases.
     """
 
     def __init__(
@@ -57,6 +76,7 @@ class Storage:
         row=None,
         sparse_sizes: Optional[Tuple[int, int]] = None,
         device=None,
+        build_plans: bool = True,
     ):
         if col is None:
             raise ValueError("col is required")
@@ -101,7 +121,10 @@ class Storage:
         if vals is not None and vals.shape[0] != nnz:
             raise ValueError("values/col length mismatch")
 
-        colptr, row_csc, perm = T.csr2csc_np(rowptr_np, col_np, num_cols)
+        t0 = time.perf_counter()
+        colptr, row_csc, perm = T.csr2csc_np(rowptr_np, col_np, num_cols,
+                                             device)
+        t1 = time.perf_counter()
         self._rowptr = _index_tensor(rowptr_np, device)
         self._col = _index_tensor(col_np, device)
         self._values = None if vals is None else vals.to(device)
@@ -114,6 +137,24 @@ class Storage:
         self._num_rows = num_rows
         self._num_cols = num_cols
         self._nnz = nnz
+        t2 = time.perf_counter()
+        self.build_seconds = {"csc": t1 - t0, "upload": t2 - t1}
+
+        self._hybrid = self._tier_vals = self._tier_ones = None
+        if build_plans and nnz >= 4096 and nnz / max(num_rows, 1) >= 16:
+            hyb = P.build_hybrid_plan(rowptr_np, col_np, num_cols,
+                                      device=device)
+            t3 = time.perf_counter()
+            self.build_seconds["hybrid_plan"] = t3 - t2
+            if hyb is not None and hyb.dense_fraction >= 0.3:
+                self._hybrid = hyb
+                if vals is None:
+                    self._tier_ones = P.tier_values(hyb, None, device)
+                else:
+                    self._tier_vals = P.tier_values(
+                        hyb, vals.detach().float().cpu().numpy(), device)
+                self.build_seconds["tier_values"] = \
+                    time.perf_counter() - t3
 
     def _replace(self, **tensors) -> "Storage":
         """A copy with some tensors (and, via `_num_*`, sizes) replaced."""
@@ -123,11 +164,34 @@ class Storage:
         return obj
 
     def to(self, device) -> "Storage":
-        """The same structure with every tensor on `device`."""
-        moved = {k[1:]: (None if v is None else v.to(device))
-                 for k, v in self.__dict__.items()
-                 if isinstance(v, torch.Tensor) or k == "_values"}
+        """The same structure with every tensor (and plan) on `device`."""
+        moved = {k[1:]: _move(v, device)
+                 for k, v in self.__dict__.items() if k.startswith("_")}
         return self._replace(**moved)
+
+    def ell_plan(self) -> Optional[P.HybridPlan]:
+        """The hybrid plan, or None (the JAX Storage's accessor; its other
+        ELL plans have no counterpart here)."""
+        return self._hybrid
+
+    def tier_values(self, ones: bool = False) -> Optional[dict]:
+        """The hybrid tiers' values (`core.planner.tier_values`) for this
+        storage's values, or with `ones` for implicit ones; None without a
+        hybrid plan. Built at construction or, after `set_values`, on
+        first use on the values' device, and kept."""
+        if self._hybrid is None:
+            return None
+        if ones:
+            if self._tier_ones is None:
+                self._tier_ones = P.tier_values(self._hybrid, None,
+                                                self.device)
+            return self._tier_ones
+        if self._tier_vals is None:
+            if self._values is None:
+                raise ValueError("the storage has no values")
+            self._tier_vals = P.tier_values(self._hybrid, self._values,
+                                            self.device)
+        return self._tier_vals
 
     # --- reference-parity accessors (dgsparse/storage.py) ---
     def rowptr(self) -> torch.Tensor:
@@ -190,10 +254,11 @@ class SparseTensor:
         has_value: bool = False,
         sparse_sizes: Optional[Tuple[int, int]] = None,
         device=None,
+        build_plans: bool = True,
     ):
         self.storage = Storage(rowptr=rowptr, col=col, values=values,
                                row=row, sparse_sizes=sparse_sizes,
-                               device=device)
+                               device=device, build_plans=build_plans)
         self.has_value = bool(has_value)
 
     @classmethod
@@ -207,10 +272,10 @@ class SparseTensor:
     @classmethod
     def from_csr(cls, rowptr, col, values=None,
                  sparse_sizes: Optional[Tuple[int, int]] = None,
-                 device=None) -> "SparseTensor":
+                 device=None, build_plans: bool = True) -> "SparseTensor":
         return cls(rowptr=rowptr, col=col, values=values,
                    has_value=values is not None, sparse_sizes=sparse_sizes,
-                   device=device)
+                   device=device, build_plans=build_plans)
 
     @classmethod
     def from_edge_index(cls, edge_index, edge_attr=None,
@@ -270,7 +335,8 @@ class SparseTensor:
         return torch.ones(self.nnz, dtype=torch.float32, device=self.device)
 
     def t(self) -> "SparseTensor":
-        """Transpose, reusing the cached CSC view (no re-sort)."""
+        """Transpose, reusing the cached CSC view (no re-sort); the
+        transpose has no hybrid plan."""
         src = self.storage
         perm = src.csr2csc()
         vals = None
@@ -284,7 +350,8 @@ class SparseTensor:
             colptr=src.rowptr(), row_csc=src.col(), csr2csc=inv,
             # the transpose's edge-order arrays are the original's CSC twins
             coo_row=src.csc_col(), csc_col=src.coo_row(),
-            num_rows=src.num_cols, num_cols=src.num_rows)
+            num_rows=src.num_cols, num_cols=src.num_rows,
+            hybrid=None, tier_vals=None, tier_ones=None)
         return SparseTensor._wrap(st, self.has_value)
 
     def to(self, device) -> "SparseTensor":
@@ -293,12 +360,15 @@ class SparseTensor:
     def set_values(self, values: Optional[torch.Tensor]) -> "SparseTensor":
         """A SparseTensor sharing this one's structure with new values
         (None: implicit ones). The values keep their autograd history, so
-        computed edge weights can become an SpMM's differentiable values."""
+        computed edge weights can become an SpMM's differentiable values.
+        A hybrid storage drops its tier values cached for the old values;
+        the new ones are materialized on their device at first use."""
         if values is not None and values.shape[0] != self.nnz:
             raise ValueError(
                 f"{values.shape[0]} values for {self.nnz} edges")
-        return SparseTensor._wrap(self.storage._replace(values=values),
-                                  values is not None)
+        return SparseTensor._wrap(
+            self.storage._replace(values=values, tier_vals=None),
+            values is not None)
 
     # --- shape ---
     def sparse_sizes(self) -> Tuple[int, int]:

@@ -90,10 +90,23 @@ def expand_rowptr_np(rowptr: np.ndarray) -> np.ndarray:
         np.arange(len(rowptr) - 1, dtype=np.int32), np.diff(rowptr))
 
 
-def csr2csc_np(rowptr: np.ndarray, col: np.ndarray, num_cols: int):
-    """(colptr, row_csc, perm) with a stable numpy argsort."""
+def stable_argsort(keys: np.ndarray, device=None) -> np.ndarray:
+    """np.argsort(keys, kind="stable") as int64, sorted on `device` when
+    that is a CUDA device: a stable sort's permutation is unique, so both
+    give the same array, and the card sorts 10^8 keys in milliseconds where
+    numpy takes seconds."""
+    if device is None or torch.device(device).type != "cuda":
+        return np.argsort(keys, kind="stable")
+    _, perm = torch.sort(torch.from_numpy(np.ascontiguousarray(keys)).to(
+        device), stable=True)
+    return perm.cpu().numpy()
+
+
+def csr2csc_np(rowptr: np.ndarray, col: np.ndarray, num_cols: int,
+               device=None):
+    """(colptr, row_csc, perm) with a stable argsort (`stable_argsort`)."""
     row = expand_rowptr_np(rowptr)
-    perm = np.argsort(col, kind="stable").astype(np.int32)
+    perm = stable_argsort(col, device).astype(np.int32)
     colptr = np.zeros(num_cols + 1, np.int32)
     np.cumsum(np.bincount(col, minlength=num_cols), out=colptr[1:])
     return colptr, row[perm], perm

@@ -7,21 +7,29 @@ Cora-shaped graph, GCN 128 -> 64 -> 7), the arxiv-scale configurations of
 the training protocol of `benchmark/bench_train.py:144-156` (Adam at
 lr 1e-2 with optax's defaults, mean cross-entropy, the model applied
 without dropout). The GAT configurations take the 4-head GAT of
-`benchmark/bench_gspmm.py:97-128` (128 -> 4 x 16 -> classes) onto the same
-two graphs. The GIN-max configurations are `arxiv-scale-gin-max` of
-`bench_train.py:53` with 3 layers instead of 2, so that the second GINConv
-maxes over hidden features that need a gradient and a training step runs
-the MAX backward; at Cora they take the port's Cora widths. GCN and GAT
-graphs come from `random_csr` with GCN normalization and self-loops; the
-GIN graph is `random_csr`'s structure as it is, with no values and no
+`benchmark/bench_gspmm.py:97-128` (128 -> 4 x 16 -> classes) onto the
+Cora and arxiv graphs. The GIN-max configurations are
+`arxiv-scale-gin-max` of `bench_train.py:53` with 3 layers instead of 2,
+so that the second GINConv maxes over hidden features that need a
+gradient and a training step runs the MAX backward; at Cora they take the
+port's Cora widths. "gcn-reddit" is the Reddit-scale GCN of
+`bench_train.py:54-58` (232,965 nodes, ~114.4 M edges with self-loops,
+602 -> 64 -> 41): its graph is `clustered_graph` with the self-loops and
+normalization of `bench_train.py:82-110` (`utils.testing.gcn_norm_csr`),
+and its storage gets a hybrid plan, so its SpMMs run the hybrid tiers.
+The other GCN and GAT graphs come from `random_csr` with GCN
+normalization and self-loops; the GIN graph is `random_csr`'s structure as it is, with no values and no
 self-loops (`bench_train.py:121-135`); features and labels from numpy with
 the same seeds as the JAX package; weights from a `torch.Generator`.
+`synthetic_graph` adds its host build times per phase to the storage's
+`build_seconds`.
 
 Every entry point runs on the card unless the caller passes
 device="cpu"; without a card, a call that does not name the CPU raises.
 """
 
 import dataclasses
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -32,21 +40,25 @@ from dgsparse_tpu_torch.core.formats import SparseTensor
 from dgsparse_tpu_torch.nn.gat import GAT
 from dgsparse_tpu_torch.nn.gcn import GCN, get_gcn_dcsr_from_edge_index
 from dgsparse_tpu_torch.nn.gin import GIN
-from dgsparse_tpu_torch.utils.testing import random_csr
+from dgsparse_tpu_torch.utils.testing import (clustered_graph, gcn_norm_csr,
+                                              random_csr)
 
 
 @dataclasses.dataclass(frozen=True)
 class GraphConfig:
     num_nodes: int
-    avg_degree: float      # lognormal degree parameter of random_csr
+    avg_degree: float      # random_csr's lognormal degree parameter, or
+                           # clustered_graph's Poisson mean
     in_features: int
     hidden_features: int
     num_classes: int
+    generator: str = "random_csr"      # or "clustered_graph"
 
 
 CONFIGS = {
     "cora": GraphConfig(2708, 4.0, 128, 64, 7),
     "arxiv": GraphConfig(169_343, 4.2, 128, 256, 40),
+    "reddit": GraphConfig(232_965, 492.0, 602, 64, 41, "clustered_graph"),
 }
 
 
@@ -69,12 +81,14 @@ TRAIN_CONFIGS = {
                                 aggregator="max"),
     "gin-max-arxiv": TrainConfig("gin", "arxiv", 256, num_layers=3,
                                  aggregator="max"),
+    "gcn-reddit": TrainConfig("gcn", "reddit", 64),
 }
 
 # the forwards served: the GCN of each graph (a bare graph name means it)
 # and the 3-layer GIN-max
 SERVE_CONFIGS = {name: TRAIN_CONFIGS[name] for name in
-                 ("gcn-cora", "gcn-arxiv", "gin-max-cora", "gin-max-arxiv")}
+                 ("gcn-cora", "gcn-arxiv", "gin-max-cora", "gin-max-arxiv",
+                  "gcn-reddit")}
 
 # optax.adam's defaults at the learning rate of bench_train.py
 ADAM = dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
@@ -100,19 +114,37 @@ def synthetic_graph(config: str = "cora", seed: int = 0, device="cuda",
     device = resolve_device(device)
     cfg = CONFIGS[config]
     n = cfg.num_nodes
-    rowptr, col, _ = random_csr(n, n, avg_degree=cfg.avg_degree, seed=seed,
-                                with_empty_rows=False)
-    if gcn_norm:
+    t0 = time.perf_counter()
+    if cfg.generator == "clustered_graph":
+        rowptr, col = clustered_graph(n, n, cfg.avg_degree, seed=seed,
+                                      device=device)
+    else:
+        rowptr, col, _ = random_csr(n, n, avg_degree=cfg.avg_degree,
+                                    seed=seed, with_empty_rows=False)
+    t1 = time.perf_counter()
+    seconds = {"generator": t1 - t0}
+    if gcn_norm and cfg.generator == "clustered_graph":
+        rowptr, col, vals = gcn_norm_csr(rowptr, col)
+        seconds["gcn_norm"] = time.perf_counter() - t1
+        adj = SparseTensor.from_csr(rowptr, col, torch.from_numpy(vals),
+                                    sparse_sizes=(n, n), device=device)
+        del rowptr, col, vals
+    elif gcn_norm:
         coo_row = np.repeat(np.arange(n, dtype=np.int32), np.diff(rowptr))
         adj = get_gcn_dcsr_from_edge_index(np.stack([coo_row, col]), n,
                                            device=device)
     else:
         adj = SparseTensor.from_csr(rowptr, col, sparse_sizes=(n, n),
                                     device=device)
+    t2 = time.perf_counter()
     rng = np.random.default_rng(seed + 1)
     x = rng.standard_normal((n, cfg.in_features)).astype(np.float32)
     y = rng.integers(0, cfg.num_classes, n).astype(np.int64)
-    return adj, torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    seconds["features"] = time.perf_counter() - t2
+    seconds["total"] = time.perf_counter() - t0
+    adj.storage.build_seconds.update(seconds)
+    return adj, x, y
 
 
 def _model_config(config: str) -> TrainConfig:

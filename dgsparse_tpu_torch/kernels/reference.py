@@ -1,6 +1,7 @@
 """Plain PyTorch SpMM (SUM/MEAN/MAX/MIN, single- and multi-head), the
-semiring SpMM, the MAX/MIN masked backward and SDDMM: the CPU path and the
-port's oracle.
+semiring SpMM, the MAX/MIN masked backward, SDDMM and the hybrid tiers'
+three kernels (dense-cell SpMM and its transpose, BELL SpMM, dense-cell
+SDDMM): the CPU path and the port's oracle.
 
 Counterpart of `dgsparse_tpu/kernels/xla.py`, of `_xla_mh` and
 `_xla_mh_maxmin` in `dgsparse_tpu/ops/spmm_mh.py` and of the edge-space
@@ -378,3 +379,66 @@ def sddmm_bwd_chunked(
             * g[e0:e1, None].float()
         out.index_add_(0, seg_ids[e0:e1].long(), contrib)
     return out
+
+
+# --- the hybrid tiers (core/planner.py::HybridPlan) --------------------------
+
+def _blocks(x: torch.Tensor, block: int, which: torch.Tensor) -> torch.Tensor:
+    """Row blocks `which` of x [N, F] as [len(which), block, F] float32,
+    x padded with zero rows to whole blocks."""
+    n, f = x.shape
+    nb = -(-n // block)
+    xp = torch.zeros((nb * block, f), dtype=torch.float32, device=x.device)
+    xp[:n] = x.float()
+    return xp.view(nb, block, f)[which.long()]
+
+
+def spmm_dense_cells(cells: torch.Tensor, cell_rb: torch.Tensor,
+                     cell_cw: torch.Tensor, dense: torch.Tensor,
+                     num_rows: int, num_cols: int,
+                     transpose: bool = False) -> torch.Tensor:
+    """Block-sparse GEMM over materialized cells [ncells, R, C]: out [M, F]
+    with out[rb] += cell @ dense[cw] (dense [N, F]), or with `transpose`
+    out [N, F] with out[cw] += cellᵀ @ dense[rb] (dense [M, F]). A bmm over
+    the gathered blocks, then index_add_ into the output blocks; blocks no
+    cell visits stay 0. float32."""
+    ncells, r, c = cells.shape
+    f = dense.shape[1]
+    if transpose:
+        prod = torch.bmm(cells.transpose(1, 2),
+                         _blocks(dense, r, cell_rb))          # [n, C, F]
+        seg, blk, out_rows = cell_cw, c, num_cols
+    else:
+        prod = torch.bmm(cells, _blocks(dense, c, cell_cw))   # [n, R, F]
+        seg, blk, out_rows = cell_rb, r, num_rows
+    nb = -(-out_rows // blk)
+    out = torch.zeros((nb, blk, f), dtype=torch.float32, device=dense.device)
+    out.index_add_(0, seg.long(), prod)
+    return out.view(nb * blk, f)[:out_rows]
+
+
+def spmm_bell(tile_rb: torch.Tensor, tile_cw: torch.Tensor,
+              lcol: torch.Tensor, lrow: torch.Tensor, vals: torch.Tensor,
+              dense: torch.Tensor, num_rows: int, row_block: int = 128,
+              col_window: int = 128) -> torch.Tensor:
+    """BELL SpMM: every slot e of tile t adds vals[e] * dense[tile_cw[t] * C
+    + lcol[e]] into out[tile_rb[t] * R + lrow[e]] (vals 0 on padding). A
+    per-slot gather and scatter (index_add_); float32 [num_rows, F]."""
+    e = lcol.shape[0] // max(tile_rb.shape[0], 1)
+    rows = tile_rb.long().repeat_interleave(e) * row_block + lrow.long()
+    cols = tile_cw.long().repeat_interleave(e) * col_window + lcol.long()
+    out = torch.zeros((num_rows, dense.shape[1]), dtype=torch.float32,
+                      device=dense.device)
+    out.index_add_(0, rows, dense[cols].float() * vals[:, None].float())
+    return out
+
+
+def sddmm_cells(cell_rb: torch.Tensor, cell_cw: torch.Tensor,
+                d1: torch.Tensor, d2: torch.Tensor, row_block: int = 128,
+                col_window: int = 128) -> torch.Tensor:
+    """Per cell the [R, C] block d1[rb] @ d2[cw]ᵀ of per-edge dots (d1 [M,
+    F], d2 [N, F]; rows past M or N count as 0), flattened to float32
+    [ncells * R * C]. One bmm."""
+    return torch.bmm(_blocks(d1, row_block, cell_rb),
+                     _blocks(d2, col_window, cell_cw).transpose(1, 2)
+                     ).reshape(-1)

@@ -3,9 +3,12 @@
 Counterpart of `dgsparse_tpu/ops/sddmm.py` (reference:
 src/sddmm/sddmm.cu:8-41 and src/cuda/spmm_cuda.cu:305-382):
 out[e] = dot(d1[row_e], d2[col_e]), MEAN dividing by max(row degree, 1).
-Every `algorithm` runs `kernels/sddmm_csr.py` (the Hopper kernel on CUDA,
-its plain version on the CPU); the JAX package's "pallas" choice was its
-`sddmm_esc` kernel, which this one replaces.
+It runs `kernels/sddmm_csr.py` (the Hopper kernel on CUDA, its plain
+version on the CPU); the JAX package's "pallas" choice was its `sddmm_esc`
+kernel, which this one replaces. On a storage whose hybrid plan has dense
+cells, "auto" and "xla" run `ops/hybrid.py::sddmm_hybrid` instead (the
+cells' blocks from `sddmm_cells`, the other edges from `sddmm_csr`), as
+`dgsparse_tpu/ops/sddmm.py:55-62` does on the TPU.
 
 The backward follows `ops/sddmm.py:72-94`: both gradients are SpMMs with
 the cotangent as edge values (divided by the row degree for MEAN),
@@ -18,6 +21,7 @@ import torch
 from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
 from dgsparse_tpu_torch.kernels.sddmm_csr import sddmm_csr
 from dgsparse_tpu_torch.kernels.spmm_csr import csr_spmm
+from dgsparse_tpu_torch.ops.hybrid import sddmm_hybrid
 from dgsparse_tpu_torch.ops.spmm import mean_scaled, transpose_values
 from dgsparse_tpu_torch.ops.types import ReduceOp, as_reduce
 
@@ -26,9 +30,11 @@ ALGORITHMS = ("auto", "xla", "pallas")
 
 class _SDDMM(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, d1, d2, st: Storage, reduce: ReduceOp):
+    def forward(ctx, d1, d2, st: Storage, reduce: ReduceOp, hybrid: bool):
         ctx.st, ctx.reduce = st, reduce
         ctx.save_for_backward(d1, d2)
+        if hybrid:
+            return sddmm_hybrid(st, d1, d2, reduce)
         return sddmm_csr(st.rowptr(), st.col(), d1, d2, 1, reduce,
                          coo_row=st.coo_row()).reshape(-1)
 
@@ -47,7 +53,7 @@ class _SDDMM(torch.autograd.Function):
             d_d2 = csr_spmm(st.colptr(), st.row(), transpose_values(g, st),
                             d1, ReduceOp.SUM,
                             coo_row=st.csc_col()).to(d2.dtype)
-        return d_d1, d_d2, None, None
+        return d_d1, d_d2, None, None, None
 
 
 def sddmm(sparse: SparseTensor, d1: torch.Tensor, d2: torch.Tensor,
@@ -56,7 +62,9 @@ def sddmm(sparse: SparseTensor, d1: torch.Tensor, d2: torch.Tensor,
 
     d1: [M, F] (rows), d2: [N, F] (cols). Returns float32 [nnz] in CSR edge
     order, differentiable in d1 and d2. `algorithm` is "auto", "xla" or
-    "pallas" for parity with the JAX package; all run the one kernel.
+    "pallas" for parity with the JAX package: all run the CSR kernel, but
+    "auto" and "xla" take the hybrid route on a storage whose hybrid plan
+    has dense cells.
     """
     reduce = as_reduce(reduce)
     if algorithm not in ALGORITHMS:
@@ -69,8 +77,10 @@ def sddmm(sparse: SparseTensor, d1: torch.Tensor, d2: torch.Tensor,
         raise ValueError(
             f"d1 {tuple(d1.shape)} and d2 {tuple(d2.shape)} must be [{m}, F] "
             f"and [{n}, F]")
-    return _SDDMM.apply(d1.contiguous(), d2.contiguous(), sparse.storage,
-                        reduce)
+    st = sparse.storage
+    hp = st.ell_plan()
+    hybrid = algorithm != "pallas" and hp is not None and hp.cells is not None
+    return _SDDMM.apply(d1.contiguous(), d2.contiguous(), st, reduce, hybrid)
 
 
 def sddmm_coo(row: torch.Tensor, col: torch.Tensor, d1: torch.Tensor,

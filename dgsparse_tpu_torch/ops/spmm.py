@@ -14,6 +14,14 @@ structure (`ops/spmm.py:206-280`, src/spmm.cpp:66-74):
              the values require a gradient (a GCN's constant adjacency
              never does);
 with g divided by max(deg, 1) first for MEAN.
+On a storage with a hybrid plan (`core/planner.py::HybridPlan`), `spmm`
+SUM/MEAN under AUTO or PALLAS_ROW_TILE runs the three tiers instead
+(`ops/hybrid.py`, as the JAX package does on the TPU, `ops/spmm.py:77-93,
+167-171`): the forward is `spmm_hybrid` and `d_dense` the hybrid
+transpose `spmm_hybrid_t`, over the tier values the storage caches;
+`d_values` stays the CSR SDDMM. XLA_SEGMENT, PALLAS_EDGE_TILE and
+PALLAS_BELL keep the CSR kernel, as do the multi-head and semiring
+callers of `aggregate`.
 
 `_SpMMMaxMin` (MAX/MIN, any semiring compute) runs
 `kernels/spmm_maxmin.py::spmm_maxmin`, which also returns the winning CSR
@@ -38,6 +46,7 @@ from dgsparse_tpu_torch.kernels.spmm_csr import csr_spmm
 from dgsparse_tpu_torch.kernels.spmm_maxmin import (spmm_maxmin,
                                                     spmm_maxmin_d_dense,
                                                     spmm_maxmin_d_values)
+from dgsparse_tpu_torch.ops.hybrid import spmm_hybrid, spmm_hybrid_t
 from dgsparse_tpu_torch.ops.types import (Algorithm, ComputeOp, ReduceOp,
                                           as_algorithm, as_reduce)
 
@@ -63,15 +72,22 @@ def transpose_values(values, st: Storage):
 class _SpMM(torch.autograd.Function):
     """out [M, H, F]: per head h, the SpMM of the structure with values
     [:, h] (or ones for values None) and dense [N, H, F][:, h]. One
-    `csr_spmm` launch serves every head; `spmm` is the case H = 1."""
+    `csr_spmm` launch serves every head; `spmm` is the case H = 1. With
+    `tiers`, the storage's cached hybrid tier values for these values
+    (H = 1), the hybrid tiers run instead."""
 
     @staticmethod
-    def forward(ctx, values, dense, st: Storage, reduce: ReduceOp):
-        ctx.st, ctx.reduce = st, reduce
+    def forward(ctx, values, dense, st: Storage, reduce: ReduceOp,
+                tiers=None):
+        ctx.st, ctx.reduce, ctx.tiers = st, reduce, tiers
         ctx.save_for_backward(values, dense)
         n, h, f = dense.shape
-        out = csr_spmm(st.rowptr(), st.col(), values, dense.reshape(n, h * f),
-                       reduce, coo_row=st.coo_row())
+        if tiers is not None:
+            out = spmm_hybrid(st, tiers, dense.reshape(n, f), reduce)
+        else:
+            out = csr_spmm(st.rowptr(), st.col(), values,
+                           dense.reshape(n, h * f), reduce,
+                           coo_row=st.coo_row())
         return out.reshape(st.num_rows, h, f)
 
     @staticmethod
@@ -88,11 +104,14 @@ class _SpMM(torch.autograd.Function):
                                  dense.reshape(n, h * f), h,
                                  coo_row=st.coo_row()).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            d_dense = csr_spmm(st.colptr(), st.row(),
-                               transpose_values(values, st), g,
-                               ReduceOp.SUM, coo_row=st.csc_col())
+            if ctx.tiers is not None:
+                d_dense = spmm_hybrid_t(st, ctx.tiers, g)
+            else:
+                d_dense = csr_spmm(st.colptr(), st.row(),
+                                   transpose_values(values, st), g,
+                                   ReduceOp.SUM, coo_row=st.csc_col())
             d_dense = d_dense.reshape(n, h, f).to(dense.dtype)
-        return d_values, d_dense, None, None
+        return d_values, d_dense, None, None, None
 
 
 class _SpMMMaxMin(torch.autograd.Function):
@@ -144,14 +163,16 @@ class _SpMMMaxMin(torch.autograd.Function):
 
 
 def aggregate(values, dense: torch.Tensor, st: Storage, reduce: ReduceOp,
-              compute: ComputeOp = ComputeOp.MUL) -> torch.Tensor:
+              compute: ComputeOp = ComputeOp.MUL,
+              tiers=None) -> torch.Tensor:
     """The differentiable [M, H, F] SpMM of values [nnz, H] (or None) and
-    dense [N, H, F] under any reduction; SUM/MEAN take MUL only."""
+    dense [N, H, F] under any reduction; SUM/MEAN take MUL only, and run
+    the hybrid tiers when given `tiers` (see `_SpMM`)."""
     if reduce in (ReduceOp.MAX, ReduceOp.MIN):
         return _SpMMMaxMin.apply(values, dense, st, reduce, compute)
     if compute != ComputeOp.MUL:
         raise ValueError(f"the {reduce.value} SpMM multiplies, got {compute}")
-    return _SpMM.apply(values, dense, st, reduce)
+    return _SpMM.apply(values, dense, st, reduce, tiers)
 
 
 def spmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
@@ -159,12 +180,14 @@ def spmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
     """SpMM with a selectable reduction. Returns [M, F]; differentiable
     in `dense` and in the sparse values.
 
-    SUM/MEAN run the CSR kernel, MAX/MIN the CSR max/min kernel, whatever
-    the `algorithm`. MAX/MIN keep the earliest winning edge of each
-    element (ties included) and send its gradient there alone.
+    SUM/MEAN run the hybrid tiers on a storage with a hybrid plan under
+    AUTO or PALLAS_ROW_TILE, else the CSR kernel; MAX/MIN the CSR max/min
+    kernel, whatever the `algorithm`. MAX/MIN keep the earliest winning
+    edge of each element (ties included) and send its gradient there
+    alone.
     """
     reduce = as_reduce(reduce)
-    as_algorithm(algorithm)
+    algorithm = as_algorithm(algorithm)
     if dense.dim() != 2:
         raise ValueError(
             f"dense must be [N, F], got shape {tuple(dense.shape)}")
@@ -178,9 +201,14 @@ def spmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
         raise ValueError(
             f"spmm takes one value per edge, got {tuple(values.shape)}; "
             "per-head values go to spmm_multihead")
+    tiers = None
+    if st.ell_plan() is not None and reduce in (ReduceOp.SUM, ReduceOp.MEAN) \
+            and algorithm in (Algorithm.AUTO, Algorithm.PALLAS_ROW_TILE):
+        tiers = st.tier_values(ones=values is None)
     if values is not None:
         values = values.float().unsqueeze(1)
-    out = aggregate(values, dense.contiguous().unsqueeze(1), st, reduce)
+    out = aggregate(values, dense.contiguous().unsqueeze(1), st, reduce,
+                    tiers=tiers)
     return out.squeeze(1)
 
 

@@ -1,10 +1,13 @@
 """Op enums: reduction, semiring compute, and algorithm selection.
 
 Counterpart of `dgsparse_tpu/ops/types.py`, with the same names and values
-so code and tests can pass either package's enum by value. On CUDA every
-`Algorithm` runs the one CSR kernel (`kernels/spmm_csr.py`); the value is
-accepted for API parity. AUTO selection among GPU schedules comes when
-there is more than one.
+so code and tests can pass either package's enum by value. For SUM/MEAN
+`spmm` on a storage with a hybrid plan (`core/planner.py::HybridPlan`),
+AUTO and PALLAS_ROW_TILE run the hybrid tiers (`ops/hybrid.py`: the
+dense-cell, BELL and CSR kernels), as the JAX package's AUTO does on the
+TPU; every other case, and XLA_SEGMENT, PALLAS_EDGE_TILE and PALLAS_BELL
+always, run the CSR kernels (`kernels/spmm_csr.py`, `spmm_maxmin.py`).
+AUTO follows the JAX gate, not a measurement on the card yet.
 """
 
 import enum

@@ -3,8 +3,10 @@ oracles, a check for sums taken in different orders, and the port's side
 of the frozen training fixtures.
 
 `random_csr`, `spmm_oracle` and `gspmm_oracle` are copies of those in
-`dgsparse_tpu/utils/testing.py`, so the port and `chip_smoke.py` build the
-same seeded graphs without importing JAX.
+`dgsparse_tpu/utils/testing.py`, and `clustered_graph` of the one in
+`benchmark/bench_scale.py`, so the port and `chip_smoke.py` build the same
+seeded graphs without importing JAX; `gcn_norm_csr` is the Reddit-scale
+graph build of `benchmark/bench_train.py`.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -40,6 +42,103 @@ def random_csr(
             )
     values = rng.standard_normal(nnz).astype(np.float32)
     return rowptr, col, values
+
+
+def clustered_graph(m: int, n: int, avg_deg: float, seed: int = 0,
+                    intra: float = 0.8, comm: int = 194, device=None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Community-clustered CSR (rowptr, col), Reddit-like: Poisson degrees
+    (at least 1), an `intra` fraction of each row's edges inside its node's
+    `comm`-sized community, columns sorted within rows, duplicates kept.
+
+    A copy of `benchmark/bench_scale.py::clustered_graph`, equal to it bit
+    for bit; `device` only moves its one stable sort to the card
+    (`core.transform.stable_argsort`)."""
+    from dgsparse_tpu_torch.core.transform import stable_argsort
+
+    rng = np.random.default_rng(seed)
+    deg = np.maximum(rng.poisson(avg_deg, m), 1).astype(np.int64)
+    nnz = int(deg.sum())
+    row = np.repeat(np.arange(m, dtype=np.int64), deg)
+    c0 = (row // comm) * comm
+    width = np.minimum(comm, n - c0)
+    is_intra = rng.random(nnz) < intra
+    col = np.where(
+        is_intra,
+        c0 + rng.integers(0, 1 << 30, nnz) % width,
+        rng.integers(0, n, nnz),
+    ).astype(np.int32)
+    del c0, width, is_intra
+    order = stable_argsort(row * (n + 1) + col, device)
+    col = col[order]
+    rowptr = np.zeros(m + 1, np.int64)
+    rowptr[1:] = np.cumsum(deg)
+    return rowptr.astype(np.int32), col
+
+
+def hybrid_csr(m: int = 1500, n: int = 1500, deg: float = 40,
+               comm: int = 150, intra: float = 0.8, seed: int = 0,
+               sparse_block: Optional[int] = 5
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(rowptr, col, vals): communities of `comm` nodes holding an `intra`
+    share of each row's Poisson(deg) edges, columns drawn with replacement
+    (duplicates), sorted within rows; rows 0, 17, 34, ... empty; the rows
+    of row block `sparse_block` (None: none) draw every column uniformly,
+    so that block holds BELL and residue edges but no dense cell. The
+    hybrid tiers' test graph (`tests/test_torch_hybrid.py`), in the manner
+    of `tests/test_hybrid.py::clustered_csr`."""
+    rng = np.random.default_rng(seed)
+    degs = rng.poisson(deg, m).astype(np.int64)
+    degs[::17] = 0
+    nnz = int(degs.sum())
+    row = np.repeat(np.arange(m, dtype=np.int64), degs)
+    c0 = (row // comm) * comm
+    width = np.minimum(comm, n - c0)
+    pick = rng.random(nnz) < intra
+    if sparse_block is not None:
+        pick &= row // 128 != sparse_block
+    col = np.where(pick, c0 + rng.integers(0, 1 << 30, nnz) % width,
+                   rng.integers(0, n, nnz)).astype(np.int32)
+    col = col[np.argsort(row * (n + 1) + col, kind="stable")]
+    rowptr = np.zeros(m + 1, np.int64)
+    rowptr[1:] = np.cumsum(degs)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return rowptr.astype(np.int32), col, vals
+
+
+def gcn_norm_csr(rowptr: np.ndarray, col: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """D^-1/2 (A+I) D^-1/2 of a square CSR, straight on the CSR: drop the
+    diagonal entries it has, append one self-loop at the end of each row
+    (so rows are not sorted by column), and weight edge (r, c) by
+    1/sqrt(deg(r) deg(c)) with the degrees counting the loop.
+
+    The Reddit-scale graph build of `benchmark/bench_train.py:82-110`
+    (fill_diag sets the diagonal, dgsparse/nn/gcnconv.py), without the
+    edge-order lexsort of `gcn_norm_from_edge_index`. Returns (rowptr,
+    col, vals float32)."""
+    nodes = len(rowptr) - 1
+    rows64 = np.repeat(np.arange(nodes, dtype=np.int64), np.diff(rowptr))
+    keep = col.astype(np.int64) != rows64
+    col = col[keep]
+    old_deg = np.bincount(rows64[keep], minlength=nodes)
+    rowptr = np.zeros(nodes + 1, np.int64)
+    np.cumsum(old_deg, out=rowptr[1:])
+    del keep
+    # the entry at flat position p of row r moves to p + r; row r's loop
+    # lands at rowptr[r + 1] + r
+    rows64 = np.repeat(np.arange(nodes, dtype=np.int64), old_deg)
+    col2 = np.empty(len(col) + nodes, dtype=col.dtype)
+    col2[np.arange(len(col), dtype=np.int64) + rows64] = col
+    col2[rowptr[1:].astype(np.int64) + np.arange(nodes)] = np.arange(
+        nodes, dtype=col.dtype)
+    rowptr = (rowptr.astype(np.int64)
+              + np.arange(nodes + 1, dtype=np.int64)).astype(np.int32)
+    del rows64, col
+    dinv = 1.0 / np.sqrt((old_deg + 1).astype(np.float64))
+    coo_row = np.repeat(np.arange(nodes, dtype=np.int64), np.diff(rowptr))
+    vals = (dinv[coo_row] * dinv[col2]).astype(np.float32)
+    return rowptr, col2, vals
 
 
 def assert_sum_close(out, ref, abs_sum, tol: float) -> float:

@@ -158,6 +158,9 @@ def test_import_pulls_in_no_jax():
             "dgsparse_tpu_torch.ops.spmm_coo, dgsparse_tpu_torch.nn.gin, "
             "dgsparse_tpu_torch.nn.sage, dgsparse_tpu_torch.nn.edgeconv, "
             "dgsparse_tpu_torch.utils.testing, "
+            "dgsparse_tpu_torch.core.planner, dgsparse_tpu_torch.ops.hybrid, "
+            "dgsparse_tpu_torch.kernels.spmm_cells, "
+            "dgsparse_tpu_torch.kernels.spmm_bell, "
             "dgsparse_tpu_torch.kernels._build; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'dgsparse_tpu.', 'flax'))"

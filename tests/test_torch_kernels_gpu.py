@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and its
-training steps against the frozen JAX fixture, on a card.
+training steps against the frozen JAX fixtures, on a card.
 
 Needs a CUDA device and nvcc; without a card every test skips. This file
 imports only torch, numpy and the port (the card's machine has no JAX), so
@@ -234,7 +234,9 @@ def test_sddmm_launch_counts_and_empty_inputs(cuda):
     assert launch_counts() == {"csr_spmm": 0, "segment_sum_csr": 0,
                                "sddmm_csr": 1, "spmm_maxmin": 0,
                                "spmm_maxmin_d_dense": 0,
-                               "spmm_maxmin_d_values": 0}
+                               "spmm_maxmin_d_values": 0,
+                               "spmm_dense_cells": 0, "sddmm_cells": 0,
+                               "spmm_bell": 0}
     empty = torch.zeros(4, dtype=torch.int32, device=cuda)
     out = sddmm_csr.sddmm_csr(empty, empty[:0], torch.ones(3, 8, device=cuda),
                               torch.ones(5, 8, device=cuda))
@@ -457,3 +459,219 @@ def test_gin_max_entry_on_card(cuda):
     assert (counts["spmm_maxmin"], counts["spmm_maxmin_d_dense"],
             counts["spmm_maxmin_d_values"]) == (6, 3, 0)
     assert np.isfinite(losses).all()
+
+
+# --- the hybrid tiers: spmm_dense_cells, spmm_bell, sddmm_cells --------------
+#
+# On `utils.testing.hybrid_csr`: every tier non-empty, duplicate edges,
+# empty rows, and row block 5 without a dense cell (written as zero).
+
+def _hybrid(cuda, has_value=True, seed=0):
+    from dgsparse_tpu_torch.utils.testing import hybrid_csr
+
+    rowptr, col, vals = hybrid_csr(seed=seed)
+    n = len(rowptr) - 1
+    adj = pt.SparseTensor.from_csr(
+        rowptr, col, torch.from_numpy(vals) if has_value else None,
+        sparse_sizes=(n, n), device=cuda)
+    assert adj.storage.ell_plan() is not None
+    return adj
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("feat", [1, 41, 64, 130])
+def test_spmm_dense_cells_matches_plain(cuda, feat, transpose, dtype):
+    from dgsparse_tpu_torch.kernels import spmm_cells
+
+    st = _hybrid(cuda).storage
+    plan, cells = st.ell_plan().cells, st.tier_values()["cells"]
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    x = torch.randn(1500, feat, generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    out = spmm_cells.spmm_dense_cells_cuda(plan, cells, x, transpose)
+    ref = spmm_cells.spmm_dense_cells_plain(plan, cells, x, transpose)
+    abs_sum = spmm_cells.spmm_dense_cells_plain(plan, cells.abs(),
+                                                x.float().abs(), transpose)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (1500, feat)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    if not transpose:
+        assert not out[640:768].any()          # the block without a cell
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("feat", [1, 41, 64, 130])
+def test_spmm_bell_matches_plain(cuda, feat, reduce, dtype):
+    from dgsparse_tpu_torch.kernels import spmm_bell
+
+    st = _hybrid(cuda).storage
+    plan, vals = st.ell_plan().bell, st.tier_values()["bell"]
+    deg = st.rowptr()[1:] - st.rowptr()[:-1]
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    x = torch.randn(1500, feat, generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    out = spmm_bell.spmm_bell_cuda(plan, vals, x, reduce, deg)
+    ref = spmm_bell.spmm_bell_plain(plan, vals, x, reduce, deg)
+    abs_sum = spmm_bell.spmm_bell_plain(plan, vals.abs(), x.float().abs(),
+                                        reduce, deg)
+    torch.cuda.synchronize()
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    again = spmm_bell.spmm_bell_cuda(plan, vals, x, reduce, deg)
+    assert torch.equal(out, again)             # no atomics: repeatable
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feat", [1, 41, 64, 130])
+def test_sddmm_cells_matches_plain(cuda, feat, dtype):
+    from dgsparse_tpu_torch.kernels import spmm_cells
+
+    plan = _hybrid(cuda).storage.ell_plan().cells
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    dt = getattr(torch, dtype)
+    d1 = torch.randn(1500, feat, generator=g, device=cuda).to(dt)
+    d2 = torch.randn(1500, feat, generator=g, device=cuda).to(dt)
+    out = spmm_cells.sddmm_cells_cuda(plan, d1, d2)
+    ref = spmm_cells.sddmm_cells_plain(plan, d1, d2)
+    abs_sum = spmm_cells.sddmm_cells_plain(plan, d1.float().abs(),
+                                           d2.float().abs())
+    torch.cuda.synchronize()
+    assert out.shape == (plan.cell_slots,)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("has_value", [True, False])
+def test_hybrid_spmm_and_grads_match_the_csr_route(cuda, reduce, has_value,
+                                                   dtype):
+    adj = _hybrid(cuda, has_value, seed=1)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(1500, 48, generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    ct = torch.randn(1500, 48, generator=g, device=cuda).to(x.dtype)
+    grads = {}
+    for alg in (pt.Algorithm.AUTO, pt.Algorithm.XLA_SEGMENT):
+        xt = x.clone().requires_grad_()
+        reset_launch_counts()
+        out = pt.spmm(adj, xt, reduce, alg)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        grads[alg] = (out.detach(), xt.grad, launch_counts())
+    (out, gx, hyb), (ref, gref, csr) = grads.values()
+    # the sums of the terms' absolute values, through the CSR route
+    plain = adj.set_values(None if not has_value
+                           else adj.storage.values().abs())
+    abs_out = pt.spmm(plain, x.float().abs(), reduce, 0)
+    abs_grad = pt.spmm(plain.t(), ct.float().abs(), "sum", 0)
+    if reduce == "mean":
+        deg = torch.clamp(adj.storage.rowptr().diff(), min=1).float()
+        abs_grad = pt.spmm(plain.t(), ct.float().abs() / deg[:, None],
+                           "sum", 0)
+    assert out.dtype == x.dtype and gx.dtype == x.dtype
+    assert_sum_close(out, ref, abs_out, TOLS[dtype])
+    assert_sum_close(gx, gref, abs_grad, TOLS[dtype])
+    assert (hyb["spmm_dense_cells"], hyb["spmm_bell"], hyb["csr_spmm"]) \
+        == (2, 1, 2)
+    assert (csr["spmm_dense_cells"], csr["spmm_bell"], csr["csr_spmm"]) \
+        == (0, 0, 2)
+
+
+def test_hybrid_sddmm_matches_the_csr_kernel(cuda):
+    adj = _hybrid(cuda, seed=3)
+    st = adj.storage
+    g = torch.Generator(device=cuda).manual_seed(4)
+    d1 = torch.randn(1500, 40, generator=g, device=cuda)
+    d2 = torch.randn(1500, 40, generator=g, device=cuda)
+    reset_launch_counts()
+    out = pt.sddmm(adj, d1, d2)
+    counts = launch_counts()
+    assert (counts["sddmm_cells"], counts["sddmm_csr"]) == (1, 1)
+    ref = sddmm_csr.sddmm_csr_cuda(st.rowptr(), st.col(), d1, d2).reshape(-1)
+    abs_sum = sddmm_csr.sddmm_csr_cuda(st.rowptr(), st.col(), d1.abs(),
+                                       d2.abs()).reshape(-1)
+    torch.cuda.synchronize()
+    assert_sum_close(out, ref, abs_sum, TOLS["float32"])
+
+
+def test_set_values_on_the_card_rematerializes_the_cells(cuda):
+    from dgsparse_tpu_torch.core.planner import materialize_cells_np
+
+    adj = _hybrid(cuda, seed=5)
+    w = torch.rand(adj.nnz, generator=torch.Generator().manual_seed(6))
+    reset_launch_counts()
+    cells = adj.set_values(w.to(cuda)).storage.tier_values()["cells"]
+    assert launch_counts()["segment_sum_csr"] == 1
+    ref = materialize_cells_np(adj.storage.ell_plan().cells, w.numpy())
+    np.testing.assert_allclose(cells.cpu().numpy(), ref, rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_hybrid_gcn_matches_frozen_jax_fixture(cuda):
+    from dgsparse_tpu_torch.utils.testing import fixture_model
+
+    with np.load(FIXTURES / "hybrid_small.npz") as fx:
+        fx = dict(fx)
+    model, adj, x, _ = fixture_model(fx, "gcn", cuda)
+    assert adj.storage.ell_plan() is not None
+    with torch.inference_mode():
+        out = model(x, adj)
+    np.testing.assert_allclose(out.cpu().numpy(), fx["gcn/out"], rtol=1e-4,
+                               atol=1e-4)
+    reset_launch_counts()
+    losses, grads = run_train_fixture(fx, "gcn", cuda, steps=2)
+    counts = launch_counts()
+    assert (counts["spmm_dense_cells"], counts["spmm_bell"],
+            counts["csr_spmm"]) == (8, 4, 8)
+    prefix = "gcn/grads/"
+    assert_train_close(losses, grads, fx["gcn/losses"],
+                       {k[len(prefix):]: v for k, v in fx.items()
+                        if k.startswith(prefix)})
+
+
+def test_plan_sorted_on_the_card_equals_the_host_plan(cuda):
+    # the card's stable sorts give numpy's permutations
+    from dgsparse_tpu_torch.utils.testing import hybrid_csr
+
+    rowptr, col, vals = hybrid_csr(seed=7)
+    host, card = (pt.SparseTensor.from_csr(
+        rowptr, col, torch.from_numpy(vals), sparse_sizes=(1500, 1500),
+        device=d).storage for d in ("cpu", cuda))
+    np.testing.assert_array_equal(host.csr2csc().numpy(),
+                                  card.csr2csc().cpu().numpy())
+    hp, cp = host.ell_plan(), card.ell_plan()
+    pairs = [(hp.cells.slot, cp.cells.slot), (hp.cells.eperm, cp.cells.eperm),
+             (hp.bell.eperm, cp.bell.eperm), (hp.res.ids, cp.res.ids),
+             (hp.nd_t.ids, cp.nd_t.ids)]
+    for name in ("cell_rb", "cell_cw", "t_order", "fwd_ptr", "t_ptr"):
+        pairs.append((getattr(hp.cells, name), getattr(cp.cells, name)))
+    for name in ("lcol", "lrow", "tile_ptr"):
+        pairs.append((getattr(hp.bell, name), getattr(cp.bell, name)))
+    pairs += [(hp.nd_t.col, cp.nd_t.col), (hp.edge_src, cp.edge_src)]
+    for a, b in pairs:
+        a = a.numpy() if isinstance(a, torch.Tensor) else a
+        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else b
+        np.testing.assert_array_equal(a, b)
+    for k, v in host.tier_values().items():
+        if v is not None:
+            assert torch.equal(v, card.tier_values()[k].cpu()), k
+
+
+def test_hybrid_kernels_refuse_bad_inputs(cuda):
+    from dgsparse_tpu_torch.kernels import spmm_bell, spmm_cells
+
+    st = _hybrid(cuda).storage
+    hp, tiers = st.ell_plan(), st.tier_values()
+    x = torch.ones(1500, 8, device=cuda)
+    with pytest.raises(ValueError):
+        spmm_cells.spmm_dense_cells_cuda(hp.cells, tiers["cells"], x[:10])
+    with pytest.raises(ValueError):
+        spmm_cells.spmm_dense_cells_cuda(hp.cells, tiers["cells"].double(),
+                                         x)
+    with pytest.raises(TypeError):
+        spmm_cells.sddmm_cells_cuda(hp.cells, x, x.bfloat16())
+    with pytest.raises(ValueError):
+        spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"][:5], x)
+    with pytest.raises(ValueError):
+        spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x.cpu())
