@@ -7,8 +7,8 @@ Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without a result line:
   1. device: the card's name and power limit; TF32 off.
   2. build: csrc/spmm_csr.cu, csrc/sddmm_csr.cu, csrc/spmm_maxmin.cu,
-     csrc/spmm_cells.cu and csrc/spmm_bell.cu for sm_90a, one nvcc each,
-     started together, with ptxas's resource lines.
+     csrc/spmm_cells.cu, csrc/spmm_bell.cu and csrc/spconv.cu for sm_90a,
+     one nvcc each, started together, with ptxas's resource lines.
   3. kernels vs their plain PyTorch versions on the card, on a
      p2p-Gnutella31-shaped synthetic graph and on a graph with empty rows:
      - csr_spmm and segment_sum_csr at F=32 (p2p) and F in {1, 7, 32, 64,
@@ -40,6 +40,13 @@ exits non-zero without a result line:
      plain versions, fp32 and bf16, on a small clustered graph where every
      tier is non-empty and one row block has no dense cell (F in {1, 41,
      64, 130}) and on the Reddit-scale storage (F = 64 and 41).
+     Then the spconv kernels: spconv_pairs forward (pairs by output, W)
+     and dX (pairs by input, Wᵀ) and spconv_dw, against their plain
+     versions on a two-batch cloud's submanifold, strided and inverse
+     plans and on the "unet-60k" enc2 plan, at (c_in, c_out) in
+     SPCONV_CHANNELS, fp32 at 1e-5 and bf16 at 1e-2 scaled by the terms'
+     absolute sum; spconv_pairs and spconv_dw run twice equal themselves
+     bitwise.
   4. fixtures: the port's GCN forward against the JAX package's frozen
      output (tests/fixtures/torch_port/gcn_small.npz) at 1e-4; its GCN and
      GAT training against the frozen JAX training run (train_small.npz),
@@ -47,22 +54,26 @@ exits non-zero without a result line:
      3 Adam steps on the kernel path, losses at 1e-4, step-1 gradients at
      rtol 1e-4 and atol 1e-5 * max|g|; and a GCN on the hybrid route
      against the JAX package's PALLAS_ROW_TILE run (hybrid_small.npz): the
-     forward and 2 Adam steps, with exact launches.
+     forward and 2 Adam steps, with exact launches; the point-cloud UNet
+     against unet_small.npz: the forward and 3 Adam steps, as the GIN.
   5. main path 1, serving: 5 forward requests each of the GCN at the Cora
      shape, at the arxiv scale and at the Reddit scale (232,965 nodes,
      ~114.8 M edges, 602 -> 64 -> 41, on its hybrid plan), and of the
-     3-layer GIN-max on Cora and arxiv (`entry.SERVE_CONFIGS`), eval mode
+     3-layer GIN-max on Cora and arxiv, and of the point-cloud UNet on its
+     20,000- and 60,000-voxel clouds (`entry.SERVE_CONFIGS`), eval mode
      under inference_mode, through the kernels (per forward: GCN 2
      csr_spmm, the Reddit GCN 2 spmm_dense_cells, 2 spmm_bell and 2
-     csr_spmm for the residue, GIN 2 spmm_maxmin, nothing else), checked
+     csr_spmm for the residue, GIN 2 spmm_maxmin, UNet 4 spconv_pairs,
+     nothing else), checked
      finite and against the same model with the plain versions at 1e-4.
   6. main path 2, training: 5 Adam steps each of gcn-cora, gat-cora,
-     gcn-arxiv, gat-arxiv, gin-max-cora, gin-max-arxiv and gcn-reddit
-     (`entry.TRAIN_CONFIGS`) through the kernels, with exact launches per
-     step (GCN: csr_spmm 4; GAT: csr_spmm 4, sddmm_csr 2; GIN-max:
-     spmm_maxmin 2, its d_dense 1, its d_values 0; the Reddit GCN:
-     spmm_dense_cells 4, spmm_bell 2, csr_spmm 4), finite losses (falling
-     over the 5 steps for GCN and GAT), per-step latency (host clock
+     gcn-arxiv, gat-arxiv, gin-max-cora, gin-max-arxiv, gcn-reddit, unet
+     and unet-60k (`entry.TRAIN_CONFIGS`) through the kernels, with exact
+     launches per step (GCN: csr_spmm 4; GAT: csr_spmm 4, sddmm_csr 2;
+     GIN-max: spmm_maxmin 2, its d_dense 1, its d_values 0; the Reddit
+     GCN: spmm_dense_cells 4, spmm_bell 2, csr_spmm 4; UNet: spconv_pairs
+     7, spconv_dw 4), finite losses (falling over the 5 steps for GCN,
+     GAT and UNet), per-step latency (host clock
      around synchronize) and max_memory_allocated. Before that run, the
      same step 1 against the plain versions on the card: logits at 1e-4,
      and the gradients of every parameter at rtol 1e-4, atol
@@ -84,11 +95,18 @@ exits non-zero without a result line:
      transpose, spmm_bell and sddmm_cells beside their plain versions and
      torch.bmm over the gathered blocks (cuSPARSE over the BELL edges for
      spmm_bell), and the whole hybrid SpMM against csr_spmm and cuSPARSE
-     over the full CSR.
+     over the full CSR. On the 60,000-voxel cloud (bench_spconv's SubM at
+     32->32 and 64->64, and the four convs of "unet-60k"): spconv_pairs
+     forward and dX and spconv_dw beside their plain versions and the
+     dense cuDNN call over the densified grid (conv3d, conv_transpose3d
+     for the inverse conv, torch.nn.grad.conv3d_input / conv3d_weight for
+     dX / dW; TF32 off), each held to the kernel at 1e-4 at the active
+     sites.
   8. profile: the time of the per-edge gather of an [N, 4] fp32 table,
      contiguous and column-major; torch.profiler over 3 training steps
      each of gcn-arxiv, gat-arxiv and gin-max-arxiv after 2 warm-up
-     steps, and of gcn-reddit, device time per step by kernel and the
+     steps, and of gcn-reddit and unet-60k, device time per step by
+     kernel and the
      device's busy share of the wall time.
 Then one JSON line of per-kernel results, the card's name and power
 limit, and as the last line
@@ -110,6 +128,7 @@ FIXTURE = os.path.join(FIXTURES, "gcn_small.npz")
 TRAIN_FIXTURE = os.path.join(FIXTURES, "train_small.npz")
 GIN_FIXTURE = os.path.join(FIXTURES, "gin_small.npz")
 HYBRID_FIXTURE = os.path.join(FIXTURES, "hybrid_small.npz")
+UNET_FIXTURE = os.path.join(FIXTURES, "unet_small.npz")
 # bench.py:57-61 — the p2p-Gnutella31 shape; the .mtx is not in the repo
 P2P_NODES, P2P_EDGES = 62586, 147892
 FEATS = (1, 7, 32, 64, 128, 256)
@@ -121,11 +140,13 @@ STEPS = 5
 # H100 SXM data sheet: HBM and fp32 peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin", "spmm_cells", "spmm_bell")
+KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin", "spmm_cells", "spmm_bell",
+           "spconv")
 # the wrappers the main paths launch, as `kernels.launch_counts` names them
 KERNEL_NAMES = ("csr_spmm", "sddmm_csr", "spmm_maxmin",
                 "spmm_maxmin_d_dense", "spmm_maxmin_d_values",
-                "spmm_dense_cells", "spmm_bell", "sddmm_cells")
+                "spmm_dense_cells", "spmm_bell", "sddmm_cells",
+                "spconv_pairs", "spconv_dw")
 _NONE = dict.fromkeys(KERNEL_NAMES, 0)
 # kernel launches per training step: the forward and d_dense of both
 # layers, plus d_values of both layers where the edge values are
@@ -133,18 +154,22 @@ _NONE = dict.fromkeys(KERNEL_NAMES, 0)
 # maxes twice and differentiates only the second aggregation, over a bare
 # graph without values; a GCN on a graph with a hybrid plan
 # ("gcn-hybrid") runs per layer the cells, BELL and residue (CSR) tiers
-# forward and the cells and non-cell CSC (CSR kernel) tiers in d_dense
+# forward and the cells and non-cell CSC (CSR kernel) tiers in d_dense; the
+# point-cloud UNet runs its 4 convs forward, dX of the 3 whose input is not
+# data, and dW of all 4
 STEP_LAUNCHES = {"gcn": {**_NONE, "csr_spmm": 4},
                  "gat": {**_NONE, "csr_spmm": 4, "sddmm_csr": 2},
                  "gin": {**_NONE, "spmm_maxmin": 2,
                          "spmm_maxmin_d_dense": 1},
                  "gcn-hybrid": {**_NONE, "spmm_dense_cells": 4,
-                                "spmm_bell": 2, "csr_spmm": 4}}
+                                "spmm_bell": 2, "csr_spmm": 4},
+                 "unet": {**_NONE, "spconv_pairs": 7, "spconv_dw": 4}}
 # ... and per served forward
 FORWARD_LAUNCHES = {"gcn": {**_NONE, "csr_spmm": 2},
                     "gin": {**_NONE, "spmm_maxmin": 2},
                     "gcn-hybrid": {**_NONE, "spmm_dense_cells": 2,
-                                   "spmm_bell": 2, "csr_spmm": 2}}
+                                   "spmm_bell": 2, "csr_spmm": 2},
+                    "unet": {**_NONE, "spconv_pairs": 4}}
 # the hybrid kernels' widths: every tier of a small clustered graph, and the
 # Reddit-scale GCN's two layers
 HYBRID_FEATS = (1, 41, 64, 130)
@@ -152,6 +177,10 @@ REDDIT_FEATS = (64, 41)
 # the max/min kernel phase: the compute ops (None: copy_u) and widths
 MAXMIN_COMPUTES = (None, "add", "sub", "mul", "div")
 MAXMIN_FEATS = {"p2p": (32,), "arxiv": (128, 256)}
+# the spconv kernels' (c_in, c_out): the UNet's convs and a ragged pair
+SPCONV_CHANNELS = ((8, 32), (32, 64), (64, 64), (7, 33))
+# the point clouds of the UNet configurations
+CLOUDS = ("unet", "unet-60k")
 
 
 def log(*args):
@@ -589,6 +618,71 @@ def phase_hybrid_kernels(torch, cuda, reddit):
     return errs
 
 
+def phase_spconv_kernels(torch, cuda, enc2_plan):
+    """spconv_pairs forward (pairs by output, W) and dX (pairs by input,
+    Wᵀ) and spconv_dw against their plain versions: on a two-batch cloud's
+    submanifold, strided and inverse plans and on the "unet-60k" enc2 plan,
+    at (c_in, c_out) in SPCONV_CHANNELS; float32 at 1e-5 and bfloat16 at
+    1e-2, scaled by the terms' absolute sum. Each kernel run twice equals
+    itself bitwise (no atomics)."""
+    from dgsparse_tpu_torch.kernels import spconv as K
+    from dgsparse_tpu_torch.ops.spconv import build_rulebook, inverse_plan
+    from dgsparse_tpu_torch.utils.testing import (assert_sum_close,
+                                                  random_cloud)
+
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0}
+            for k in ("spconv_pairs", "spconv_dw")}
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=cuda).to(
+            getattr(torch, dtype))
+
+    def check(kernel, dtype, fn, plain, *args):
+        out, again = fn(*args), fn(*args)
+        ref = plain(*args)
+        abs_sum = plain(args[0], *(a.float().abs() for a in args[1:]))
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"{kernel}: two runs on the same inputs "
+                                 f"differ")
+        e = assert_sum_close(out, ref, abs_sum, TOL[dtype])
+        errs[kernel][dtype] = max(errs[kernel][dtype], e)
+        return e
+
+    shape = (16, 14, 12)
+    coords = random_cloud(1500, shape, 2, seed=11)
+    subm, _ = build_rulebook(coords, 3, 1, 1, spatial_shape=shape,
+                             device=cuda)
+    strided, _ = build_rulebook(coords, 3, 2, 1, spatial_shape=shape,
+                                device=cuda)
+    plans = {"two-batch subm": subm, "two-batch strided": strided,
+             "two-batch inverse": inverse_plan(strided),
+             "unet-60k enc2": enc2_plan}
+    for tag, plan in plans.items():
+        for c_in, c_out in SPCONV_CHANNELS:
+            worst = {k: [] for k in errs}
+            for dtype in ("float32", "bfloat16"):
+                x = randn(plan.num_in, c_in, dtype=dtype)
+                g = randn(plan.num_out, c_out, dtype=dtype)
+                w = randn(plan.k_vol, c_in, c_out, dtype=dtype)
+                wt = w.transpose(1, 2).contiguous()
+                for pairs, src, wk in ((plan.by_out, x, w),
+                                       (plan.by_in, g, wt)):
+                    worst["spconv_pairs"].append(check(
+                        "spconv_pairs", dtype, K.spconv_pairs_cuda,
+                        K.spconv_pairs_plain, pairs, src, wk))
+                worst["spconv_dw"].append(check(
+                    "spconv_dw", dtype, K.spconv_dw_cuda, K.spconv_dw_plain,
+                    plan.by_offset, x, g))
+            log(f"[spconv] {tag} ({plan.num_in} -> {plan.num_out} sites, "
+                f"{plan.total_pairs} pairs) c_in={c_in} c_out={c_out} "
+                f"fp32/bf16: spconv_pairs forward and dX max_abs_err "
+                f"{max(worst['spconv_pairs']):.3e}, spconv_dw "
+                f"{max(worst['spconv_dw']):.3e}; both bitwise repeatable")
+    return errs
+
+
 def _fixture_params(fx):
     return {f"conv{i}": {"linear": {"kernel": fx[f"conv{i}_kernel"],
                                     "bias": fx[f"conv{i}_bias"]}}
@@ -696,14 +790,66 @@ def phase_fixture(torch, cuda):
         f"launches per step "
         f"{ {k: v // 2 for k, v in counts.items() if v} }")
 
+    # the point-cloud UNet: its eval forward, then 3 Adam steps
+    with np.load(UNET_FIXTURE) as f:
+        fx = dict(f)
+    reset_launch_counts()
+    out, losses, grads = run_gin_fixture(fx, cuda, steps=3, name="unet")
+    counts = _counts()
+    expected = {k: 3 * v for k, v in STEP_LAUNCHES["unet"].items()}
+    expected["spconv_pairs"] += FORWARD_LAUNCHES["unet"]["spconv_pairs"]
+    if counts != expected:
+        raise AssertionError(f"UNet fixture: launches {counts}, expected "
+                             f"{expected}")
+    e = max_err(torch.from_numpy(out), torch.from_numpy(fx["unet/out"]),
+                1e-4)
+    prefix = "unet/grads/"
+    loss_err, grad_err = assert_train_close(
+        losses, grads, fx["unet/losses"],
+        {k[len(prefix):]: v for k, v in fx.items() if k.startswith(prefix)})
+    log(f"[fixture] point-cloud UNet on {len(fx['coords'])} voxels in "
+        f"{fx['shape'].tolist()} vs the JAX package's: forward max_abs_err "
+        f"{e:.3e}; 3 Adam steps at lr {float(fx['unet/lr'])}, losses "
+        f"{[round(x, 6) for x in losses]}, max loss err {loss_err:.3e}, "
+        f"step-1 grads max_abs_err {grad_err:.3e}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
 
 def _describe(model):
-    """The model's class and its dense widths, input to output."""
+    """The model's class and its widths, input to output."""
     from torch import nn
 
+    from dgsparse_tpu_torch.nn import PointCloudUNet
+
+    if isinstance(model, PointCloudUNet):
+        convs = (model.enc1.SubMConv3d_0, model.down1,
+                 model.enc2.SubMConv3d_0, model.up1)
+        dims = [convs[0].kernel.shape[1]] + [c.kernel.shape[2]
+                                             for c in convs]
+        return (f"PointCloudUNet {'->'.join(map(str, dims))} (+"
+                f"{dims[1]} skip)->{model.head.out_features}")
     linears = [m for m in model.modules() if isinstance(m, nn.Linear)]
     dims = [linears[0].in_features] + [m.out_features for m in linears]
     return f"{type(model).__name__} " + "->".join(map(str, dims))
+
+
+def _data_desc(adj):
+    """The size of a main path's graph or voxel cloud."""
+    if hasattr(adj, "coords"):
+        return (f"{len(adj.coords)} voxels in "
+                f"{'x'.join(map(str, adj.spatial_shape))}")
+    return f"{adj.sparse_sizes()[0]} nodes, {adj.nnz} nnz"
+
+
+def _out_shape(tc):
+    """(rows, classes) of a configuration's logits."""
+    from dgsparse_tpu_torch.entry import CLOUDS, CONFIGS
+
+    if tc.model == "unet":
+        cloud = CLOUDS[tc.graph]
+        return cloud.num_points, cloud.num_classes
+    cfg = CONFIGS[tc.graph]
+    return cfg.num_nodes, cfg.num_classes
 
 
 def _counts():
@@ -714,8 +860,7 @@ def _counts():
 
 
 def phase_slice(torch, cuda, graphs):
-    from dgsparse_tpu_torch.entry import (CONFIGS, SERVE_CONFIGS,
-                                          build_model)
+    from dgsparse_tpu_torch.entry import SERVE_CONFIGS, build_model
     from dgsparse_tpu_torch.kernels import reset_launch_counts
 
     runs = {}
@@ -725,8 +870,7 @@ def phase_slice(torch, cuda, graphs):
         with torch.inference_mode(), plain_kernels():
             ref = model(x, adj)
         torch.cuda.synchronize()
-        log(f"[slice] {config}: {adj.sparse_sizes()[0]} nodes, {adj.nnz} "
-            f"nnz, {_describe(model)}")
+        log(f"[slice] {config}: {_data_desc(adj)}, {_describe(model)}")
         runs[config] = (adj, x, model, ref)
 
     reset_launch_counts()
@@ -752,14 +896,13 @@ def phase_slice(torch, cuda, graphs):
     for config, (out, latencies, n_launch, peak) in per_config.items():
         adj, _, model, ref = runs[config]
         tc = SERVE_CONFIGS[config]
-        cfg = CONFIGS[tc.graph]
         expected = {k: REQUESTS * v for k, v in
                     FORWARD_LAUNCHES[_launch_kind(tc, adj)].items()}
         if n_launch != expected:
             raise AssertionError(
                 f"{config}: launches {n_launch} in {REQUESTS} forwards, "
                 f"expected {expected}")
-        if tuple(out.shape) != (cfg.num_nodes, cfg.num_classes):
+        if tuple(out.shape) != _out_shape(tc):
             raise AssertionError(f"{config}: output shape {out.shape}")
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{config}: non-finite output")
@@ -780,15 +923,18 @@ def _graph_key(tc):
 def _launch_kind(tc, adj):
     """The key of a configuration's launches: its model's, or for a GCN on
     a graph with a hybrid plan "gcn-hybrid"."""
+    if tc.model == "unet":
+        return "unet"
     return (f"{tc.model}-hybrid" if adj.storage.ell_plan() is not None
             else tc.model)
 
 
 def build_graphs(torch, cuda):
-    """Each graph the main paths take, built once: the GCN-normalized
-    Cora, arxiv and Reddit-scale graphs and the bare Cora and arxiv
-    structures for GIN; the Reddit-scale build's phases timed."""
-    from dgsparse_tpu_torch.entry import synthetic_graph
+    """Each graph and cloud the main paths take, built once: the
+    GCN-normalized Cora, arxiv and Reddit-scale graphs, the bare Cora and
+    arxiv structures for GIN, and the UNet's voxel clouds with their four
+    rulebooks; the Reddit-scale build's phases timed."""
+    from dgsparse_tpu_torch.entry import synthetic_cloud, synthetic_graph
 
     graphs = {}
     for config, gin in (("cora", False), ("cora", True), ("arxiv", False),
@@ -805,7 +951,25 @@ def build_graphs(torch, cuda):
             f"{'(bare structure)' if gin else 'with self-loops'}; host "
             f"build and upload {time.perf_counter() - t0:.2f} s; phases "
             f"{ {k: round(v, 3) for k, v in phases.items()} }")
+    for config in CLOUDS:
+        t0 = time.perf_counter()
+        graphs[config] = synthetic_cloud(config, seed=0, device=cuda)
+        plans = unet_plans(graphs[config][0])
+        torch.cuda.synchronize()
+        log(f"[graphs] {config}: {_data_desc(graphs[config][0])}; cloud and "
+            f"its 4 rulebooks built and uploaded in "
+            f"{time.perf_counter() - t0:.2f} s; pairs per conv "
+            f"{ {k: p.total_pairs for k, p in plans.items()} }, "
+            f"{plans['enc2'].num_in} coarse sites")
     return graphs
+
+
+def unet_plans(st):
+    """The UNet's rulebook of each conv on the cloud `st`, built once and
+    cached on st as a forward caches them."""
+    from dgsparse_tpu_torch.nn import PointCloudUNet
+
+    return PointCloudUNet().plans(st)
 
 
 @contextlib.contextmanager
@@ -813,12 +977,15 @@ def plain_kernels():
     """The kernels' plain versions in place of their launches, on the
     card: the oracle of the serving and training phases."""
     from dgsparse_tpu_torch.kernels import sddmm_csr as S
+    from dgsparse_tpu_torch.kernels import spconv as P
     from dgsparse_tpu_torch.kernels import spmm_bell as B
     from dgsparse_tpu_torch.kernels import spmm_cells as C
     from dgsparse_tpu_torch.kernels import spmm_csr as K
     from dgsparse_tpu_torch.kernels import spmm_maxmin as M
 
-    swaps = [(K, "csr_spmm_cuda", K.csr_spmm_plain),
+    swaps = [(P, "spconv_pairs_cuda", P.spconv_pairs_plain),
+             (P, "spconv_dw_cuda", P.spconv_dw_plain),
+             (K, "csr_spmm_cuda", K.csr_spmm_plain),
              (S, "sddmm_csr_cuda", S.sddmm_csr_plain),
              (M, "spmm_maxmin_cuda", M.spmm_maxmin_plain),
              (M, "spmm_maxmin_d_dense_cuda", M.spmm_maxmin_d_dense_plain),
@@ -928,8 +1095,8 @@ def phase_training(torch, cuda, graphs):
                                        msg=lambda m: f"{config} {name}: {m}")
             grad_err = max(grad_err, (got[name] - g).abs().max().item())
         adj = graphs[_graph_key(tc)][0]
-        log(f"[training] {config}: {adj.sparse_sizes()[0]} nodes, {adj.nnz} "
-            f"nnz, {STEPS} Adam steps, losses "
+        log(f"[training] {config}: {_data_desc(adj)}, {STEPS} Adam steps, "
+            f"losses "
             f"{[round(v, 6) for v in losses]}, step latency ms "
             f"{[round(t, 4) for t in latencies]}, launches per step "
             f"{ {k: v for k, v in per_step[0].items() if v} }, "
@@ -963,7 +1130,8 @@ def phase_profile(torch, cuda, graphs, steps=3):
         log(f"[profile] index_select of [{st.num_rows}, 4] fp32 rows by "
             f"{st.nnz} edges, {label}: {us:.1f} us")
 
-    for config in ("gcn-arxiv", "gat-arxiv", "gin-max-arxiv", "gcn-reddit"):
+    for config in ("gcn-arxiv", "gat-arxiv", "gin-max-arxiv", "gcn-reddit",
+                   "unet-60k"):
         data = graphs[_graph_key(TRAIN_CONFIGS[config])]
         model, opt, (adj, x, y) = build_trainer(config, seed=0, device=cuda,
                                                 data=data)
@@ -995,16 +1163,17 @@ def phase_profile(torch, cuda, graphs, steps=3):
                 f"calls/step  {key[:110]}")
 
 
-def _time_turns(fns):
+def _time_turns(fns, **counts):
     """Best of two turns of CUDA-event timings, the second turn in reverse
-    order, so drift in clocks hits every version alike."""
+    order, so drift in clocks hits every version alike; `counts` (warmup,
+    iters) go to cuda_time."""
     from dgsparse_tpu_torch.utils.bench import cuda_time
 
     t = {k: [] for k in fns}
     for order in (list(fns), list(fns)[::-1]):
         for who in order:
             fn, args = fns[who]
-            t[who].append(cuda_time(fn, *args))
+            t[who].append(cuda_time(fn, *args, **counts))
     return {k: min(v) * 1e3 for k, v in t.items()}
 
 
@@ -1298,6 +1467,173 @@ def phase_hybrid_numbers(torch, cuda, reddit):
     return results
 
 
+def _grid(torch, feats, coords, shape):
+    """feats [n, C] at the voxels `coords` (batch 0) of a dense
+    [1, C, X, Y, Z] float32 grid, zero elsewhere."""
+    c = torch.from_numpy(coords).to(feats.device).long()
+    grid = torch.zeros(1, feats.shape[1], *shape, device=feats.device)
+    grid[0][:, c[:, 1], c[:, 2], c[:, 3]] = feats.t()
+    return grid
+
+
+def _sites(torch, grid, coords):
+    """The rows [n, C] of a dense [1, C, X, Y, Z] grid at `coords`."""
+    c = torch.from_numpy(coords).to(grid.device).long()
+    return grid[0][:, c[:, 1], c[:, 2], c[:, 3]].t()
+
+
+def phase_spconv_numbers(torch, cuda, cloud):
+    """CUDA-event times (fp32, best of two turns) on the 60,000-voxel cloud
+    of spconv_pairs forward (pairs by output, W) and dX (pairs by input,
+    Wᵀ) and of spconv_dw, beside their plain versions, their bounds and
+    the dense cuDNN convolution over the densified grid (TF32 off): conv3d
+    (conv_transpose3d for the inverse conv) for the forward, aten's
+    convolution_backward for the input or the weight gradient alone (what
+    torch.nn.grad.conv3d_input / conv3d_weight call). Each dense result,
+    read at the active sites, is held to the kernel's at 1e-4 (scaled by
+    the terms' absolute sum), with the center tap of a submanifold conv
+    added to the kernel's side as `ops/spconv.py` adds it. Shapes:
+    bench_spconv's SubM at 32->32 and 64->64 and the four convs of
+    "unet-60k"."""
+    from torch.nn import functional as F
+
+    from dgsparse_tpu_torch.kernels import spconv as K
+    from dgsparse_tpu_torch.nn import PointCloudUNet
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    st = cloud[0]
+    unet = PointCloudUNet()
+    plans = unet.plans(st)
+    coarse = unet.down1.output_sites(st)
+    fine_sites = (st.coords, st.spatial_shape)
+    coarse_sites = (coarse.coords, coarse.spatial_shape)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    results = {"spconv_pairs": {}, "spconv_dw": {}}
+    # label: (plan, c_in, c_out, input sites, output sites, stride,
+    # transposed)
+    layers = {
+        "bench_spconv SubM 32->32": (plans["enc1"], 32, 32, fine_sites,
+                                     fine_sites, 1, False),
+        "bench_spconv SubM 64->64": (plans["enc1"], 64, 64, fine_sites,
+                                     fine_sites, 1, False),
+        "unet-60k enc1 SubM 8->32": (plans["enc1"], 8, 32, fine_sites,
+                                     fine_sites, 1, False),
+        "unet-60k down1 stride 2 32->64": (plans["down1"], 32, 64,
+                                           fine_sites, coarse_sites, 2,
+                                           False),
+        "unet-60k enc2 SubM 64->64": (plans["enc2"], 64, 64, coarse_sites,
+                                      coarse_sites, 1, False),
+        "unet-60k up1 inverse 64->32": (plans["up1"], 64, 32, coarse_sites,
+                                        fine_sites, 2, True),
+    }
+    counts = dict(warmup=3, iters=20)
+    for label, (plan, c_in, c_out, sin, sout, stride, transposed) in \
+            layers.items():
+        mid = (plan.k_vol - 1) // 2
+        x = torch.randn(plan.num_in, c_in, generator=gen, device=cuda)
+        g = torch.randn(plan.num_out, c_out, generator=gen, device=cuda)
+        w = torch.randn(plan.k_vol, c_in, c_out, generator=gen,
+                        device=cuda) * 0.1
+        wt = w.transpose(1, 2).contiguous()
+        # the dense weight: [c_out, c_in, 3, 3, 3] for conv3d; for the
+        # inverse conv the mirrored offsets as conv_transpose3d's [c_in,
+        # c_out, 3, 3, 3]
+        w5 = w.view(3, 3, 3, c_in, c_out)
+        dense_w = (w5.flip(0, 1, 2).permute(3, 4, 0, 1, 2) if transposed
+                   else w5.permute(4, 3, 0, 1, 2)).contiguous()
+        x_grid = _grid(torch, x, sin[0], sin[1])
+        g_grid = _grid(torch, g, sout[0], sout[1])
+        out_pad = [o - (2 * i - 1) for o, i in zip(sout[1], sin[1])] \
+            if transposed else [0, 0, 0]
+
+        def dense_fwd(x_grid, dense_w):
+            if transposed:
+                return F.conv_transpose3d(x_grid, dense_w, stride=stride,
+                                          padding=1,
+                                          output_padding=out_pad)
+            return F.conv3d(x_grid, dense_w, stride=stride, padding=1)
+
+        def dense_bwd(g_grid, x_grid, dense_w, mask):
+            return torch.ops.aten.convolution_backward(
+                g_grid, x_grid, dense_w, None, [stride] * 3, [1] * 3,
+                [1] * 3, transposed, out_pad, 1, mask)
+
+        def center(a, b):
+            return a @ b if plan.separate_mid else 0
+
+        # the kernels' results, the center tap added, and the dense ones
+        fwd = K.spconv_pairs_cuda(plan.by_out, x, w) + center(x, w[mid])
+        fwd_abs = K.spconv_pairs_plain(plan.by_out, x.abs(), w.abs()) \
+            + center(x.abs(), w[mid].abs())
+        dx = K.spconv_pairs_cuda(plan.by_in, g, wt) + center(g, w[mid].T)
+        dx_abs = K.spconv_pairs_plain(plan.by_in, g.abs(), wt.abs()) \
+            + center(g.abs(), w[mid].T.abs())
+        dw = K.spconv_dw_cuda(plan.by_offset, x, g)
+        dw_abs = K.spconv_dw_plain(plan.by_offset, x.abs(), g.abs())
+        if plan.separate_mid:
+            dw[mid] += x.T @ g
+            dw_abs[mid] += x.abs().T @ g.abs()
+        lib_dw = dense_bwd(g_grid, x_grid, dense_w, [False, True, False])[1]
+        lib_dw = (lib_dw.flip(2, 3, 4).permute(2, 3, 4, 0, 1) if transposed
+                  else lib_dw.permute(2, 3, 4, 1, 0)).reshape(dw.shape)
+        errs = [
+            assert_sum_close(_sites(torch, dense_fwd(x_grid, dense_w),
+                                    sout[0]), fwd, fwd_abs, 1e-4),
+            assert_sum_close(_sites(torch, dense_bwd(
+                g_grid, x_grid, dense_w, [True, False, False])[0], sin[0]),
+                dx, dx_abs, 1e-4),
+            assert_sum_close(lib_dw, dw, dw_abs, 1e-4)]
+
+        pairs_ops = 2.0 * plan.total_pairs * c_in * c_out
+        # x or g, the weights, ptr, src and widx, and the float32 output
+        for direction, pairs, src, wk, grid, lib in (
+                ("forward", plan.by_out, x, w, x_grid,
+                 (dense_fwd, (x_grid, dense_w))),
+                ("dX", plan.by_in, g, wt, g_grid,
+                 (dense_bwd, (g_grid, x_grid, dense_w,
+                              [True, False, False])))):
+            ms = _time_turns({
+                "kernel": (K.spconv_pairs_cuda, (pairs, src, wk)),
+                "plain": (K.spconv_pairs_plain, (pairs, src, wk)),
+                "library": lib}, **counts)
+            ms["bound"], ms["bound_by"] = bound(
+                4 * (src.numel() + wk.numel() + pairs.num_rows + 1
+                     + 2 * pairs.num_pairs + pairs.num_rows * wk.shape[2]),
+                pairs_ops)
+            ms["library_call"] = (
+                ("torch.nn.functional.conv_transpose3d" if transposed
+                 else "torch.nn.functional.conv3d")
+                if direction == "forward" else
+                "torch.ops.aten.convolution_backward (input gradient)"
+            ) + " over the densified grid, cuDNN, TF32 off"
+            results["spconv_pairs"][f"{label} {direction}"] = ms
+        # x, g, the pair ids and chunk bounds, and dW
+        ms = _time_turns({
+            "kernel": (K.spconv_dw_cuda, (plan.by_offset, x, g)),
+            "plain": (K.spconv_dw_plain, (plan.by_offset, x, g)),
+            "library": (dense_bwd, (g_grid, x_grid, dense_w,
+                                    [False, True, False]))}, **counts)
+        ms["bound"], ms["bound_by"] = bound(
+            4 * (x.numel() + g.numel() + 2 * plan.total_pairs
+                 + plan.by_offset.num_chunks + 1 + w.numel()), pairs_ops)
+        ms["library_call"] = ("torch.ops.aten.convolution_backward (weight "
+                              "gradient) over the densified grid, cuDNN, "
+                              "TF32 off")
+        results["spconv_dw"][f"{label} dW"] = ms
+        log(f"[numbers] spconv {label} ({plan.num_in} -> {plan.num_out} "
+            f"sites, {plan.total_pairs} pairs, fp32; the dense call held to "
+            f"the kernel: max_abs_err fwd {errs[0]:.3e} dX {errs[1]:.3e} dW "
+            f"{errs[2]:.3e}): " + "; ".join(
+                f"{name} kernel {t['kernel'] * 1e3:.2f} us, plain "
+                f"{t['plain'] * 1e3:.2f} us, cuDNN {t['library'] * 1e3:.2f} "
+                f"us, bound {t['bound'] * 1e3:.2f} us ({t['bound_by']})"
+                for name, t in (
+                    ("forward", results["spconv_pairs"][f"{label} forward"]),
+                    ("dX", results["spconv_pairs"][f"{label} dX"]),
+                    ("dW", results["spconv_dw"][f"{label} dW"]))))
+    return results
+
+
 def _library_amax(torch, rowptr, col, x, out):
     """The one PyTorch call for a MAX SpMM, torch.sparse.mm(A, x,
     reduce="amax") over a CSR of ones, held to the kernel's out at 1e-5:
@@ -1436,12 +1772,15 @@ def run(torch, cuda) -> int:
         errs.update(phase_maxmin_kernels(torch, cuda, {
             "arxiv": graphs["arxiv-gin"]}))
         errs.update(phase_hybrid_kernels(torch, cuda, graphs["reddit"][0]))
+        errs.update(phase_spconv_kernels(
+            torch, cuda, unet_plans(graphs["unet-60k"][0])["enc2"]))
         phase_fixture(torch, cuda)
         runs, serving = phase_slice(torch, cuda, graphs)
         training, _ = phase_training(torch, cuda, graphs)
         sddmm_path = phase_sddmm_hybrid(torch, cuda, graphs["reddit"][0])
         times = phase_numbers(torch, cuda, runs, graphs)
         times.update(phase_hybrid_numbers(torch, cuda, graphs["reddit"][0]))
+        times.update(phase_spconv_numbers(torch, cuda, graphs["unet-60k"]))
         phase_profile(torch, cuda, graphs)
         if "jax" in sys.modules:
             raise AssertionError("JAX was imported")
@@ -1457,7 +1796,10 @@ def run(torch, cuda) -> int:
                 ("spmm_dense_cells", "training", training),
                 ("spmm_bell", "serving", serving),
                 ("spmm_bell", "training", training),
-                ("sddmm_cells", "sddmm", sddmm_path)):
+                ("sddmm_cells", "sddmm", sddmm_path),
+                ("spconv_pairs", "serving", serving),
+                ("spconv_pairs", "training", training),
+                ("spconv_dw", "training", training)):
             if counts[kernel] <= 0:
                 raise AssertionError(
                     f"{kernel} never launched on the {path} path")
@@ -1506,6 +1848,16 @@ def run(torch, cuda) -> int:
             "dgsparse_tpu/kernels/pallas_sddmm.py:125", paths("sddmm_cells"),
             errs["sddmm_cells"], times["sddmm_cells"], "reddit F=64", card,
             main="sddmm"),
+        _kernel_entry(
+            "spconv_pairs", "dgsparse_tpu_torch/csrc/spconv.cu",
+            "dgsparse_tpu/kernels/pallas_spconv.py:147",
+            paths("spconv_pairs"), errs["spconv_pairs"],
+            times["spconv_pairs"], "unet-60k enc2 SubM 64->64 forward", card),
+        _kernel_entry(
+            "spconv_dw", "dgsparse_tpu_torch/csrc/spconv.cu",
+            "dgsparse_tpu/kernels/pallas_spconv.py:258", paths("spconv_dw"),
+            errs["spconv_dw"], times["spconv_dw"],
+            "unet-60k enc2 SubM 64->64 dW", card),
     ]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))

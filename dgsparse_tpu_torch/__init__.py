@@ -5,13 +5,16 @@ ported piece keeps its counterpart's module path and names and is tested
 against it. This package imports torch and never JAX. What is ported so
 far: CSR formats, SpMM with SUM/MEAN/MAX/MIN (single- and multi-head,
 CSR and COO) with both gradients, the semiring `gspmm` grid, SDDMM, edge
-softmax, the sorted segment sum, the GCN, GAT, GIN, SAGE and DGCNN models,
-and GCN, GAT and GIN-max serving and training (`entry.py`). Three kernel
-sources, CUDA C++ for Hopper (sm_90a), carry them: `csrc/spmm_csr.cu`
-replaces the Pallas `segment_matmul`, `csrc/sddmm_csr.cu` the Pallas
-`sddmm_esc`, and `csrc/spmm_maxmin.cu` the Pallas `spmm_maxmin_esc` and
-its XLA winner-mask backward; tensors on the CPU run their plain PyTorch
-versions.
+softmax, the sorted segment sum, the hybrid tiers on clustered graphs,
+sparse 3-D convolution with its host rulebook, the GCN, GAT, GIN, SAGE,
+DGCNN and point-cloud UNet models, and their serving and training
+(`entry.py`). Every Pallas kernel of the JAX package has a CUDA C++
+counterpart for Hopper (sm_90a) under `csrc/`: `spmm_csr.cu`
+(`segment_matmul`), `sddmm_csr.cu` (`sddmm_esc`), `spmm_maxmin.cu`
+(`spmm_maxmin_esc` and its XLA winner-mask backward), `spmm_cells.cu`
+(`spmm_dense_cells`, `sddmm_cells`), `spmm_bell.cu` (`spmm_bell`) and
+`spconv.cu` (`fused_pair_matmul`, `fused_pair_dw`); tensors on the CPU
+run their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"
@@ -26,6 +29,8 @@ from dgsparse_tpu_torch.ops.segment import sorted_segment_sum
 from dgsparse_tpu_torch.ops.spmm import (spmm, spmm_max, spmm_mean, spmm_min,
                                          spmm_sum)
 from dgsparse_tpu_torch.ops.spmm_coo import spmm_coo
+from dgsparse_tpu_torch.ops.spconv import (SparseConvTensor, build_rulebook,
+                                           inverse_plan, spconv)
 from dgsparse_tpu_torch.ops.spmm_mh import spmm_multihead
 from dgsparse_tpu_torch.ops.types import Algorithm, ComputeOp, ReduceOp
 from dgsparse_tpu_torch import nn  # noqa: E402  (nn.GCN, nn.GIN, ...)
@@ -94,6 +99,10 @@ __all__ = [
     "sddmm",
     "sddmm_coo",
     "edge_softmax",
+    "SparseConvTensor",
+    "build_rulebook",
+    "inverse_plan",
+    "spconv",
     "nn",
     "self_check",
     "version",

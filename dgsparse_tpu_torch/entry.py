@@ -1,5 +1,6 @@
-"""The port's main paths on seeded synthetic graphs: GCN and GIN-max
-forwards (serving) and GCN / GAT / GIN-max training steps.
+"""The port's main paths on seeded synthetic graphs and point clouds: GCN,
+GIN-max and point-cloud UNet forwards (serving) and GCN / GAT / GIN-max /
+UNet training steps.
 
 Counterpart of `__graft_entry__.py::_synthetic_graph`/`entry` (the
 Cora-shaped graph, GCN 128 -> 64 -> 7), the arxiv-scale configurations of
@@ -24,6 +25,14 @@ the same seeds as the JAX package; weights from a `torch.Generator`.
 `synthetic_graph` adds its host build times per phase to the storage's
 `build_seconds`.
 
+"unet" and "unet-60k" are the sparse UNet of
+`examples/pointcloud_unet.py:49-60` (8 -> 32 -> 64 -> 32 -> 8 classes) on
+a voxel cloud drawn as that example draws it (`synthetic_cloud`): its own
+20,000 voxels in 128 x 128 x 32, and the 60,000 voxels in 128 x 128 x 64
+of `benchmark/bench_spconv.py:31-50`. It trains as the example does: Adam
+at lr 1e-3 with optax's defaults, mean cross-entropy. Its `adj` slot is
+the cloud's SparseConvTensor, which caches the rulebooks.
+
 Every entry point runs on the card unless the caller passes
 device="cpu"; without a card, a call that does not name the CPU raises.
 """
@@ -40,6 +49,8 @@ from dgsparse_tpu_torch.core.formats import SparseTensor
 from dgsparse_tpu_torch.nn.gat import GAT
 from dgsparse_tpu_torch.nn.gcn import GCN, get_gcn_dcsr_from_edge_index
 from dgsparse_tpu_torch.nn.gin import GIN
+from dgsparse_tpu_torch.nn.unet import PointCloudUNet
+from dgsparse_tpu_torch.ops.spconv import SparseConvTensor
 from dgsparse_tpu_torch.utils.testing import (clustered_graph, gcn_norm_csr,
                                               random_csr)
 
@@ -63,13 +74,28 @@ CONFIGS = {
 
 
 @dataclasses.dataclass(frozen=True)
+class CloudConfig:
+    num_points: int
+    spatial_shape: Tuple[int, int, int]
+    in_features: int = 8
+    num_classes: int = 8
+
+
+CLOUDS = {
+    "unet": CloudConfig(20_000, (128, 128, 32)),
+    "unet-60k": CloudConfig(60_000, (128, 128, 64)),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    model: str             # "gcn", "gat" or "gin"
-    graph: str             # a key of CONFIGS
+    model: str             # "gcn", "gat", "gin" or "unet"
+    graph: str             # a key of CONFIGS, or of CLOUDS for a UNet
     hidden_features: int   # per head for a GAT
     num_heads: int = 1
     num_layers: int = 2    # a GIN's, readout included
     aggregator: str = "sum"
+    lr: float = 1e-2       # Adam's
 
 
 TRAIN_CONFIGS = {
@@ -82,13 +108,15 @@ TRAIN_CONFIGS = {
     "gin-max-arxiv": TrainConfig("gin", "arxiv", 256, num_layers=3,
                                  aggregator="max"),
     "gcn-reddit": TrainConfig("gcn", "reddit", 64),
+    "unet": TrainConfig("unet", "unet", 32, lr=1e-3),
+    "unet-60k": TrainConfig("unet", "unet-60k", 32, lr=1e-3),
 }
 
-# the forwards served: the GCN of each graph (a bare graph name means it)
-# and the 3-layer GIN-max
+# the forwards served: the GCN of each graph (a bare graph name means it),
+# the 3-layer GIN-max and the point-cloud UNet
 SERVE_CONFIGS = {name: TRAIN_CONFIGS[name] for name in
                  ("gcn-cora", "gcn-arxiv", "gin-max-cora", "gin-max-arxiv",
-                  "gcn-reddit")}
+                  "gcn-reddit", "unet", "unet-60k")}
 
 # optax.adam's defaults at the learning rate of bench_train.py
 ADAM = dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
@@ -147,6 +175,37 @@ def synthetic_graph(config: str = "cora", seed: int = 0, device="cuda",
     return adj, x, y
 
 
+def synthetic_cloud(config: str = "unet", seed: int = 0, device="cuda"
+                    ) -> Tuple[SparseConvTensor, torch.Tensor, torch.Tensor]:
+    """(st, x, y) of the named cloud: distinct voxels of batch 0 drawn
+    without replacement from its grid, features [n, 8] and labels [n] in 8
+    classes, with the draws of `examples/pointcloud_unet.py:37-46` (seed 0
+    gives that example's cloud). st is the SparseConvTensor of the sites
+    with the features x."""
+    device = resolve_device(device)
+    cfg = CLOUDS[config]
+    shape = cfg.spatial_shape
+    rng = np.random.default_rng(seed)
+    total = shape[0] * shape[1] * shape[2]
+    flat = rng.choice(total, size=min(cfg.num_points, total), replace=False)
+    x_, r = np.divmod(flat, shape[1] * shape[2])
+    y_, z_ = np.divmod(r, shape[2])
+    coords = np.stack([np.zeros_like(x_), x_, y_, z_], 1).astype(np.int32)
+    x = rng.standard_normal((len(coords), cfg.in_features)).astype(np.float32)
+    y = rng.integers(0, cfg.num_classes, len(coords))
+    x = torch.from_numpy(x).to(device)
+    return (SparseConvTensor(x, coords, shape), x,
+            torch.from_numpy(y.astype(np.int64)).to(device))
+
+
+def synthetic_data(tc: TrainConfig, seed: int = 0, device="cuda"):
+    """(adj, x, y) a configuration's model takes: its cloud for a UNet,
+    else its graph (bare for a GIN)."""
+    if tc.model == "unet":
+        return synthetic_cloud(tc.graph, seed, device)
+    return synthetic_graph(tc.graph, seed, device, gcn_norm=tc.model != "gin")
+
+
 def _model_config(config: str) -> TrainConfig:
     """A model configuration, or a bare graph name for its GCN."""
     if config in CONFIGS:
@@ -155,6 +214,10 @@ def _model_config(config: str) -> TrainConfig:
 
 
 def _make_model(tc: TrainConfig, generator: torch.Generator):
+    if tc.model == "unet":
+        cloud = CLOUDS[tc.graph]
+        return PointCloudUNet(cloud.in_features, cloud.num_classes,
+                              generator=generator)
     cfg = CONFIGS[tc.graph]
     if tc.model == "gcn":
         return GCN(cfg.in_features, tc.hidden_features, cfg.num_classes,
@@ -179,9 +242,7 @@ def build_model(config: str = "cora", seed: int = 0, device="cuda"):
 def entry(config: str = "cora", device="cuda", seed: int = 0):
     """(model, (x, adj)): the forward of a serving configuration and its
     inputs, on the graph that model takes."""
-    tc = _model_config(config)
-    adj, x, _ = synthetic_graph(tc.graph, seed, device,
-                                gcn_norm=tc.model != "gin")
+    adj, x, _ = synthetic_data(_model_config(config), seed, device)
     return build_model(config, seed, device), (x, adj)
 
 
@@ -191,21 +252,22 @@ def build_trainer(config: str = "gcn-cora", seed: int = 0, device="cuda",
 
     The model has seeded weights and sits in eval mode: the JAX step
     applies the model with dropout off (`bench_train.py:150`). `data` is a
-    `synthetic_graph` result of the configuration's graph to reuse.
+    `synthetic_data` result of the configuration's graph or cloud to
+    reuse.
     """
     device = resolve_device(device)
     tc = TRAIN_CONFIGS[config]
     if data is None:
-        data = synthetic_graph(tc.graph, seed, device,
-                               gcn_norm=tc.model != "gin")
+        data = synthetic_data(tc, seed, device)
     model = _make_model(tc, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
-    return model, build_optimizer(model), data
+    return model, build_optimizer(model, tc.lr), data
 
 
-def build_optimizer(model) -> torch.optim.Adam:
-    """Adam at lr 1e-2 with optax's defaults (`bench_train.py:145`)."""
-    return torch.optim.Adam(model.parameters(), **ADAM)
+def build_optimizer(model, lr: float = ADAM["lr"]) -> torch.optim.Adam:
+    """Adam with optax's defaults, at lr 1e-2 (`bench_train.py:145`) unless
+    given another."""
+    return torch.optim.Adam(model.parameters(), **{**ADAM, "lr": lr})
 
 
 def train_step(model, opt, x, adj, y) -> torch.Tensor:

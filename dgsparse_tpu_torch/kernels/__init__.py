@@ -7,10 +7,10 @@ reset all of them at once.
 
 
 def _modules():
-    from dgsparse_tpu_torch.kernels import (sddmm_csr, spmm_bell, spmm_cells,
-                                            spmm_csr, spmm_maxmin)
+    from dgsparse_tpu_torch.kernels import (sddmm_csr, spconv, spmm_bell,
+                                            spmm_cells, spmm_csr, spmm_maxmin)
 
-    return spmm_csr, sddmm_csr, spmm_maxmin, spmm_cells, spmm_bell
+    return spmm_csr, sddmm_csr, spmm_maxmin, spmm_cells, spmm_bell, spconv
 
 
 def launch_counts() -> dict:

@@ -442,3 +442,76 @@ def sddmm_cells(cell_rb: torch.Tensor, cell_cw: torch.Tensor,
     return torch.bmm(_blocks(d1, row_block, cell_rb),
                      _blocks(d2, col_window, cell_cw).transpose(1, 2)
                      ).reshape(-1)
+
+
+# --- spconv (ops/spconv.py) --------------------------------------------------
+
+def spconv_pairs_plain(src_feats: torch.Tensor, src_ids: torch.Tensor,
+                       dst_ids: torch.Tensor, widx: torch.Tensor,
+                       weight: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Gather-GEMM-scatter: every pair p adds src_feats[src_ids[p]] @
+    weight[widx[p]] into out[dst_ids[p]]. A product per kernel offset, then
+    index_add_; float32 [num_rows, c_out]."""
+    out = torch.zeros((num_rows, weight.shape[2]), dtype=torch.float32,
+                      device=src_feats.device)
+    for k in range(weight.shape[0]):
+        hit = widx == k
+        out.index_add_(0, dst_ids[hit].long(),
+                       src_feats[src_ids[hit].long()].float()
+                       @ weight[k].float())
+    return out
+
+
+def spconv_dw_plain(x: torch.Tensor, g: torch.Tensor, in_ids: torch.Tensor,
+                    out_ids: torch.Tensor, widx: torch.Tensor,
+                    k_vol: int) -> torch.Tensor:
+    """Weight gradient: dW[k] = the sum over the pairs p of offset k of
+    x[in_ids[p]]ᵀ g[out_ids[p]]. A product per offset; float32 [k_vol,
+    c_in, c_out]."""
+    dw = torch.zeros((k_vol, x.shape[1], g.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    for k in range(k_vol):
+        hit = widx == k
+        dw[k] = x[in_ids[hit].long()].float().T @ g[out_ids[hit].long()].float()
+    return dw
+
+
+def spconv_dense(features: torch.Tensor, kernel: torch.Tensor,
+                 o2i: torch.Tensor, separate_mid: bool) -> torch.Tensor:
+    """The masked-gather spconv of the JAX package's non-fused path
+    (`dgsparse_tpu/ops/spconv.py:555-578`): out = the center tap
+    features @ W[mid] (under separate_mid) plus, per offset k, the rows
+    o2i[k] of features @ W[k] where o2i[k] >= 0. The op-level oracle."""
+    mid = (kernel.shape[0] - 1) // 2
+    out = torch.zeros((o2i.shape[1], kernel.shape[2]), dtype=features.dtype,
+                      device=features.device)
+    if separate_mid:
+        out = out + features @ kernel[mid]
+    for k in range(kernel.shape[0]):
+        if separate_mid and k == mid:
+            continue
+        idx = o2i[k].long()
+        h = features @ kernel[k]
+        out = out + torch.where((idx >= 0)[:, None], h[idx.clamp(min=0)], 0)
+    return out
+
+
+def spconv_dense_bwd(features: torch.Tensor, kernel: torch.Tensor,
+                     g: torch.Tensor, i2o: torch.Tensor, separate_mid: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dX, dW) of `spconv_dense` for the cotangent g, through the inverse
+    map i2o (`dgsparse_tpu/ops/spconv.py:693-718`): per offset d_h = the
+    rows i2o[k] of g (all of g for the center tap), dX += d_h @ W[k]ᵀ and
+    dW[k] = featuresᵀ @ d_h."""
+    mid = (kernel.shape[0] - 1) // 2
+    d_features = torch.zeros_like(features)
+    d_kernel = torch.zeros_like(kernel)
+    for k in range(kernel.shape[0]):
+        if separate_mid and k == mid:
+            d_h = g
+        else:
+            idx = i2o[k].long()
+            d_h = torch.where((idx >= 0)[:, None], g[idx.clamp(min=0)], 0)
+        d_features = d_features + d_h @ kernel[k].T
+        d_kernel[k] = features.T @ d_h
+    return d_features, d_kernel

@@ -7,7 +7,7 @@ so one loader serves all of them.
 """
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,25 +34,36 @@ def _flat(tree, prefix=()):
             yield prefix + (key,), value
 
 
+def flax_target(model: nn.Module, path) -> Tuple[nn.Parameter, bool]:
+    """(parameter, transposed) of a flax param path a/b/leaf under `model`:
+    a Dense `kernel` [in, out] is model.a.b.weight transposed; a sparse
+    conv's 3-D `kernel` [k_vol, c_in, c_out] is model.a.b.kernel as it is;
+    a LayerNorm's `scale` is its weight; any other leaf is the attribute of
+    that name."""
+    *mods, leaf = path.split("/") if isinstance(path, str) else path
+    for name in mods:
+        model = getattr(model, name)
+    if leaf == "kernel" and not isinstance(getattr(model, "kernel", None),
+                                           nn.Parameter):
+        return model.weight, True
+    if leaf == "scale":
+        return model.weight, False
+    return getattr(model, leaf), False
+
+
 @torch.no_grad()
 def load_flax_params(model: nn.Module, params) -> nn.Module:
     """Copy flax params (numpy arrays, with or without the top-level
-    'params' key) into a module whose submodules carry the flax names:
-    path a/b/kernel goes to model.a.b.weight, transposed ([in, out] ->
-    [out, in]); any other leaf to the attribute of that name. Raises
-    unless every parameter of the model is written once, at its shape."""
+    'params' key) into a module whose submodules carry the flax names
+    (`flax_target` maps each path). Raises unless every parameter of the
+    model is written once, at its shape."""
     params = params.get("params", params)
     written = set()
     for path, value in _flat(params):
-        *mods, leaf = path
-        target = model
-        for name in mods:
-            target = getattr(target, name)
+        target, transposed = flax_target(model, path)
         value = np.asarray(value)
-        if leaf == "kernel":
-            target, value = target.weight, value.T
-        else:
-            target = getattr(target, leaf)
+        if transposed:
+            value = value.T
         if not isinstance(target, nn.Parameter) \
                 or tuple(value.shape) != tuple(target.shape):
             raise ValueError(

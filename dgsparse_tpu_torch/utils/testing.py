@@ -3,10 +3,11 @@ oracles, a check for sums taken in different orders, and the port's side
 of the frozen training fixtures.
 
 `random_csr`, `spmm_oracle` and `gspmm_oracle` are copies of those in
-`dgsparse_tpu/utils/testing.py`, and `clustered_graph` of the one in
-`benchmark/bench_scale.py`, so the port and `chip_smoke.py` build the same
-seeded graphs without importing JAX; `gcn_norm_csr` is the Reddit-scale
-graph build of `benchmark/bench_train.py`.
+`dgsparse_tpu/utils/testing.py`, `clustered_graph` of the one in
+`benchmark/bench_scale.py` and `random_cloud` of the one in
+`tests/test_spconv.py`, so the port and `chip_smoke.py` build the same
+seeded graphs and voxel clouds without importing JAX; `gcn_norm_csr` is
+the Reddit-scale graph build of `benchmark/bench_train.py`.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -104,6 +105,19 @@ def hybrid_csr(m: int = 1500, n: int = 1500, deg: float = 40,
     rowptr[1:] = np.cumsum(degs)
     vals = rng.standard_normal(nnz).astype(np.float32)
     return rowptr.astype(np.int32), col, vals
+
+
+def random_cloud(num_points: int = 200, shape=(13, 11, 9), batch: int = 2,
+                 seed: int = 0) -> np.ndarray:
+    """Seeded coords [n, 4] int32 (batch, x, y, z) of distinct voxels drawn
+    from `batch` grids of `shape`."""
+    rng = np.random.default_rng(seed)
+    total = batch * shape[0] * shape[1] * shape[2]
+    flat = rng.choice(total, size=min(num_points, total), replace=False)
+    b, r = np.divmod(flat, shape[0] * shape[1] * shape[2])
+    x, r = np.divmod(r, shape[1] * shape[2])
+    y, z = np.divmod(r, shape[2])
+    return np.stack([b, x, y, z], 1).astype(np.int32)
 
 
 def gcn_norm_csr(rowptr: np.ndarray, col: np.ndarray
@@ -234,6 +248,9 @@ def gspmm_oracle(rowptr, col, values, dense, reduce, compute):
 # "<name>/grads/<flax path>". gin_small.npz has the same keys for "gin"
 # (dims: in, hidden, out, num_layers; MAX aggregation), a graph without
 # "vals", and the eval-mode forward of the initial params, "gin/out".
+# unet_small.npz holds a voxel cloud ("coords", "shape", "x", "y") in place
+# of the graph and the same keys for "unet" (dims: in, classes), with
+# "unet/out" and the learning rate "unet/lr".
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
@@ -247,38 +264,34 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
     return tree
 
 
-def _torch_param(model, path: str):
-    """(parameter, transposed) for a flax param path: a Dense `kernel`
-    [in, out] is the transpose of the Linear weight."""
-    *mods, leaf = path.split("/")
-    for m in mods:
-        model = getattr(model, m)
-    if leaf == "kernel":
-        return model.weight, True
-    return getattr(model, leaf), False
-
-
 def fixture_model(fx: dict, name: str, device):
     """(model, adj, x, y) of the fixture's `name` model on `device`, with
-    the fixture's initial flax params, in eval mode."""
+    the fixture's initial flax params, in eval mode. For "unet" adj is the
+    SparseConvTensor of the fixture's cloud."""
     import torch
 
     from dgsparse_tpu_torch.core.formats import SparseTensor
-    from dgsparse_tpu_torch.nn import GAT, GCN, GIN, load_flax_params
+    from dgsparse_tpu_torch.nn import (GAT, GCN, GIN, PointCloudUNet,
+                                       load_flax_params)
+    from dgsparse_tpu_torch.ops.spconv import SparseConvTensor
 
     n = fx["x"].shape[0]
-    vals = torch.from_numpy(fx["vals"]) if "vals" in fx else None
-    adj = SparseTensor.from_csr(fx["rowptr"], fx["col"], vals,
-                                sparse_sizes=(n, n), device=device)
+    x = torch.from_numpy(fx["x"]).to(device)
+    y = torch.from_numpy(fx["y"]).long().to(device)
     dims = [int(d) for d in fx[f"{name}/dims"]]
+    if name == "unet":
+        adj = SparseConvTensor(x, fx["coords"], fx["shape"])
+        model = PointCloudUNet(*dims)
+    else:
+        vals = torch.from_numpy(fx["vals"]) if "vals" in fx else None
+        adj = SparseTensor.from_csr(fx["rowptr"], fx["col"], vals,
+                                    sparse_sizes=(n, n), device=device)
     if name == "gin":
         model = GIN(*dims[:3], num_layers=dims[3], aggregator_type="max")
-    else:
+    elif name in ("gcn", "gat"):
         model = GCN(*dims) if name == "gcn" else GAT(*dims)
     model = model.to(device).eval()
     load_flax_params(model, _unflatten(_fixture_params(fx, name)))
-    x = torch.from_numpy(fx["x"]).to(device)
-    y = torch.from_numpy(fx["y"]).long().to(device)
     return model, adj, x, y
 
 
@@ -292,33 +305,36 @@ def run_train_fixture(fx: dict, name: str, device, steps: int = 3
     """The port's run of the fixture's `name` model on `device`: the loss
     of each of `steps` Adam steps and the step-1 gradients keyed by flax
     path, in flax layout. Same graph, inputs, initial params and protocol
-    as the JAX run that wrote the fixture."""
-    from dgsparse_tpu_torch.entry import build_optimizer, train_step
+    as the JAX run that wrote the fixture (Adam at the fixture's
+    "<name>/lr" where it has one, else at 1e-2)."""
+    from dgsparse_tpu_torch.entry import ADAM, build_optimizer, train_step
+    from dgsparse_tpu_torch.nn._flax import flax_target
 
     model, adj, x, y = fixture_model(fx, name, device)
     flat = _fixture_params(fx, name)
-    opt = build_optimizer(model)
+    opt = build_optimizer(model, float(fx.get(f"{name}/lr", ADAM["lr"])))
     losses, grads = [], {}
     for step in range(steps):
         losses.append(float(train_step(model, opt, x, adj, y)))
         if step == 0:
             for path in flat:
-                param, transposed = _torch_param(model, path)
+                param, transposed = flax_target(model, path)
                 g = param.grad.T if transposed else param.grad
                 grads[path] = g.detach().cpu().numpy()
     return losses, grads
 
 
-def run_gin_fixture(fx: dict, device, steps: int = 3):
-    """The port's run of gin_small.npz on `device`: (the eval-mode forward
-    of the initial params, the losses of `steps` Adam steps, the step-1
-    gradients keyed by flax path)."""
+def run_gin_fixture(fx: dict, device, steps: int = 3, name: str = "gin"):
+    """The port's run of gin_small.npz (or of unet_small.npz with
+    name="unet") on `device`: (the eval-mode forward of the initial
+    params, the losses of `steps` Adam steps, the step-1 gradients keyed
+    by flax path)."""
     import torch
 
-    model, adj, x, _ = fixture_model(fx, "gin", device)
+    model, adj, x, _ = fixture_model(fx, name, device)
     with torch.inference_mode():
         out = model(x, adj).cpu().numpy()
-    return (out, *run_train_fixture(fx, "gin", device, steps))
+    return (out, *run_train_fixture(fx, name, device, steps))
 
 
 def assert_train_close(losses, grads, ref_losses, ref_grads,

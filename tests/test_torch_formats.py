@@ -161,6 +161,9 @@ def test_import_pulls_in_no_jax():
             "dgsparse_tpu_torch.core.planner, dgsparse_tpu_torch.ops.hybrid, "
             "dgsparse_tpu_torch.kernels.spmm_cells, "
             "dgsparse_tpu_torch.kernels.spmm_bell, "
+            "dgsparse_tpu_torch.kernels.spconv, "
+            "dgsparse_tpu_torch.ops.spconv, "
+            "dgsparse_tpu_torch.nn.sparse_conv, dgsparse_tpu_torch.nn.unet, "
             "dgsparse_tpu_torch.kernels._build; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'dgsparse_tpu.', 'flax'))"

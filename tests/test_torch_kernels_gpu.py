@@ -236,7 +236,8 @@ def test_sddmm_launch_counts_and_empty_inputs(cuda):
                                "spmm_maxmin_d_dense": 0,
                                "spmm_maxmin_d_values": 0,
                                "spmm_dense_cells": 0, "sddmm_cells": 0,
-                               "spmm_bell": 0}
+                               "spmm_bell": 0, "spconv_pairs": 0,
+                               "spconv_dw": 0}
     empty = torch.zeros(4, dtype=torch.int32, device=cuda)
     out = sddmm_csr.sddmm_csr(empty, empty[:0], torch.ones(3, 8, device=cuda),
                               torch.ones(5, 8, device=cuda))
@@ -675,3 +676,135 @@ def test_hybrid_kernels_refuse_bad_inputs(cuda):
         spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"][:5], x)
     with pytest.raises(ValueError):
         spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x.cpu())
+
+
+# --- spconv: spconv_pairs and spconv_dw --------------------------------------
+#
+# On seeded voxel clouds: a two-batch submanifold plan, a strided plan and
+# the inverse of that strided plan; forward pairs (by output, W) and dX
+# pairs (by input, Wᵀ).
+
+SPCONV_CHANNELS = [(8, 32), (32, 64), (64, 64), (7, 33)]
+
+
+def _spconv_plan(cuda, kind):
+    from dgsparse_tpu_torch.ops.spconv import build_rulebook, inverse_plan
+    from dgsparse_tpu_torch.utils.testing import random_cloud
+
+    shape = (16, 14, 12)
+    coords = random_cloud(1500, shape, 2, seed=11)
+    stride = 1 if kind == "subm" else 2
+    plan, _ = build_rulebook(coords, 3, stride, 1, spatial_shape=shape,
+                             device=cuda)
+    return inverse_plan(plan) if kind == "inverse" else plan
+
+
+def _randn(cuda, seed, *shape, dtype="float32"):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=cuda).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("direction", ["by_out", "by_in"])
+@pytest.mark.parametrize("kind", ["subm", "strided", "inverse"])
+@pytest.mark.parametrize("c_in,c_out", SPCONV_CHANNELS)
+def test_spconv_pairs_matches_plain(cuda, c_in, c_out, kind, direction,
+                                    dtype):
+    from dgsparse_tpu_torch.kernels import spconv
+
+    plan = _spconv_plan(cuda, kind)
+    pairs = getattr(plan, direction)
+    n_src = plan.num_in if direction == "by_out" else plan.num_out
+    x = _randn(cuda, c_in, n_src, c_in, dtype=dtype)
+    w = _randn(cuda, c_out, plan.k_vol, c_in, c_out, dtype=dtype)
+    out = spconv.spconv_pairs_cuda(pairs, x, w)
+    ref = spconv.spconv_pairs_plain(pairs, x, w)
+    abs_sum = spconv.spconv_pairs_plain(pairs, x.float().abs(),
+                                        w.float().abs())
+    again = spconv.spconv_pairs_cuda(pairs, x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert out.shape == (pairs.num_rows, c_out)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    assert torch.equal(out, again)      # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["subm", "strided", "inverse"])
+@pytest.mark.parametrize("c_in,c_out", SPCONV_CHANNELS)
+def test_spconv_dw_matches_plain(cuda, c_in, c_out, kind, dtype):
+    from dgsparse_tpu_torch.kernels import spconv
+
+    plan = _spconv_plan(cuda, kind)
+    x = _randn(cuda, c_in, plan.num_in, c_in, dtype=dtype)
+    g = _randn(cuda, c_out + 1, plan.num_out, c_out, dtype=dtype)
+    out = spconv.spconv_dw_cuda(plan.by_offset, x, g)
+    ref = spconv.spconv_dw_plain(plan.by_offset, x, g)
+    abs_sum = spconv.spconv_dw_plain(plan.by_offset, x.float().abs(),
+                                     g.float().abs())
+    again = spconv.spconv_dw_cuda(plan.by_offset, x, g)
+    torch.cuda.synchronize()
+    assert out.shape == (plan.k_vol, c_in, c_out)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    assert torch.equal(out, again)
+    if plan.separate_mid:
+        assert not out[(plan.k_vol - 1) // 2].any()
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_spconv_op_and_grads_match_the_dense_formulation(cuda, kind):
+    from dgsparse_tpu_torch.kernels import reference, spconv
+    from dgsparse_tpu_torch.ops.spconv import spconv as op
+
+    plan = _spconv_plan(cuda, kind)
+    x = _randn(cuda, 1, plan.num_in, 32).requires_grad_()
+    w = (_randn(cuda, 2, plan.k_vol, 32, 64) * 0.1).requires_grad_()
+    ct = _randn(cuda, 3, plan.num_out, 64)
+    spconv.reset_launch_counts()
+    out = op(x, w, plan)
+    dx, dw = torch.autograd.grad(out, (x, w), ct)
+    assert spconv.LAUNCHES == {"spconv_pairs": 2, "spconv_dw": 1}
+    with torch.no_grad():
+        ref = reference.spconv_dense(x, w, plan.o2i, plan.separate_mid)
+        rdx, rdw = reference.spconv_dense_bwd(x, w, ct, plan.i2o,
+                                              plan.separate_mid)
+    for got, want in ((out, ref), (dx, rdx), (dw, rdw)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    # the features of a network's first layer need no gradient: no dX
+    spconv.reset_launch_counts()
+    torch.autograd.grad(op(x.detach(), w, plan), w, ct)
+    assert spconv.LAUNCHES == {"spconv_pairs": 1, "spconv_dw": 1}
+
+
+def test_spconv_kernels_refuse_bad_inputs(cuda):
+    from dgsparse_tpu_torch.kernels import spconv
+
+    plan = _spconv_plan(cuda, "subm")
+    x = torch.ones(plan.num_in, 8, device=cuda)
+    w = torch.ones(plan.k_vol, 8, 16, device=cuda)
+    with pytest.raises(ValueError):
+        spconv.spconv_pairs_cuda(plan.by_out, x, w.bfloat16())
+    with pytest.raises(ValueError):
+        spconv.spconv_pairs_cuda(plan.by_out, x, w[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        spconv.spconv_pairs_cuda(plan.by_out, x.cpu(), w)
+    with pytest.raises(ValueError):
+        spconv.spconv_dw_cuda(plan.by_offset, x, x.bfloat16())
+    with pytest.raises(ValueError):
+        spconv.spconv_dw_cuda(plan.by_offset, x.t(), x)
+
+
+def test_unet_entry_on_card(cuda):
+    from dgsparse_tpu_torch.entry import (TRAIN_CONFIGS, build_trainer,
+                                          train_step)
+
+    reset_launch_counts()
+    model, opt, (st, x, y) = build_trainer("unet", device=cuda)
+    losses = [float(train_step(model, opt, x, st, y)) for _ in range(3)]
+    counts = launch_counts()
+    # per step: 4 forward and 3 dX spconv_pairs (the first layer's input
+    # is data), 4 spconv_dw
+    assert (counts["spconv_pairs"], counts["spconv_dw"]) == (21, 12)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert TRAIN_CONFIGS["unet"].lr == 1e-3
