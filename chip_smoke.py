@@ -137,9 +137,13 @@ MH_FEATS = (1, 7, 16, 64)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 REQUESTS = 5
 STEPS = 5
-# H100 SXM data sheet: HBM and fp32 peaks
+# H100 SXM data sheet: HBM, fp32 (FFMA) and TF32 tensor-core peaks; a
+# 3xTF32 product takes three TF32 products
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
+RATE_NAMES = {FP32_FLOPS: "fp32 FFMA 67 TFLOP/s",
+              TF32X3_FLOPS: "3xTF32 on TF32 tensor cores 165 TFLOP/s"}
 KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin", "spmm_cells", "spmm_bell",
            "spconv")
 # the wrappers the main paths launch, as `kernels.launch_counts` names them
@@ -197,11 +201,15 @@ def max_err(out, ref, tol):
         else 0.0
 
 
-def bound(nbytes, flops):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound(nbytes, flops, rate=FP32_FLOPS):
+    """The least time the card could take: {"bound": ms, "bound_by":
+    "bytes" or "operations", "bound_rate": the operation rate's name}, the
+    operations counted at `rate` (FP32_FLOPS for a kernel on FFMA,
+    TF32X3_FLOPS for one on 3xTF32 tensor cores)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return {"bound": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_rate": RATE_NAMES[rate]}
 
 
 def phase_device(torch):
@@ -1257,7 +1265,7 @@ def phase_numbers(torch, cuda, runs, graphs):
                             "[H*M, H*N], dense [H*N, F]) (cuSPARSE)")
         ms = _time_turns(fns)
         nbytes = 4 * ((m + 1) + nnz + nnz * heads + n * width + m * width)
-        ms["bound"], ms["bound_by"] = bound(nbytes, 2.0 * nnz * width)
+        ms.update(bound(nbytes, 2.0 * nnz * width))
         ms["library_call"] = library_call
         results["csr_spmm"][label] = ms
         log(f"[numbers] csr_spmm {label} ({m} rows, {nnz} nnz, fp32): "
@@ -1265,7 +1273,8 @@ def phase_numbers(torch, cuda, runs, graphs):
                         f"{spmm_gflops(nnz, width, ms[k] / 1e3):.2f} GF/s"
                         for k in ("kernel", "plain", "library")
                         if k in ms)
-            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
+            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+            f"{ms['bound_rate']})")
 
     # SDDMM cases: d_values of the GAT layers, g [M, H*F] with h [N, H*F]
     for config in ("cora", "arxiv"):
@@ -1303,8 +1312,7 @@ def phase_numbers(torch, cuda, runs, graphs):
             ms = _time_turns(fns)
             nbytes = 4 * ((m + 1) + nnz + (m + n) * heads * feat
                           + nnz * heads)
-            ms["bound"], ms["bound_by"] = bound(nbytes,
-                                                2.0 * nnz * heads * feat)
+            ms.update(bound(nbytes, 2.0 * nnz * heads * feat))
             ms["library_call"] = (
                 "torch.sparse.sampled_addmm (cuSPARSE)" if heads == 1 else
                 "torch.sparse.sampled_addmm over a batched CSR [H, M, N] "
@@ -1314,7 +1322,8 @@ def phase_numbers(torch, cuda, runs, graphs):
                 + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
                             for k in ("kernel", "plain", "library")
                             if k in ms)
-                + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
+                + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+            f"{ms['bound_rate']})")
     results.update(_maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p,
                                    col_p2p))
     return results
@@ -1392,7 +1401,8 @@ def phase_hybrid_numbers(torch, cuda, reddit):
         log(f"[numbers] {kernel} {label} (fp32): "
             + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
                         for k in ("kernel", "plain", "library") if k in ms)
-            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
+            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+            f"{ms['bound_rate']})")
 
     # the BELL tier as a CSR of its own edges, for cuSPARSE
     ep = hp.bell.eperm
@@ -1414,9 +1424,9 @@ def phase_hybrid_numbers(torch, cuda, reddit):
                               "plain": (C.spmm_dense_cells_plain, args),
                               "library": (torch.bmm, (a, blk))})
             out_rows = n if transpose else m
-            ms["bound"], ms["bound_by"] = bound(
+            ms.update(bound(
                 4 * (cells.numel() + inp.numel() + out_rows * feat),
-                cell_flops * feat)
+                cell_flops * feat, TF32X3_FLOPS))
             report("spmm_dense_cells",
                    f"reddit {'transpose' if transpose else 'forward'} "
                    f"F={feat}", ms, "torch.bmm(cells, gathered window "
@@ -1425,11 +1435,11 @@ def phase_hybrid_numbers(torch, cuda, reddit):
         ms = _time_turns({"kernel": (B.spmm_bell_cuda, args),
                           "plain": (B.spmm_bell_plain, args),
                           "library": (torch.matmul, (bell_csr, x))})
-        ms["bound"], ms["bound_by"] = bound(
+        ms.update(bound(
             _window_bytes(hp.bell.tile_cw.cpu().numpy()[
                 :int(hp.bell.tile_ptr[-1])], 128, feat, 4)
             + 12 * hp.bell.padded_edges + 4 * m * feat,
-            2.0 * hp.bell.nnz * feat)
+            2.0 * hp.bell.nnz * feat))
         report("spmm_bell", f"reddit F={feat}", ms,
                "torch.matmul(sparse_csr of the BELL edges, dense) (cuSPARSE)")
         d1 = torch.randn(m, feat, generator=gen, device=cuda)
@@ -1441,8 +1451,8 @@ def phase_hybrid_numbers(torch, cuda, reddit):
             "library": (torch.bmm, (blocks(d1, 128, plan.cell_rb),
                                     blocks(d2, 128, plan.cell_cw).transpose(
                                         1, 2)))})
-        ms["bound"], ms["bound_by"] = bound(
-            4 * (d1.numel() + d2.numel() + cells.numel()), cell_flops * feat)
+        ms.update(bound(
+            4 * (d1.numel() + d2.numel() + cells.numel()), cell_flops * feat))
         report("sddmm_cells", f"reddit F={feat}", ms,
                "torch.bmm(gathered d1 blocks, gathered d2 blocksᵀ), TF32 off")
 
@@ -1454,16 +1464,17 @@ def phase_hybrid_numbers(torch, cuda, reddit):
             "csr_spmm": (K.csr_spmm_cuda, (st.rowptr(), st.col(),
                                            st.values(), x)),
             "library": (torch.matmul, (full, x))})
-        ms["bound"], ms["bound_by"] = bound(
+        ms.update(bound(
             4 * ((m + 1) + 2 * st.nnz + n * feat + m * feat),
-            2.0 * st.nnz * feat)
+            2.0 * st.nnz * feat))
         ms["library_call"] = "torch.matmul(sparse_csr, dense) (cuSPARSE)"
         results["hybrid_spmm"][f"reddit F={feat}"] = ms
         log(f"[numbers] whole SpMM reddit F={feat} (fp32, {st.nnz} nnz): "
             f"hybrid tiers {ms['hybrid'] * 1e3:.2f} us, csr_spmm "
             f"{ms['csr_spmm'] * 1e3:.2f} us, cuSPARSE "
             f"{ms['library'] * 1e3:.2f} us, CSR bound "
-            f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
+            f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+            f"{ms['bound_rate']})")
     return results
 
 
@@ -1596,10 +1607,10 @@ def phase_spconv_numbers(torch, cuda, cloud):
                 "kernel": (K.spconv_pairs_cuda, (pairs, src, wk)),
                 "plain": (K.spconv_pairs_plain, (pairs, src, wk)),
                 "library": lib}, **counts)
-            ms["bound"], ms["bound_by"] = bound(
+            ms.update(bound(
                 4 * (src.numel() + wk.numel() + pairs.num_rows + 1
                      + 2 * pairs.num_pairs + pairs.num_rows * wk.shape[2]),
-                pairs_ops)
+                pairs_ops, TF32X3_FLOPS))
             ms["library_call"] = (
                 ("torch.nn.functional.conv_transpose3d" if transposed
                  else "torch.nn.functional.conv3d")
@@ -1613,9 +1624,9 @@ def phase_spconv_numbers(torch, cuda, cloud):
             "plain": (K.spconv_dw_plain, (plan.by_offset, x, g)),
             "library": (dense_bwd, (g_grid, x_grid, dense_w,
                                     [False, True, False]))}, **counts)
-        ms["bound"], ms["bound_by"] = bound(
+        ms.update(bound(
             4 * (x.numel() + g.numel() + 2 * plan.total_pairs
-                 + plan.by_offset.num_chunks + 1 + w.numel()), pairs_ops)
+                 + plan.by_offset.num_chunks + 1 + w.numel()), pairs_ops))
         ms["library_call"] = ("torch.ops.aten.convolution_backward (weight "
                               "gradient) over the densified grid, cuDNN, "
                               "TF32 off")
@@ -1626,7 +1637,8 @@ def phase_spconv_numbers(torch, cuda, cloud):
             f"{errs[2]:.3e}): " + "; ".join(
                 f"{name} kernel {t['kernel'] * 1e3:.2f} us, plain "
                 f"{t['plain'] * 1e3:.2f} us, cuDNN {t['library'] * 1e3:.2f} "
-                f"us, bound {t['bound'] * 1e3:.2f} us ({t['bound_by']})"
+                f"us, bound {t['bound'] * 1e3:.2f} us ({t['bound_by']}, "
+                f"{t['bound_rate']})"
                 for name, t in (
                     ("forward", results["spconv_pairs"][f"{label} forward"]),
                     ("dX", results["spconv_pairs"][f"{label} dX"]),
@@ -1679,7 +1691,7 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
             ms["library_error"] = lib
         # rowptr and col, x, out and arg; a compare per edge and feature
         nbytes = 4 * ((m + 1) + nnz + n * feat + 2 * m * feat)
-        ms["bound"], ms["bound_by"] = bound(nbytes, 1.0 * nnz * feat)
+        ms.update(bound(nbytes, 1.0 * nnz * feat))
         ms["library_call"] = ('torch.sparse.mm(sparse_csr of ones, dense, '
                               'reduce="amax")')
         results["spmm_maxmin"][label] = ms
@@ -1689,7 +1701,8 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
                                    if k in ms)
             + (f", library refused: {ms['library_error']}"
                if "library_error" in ms else "")
-            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
+            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+            f"{ms['bound_rate']})")
 
     # d_dense of the second GINConv (F=256) and at p2p F=32; the d_values
     # of a weighted MAX at F=256, which no GIN step runs
@@ -1711,14 +1724,13 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
         # colptr, row and perm, g and arg, d_dense; a compare per edge and
         # feature, an add per won element
         nbytes = 4 * ((n + 1) + 2 * nnz + 2 * m * feat + n * feat)
-        ms["bound"], ms["bound_by"] = bound(nbytes,
-                                            1.0 * nnz * feat + m * feat)
+        ms.update(bound(nbytes, 1.0 * nnz * feat + m * feat))
         ms["library_call"] = None
         results["spmm_maxmin_bwd"][label] = ms
         log(f"[numbers] spmm_maxmin_d_dense {label} ({n} columns, {nnz} "
             f"nnz, fp32): kernel {ms['kernel'] * 1e3:.2f} us, plain "
             f"{ms['plain'] * 1e3:.2f} us, bound {ms['bound'] * 1e3:.2f} us "
-            f"({ms['bound_by']})")
+            f"({ms['bound_by']}, {ms['bound_rate']})")
     m, n, nnz, feat = st.num_rows, st.num_cols, st.nnz, 256
     x = torch.randn(n, feat, generator=gen, device=cuda)
     v = torch.rand(nnz, 1, generator=gen, device=cuda) + 0.5
@@ -1728,12 +1740,13 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
     ms = _time_turns({"kernel": (M.spmm_maxmin_d_values_cuda, args),
                       "plain": (M.spmm_maxmin_d_values_plain, args)})
     nbytes = 4 * ((m + 1) + 2 * nnz + 2 * m * feat + n * feat)
-    ms["bound"], ms["bound_by"] = bound(nbytes, 2.0 * m * feat)
+    ms.update(bound(nbytes, 2.0 * m * feat))
     label = "arxiv d_values dot F=256 (off the GIN path)"
     results["spmm_maxmin_bwd"][label] = ms
     log(f"[numbers] spmm_maxmin_d_values {label}: kernel "
         f"{ms['kernel'] * 1e3:.2f} us, plain {ms['plain'] * 1e3:.2f} us, "
-        f"bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']})")
+        f"bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+        f"{ms['bound_rate']})")
     return results
 
 
@@ -1753,6 +1766,7 @@ def _kernel_entry(name, source, replaces, launches, errs, shapes, timed,
         "plain_ms": t["plain"],
         "bound_ms": t["bound"],
         "bound_by": t["bound_by"],
+        "bound_rate": t["bound_rate"],
         "library_ms": t.get("library"),
         "library_call": t["library_call"],
         "timed_shape": timed,

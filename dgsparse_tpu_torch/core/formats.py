@@ -40,6 +40,24 @@ def _index_tensor(arr: np.ndarray, device) -> torch.Tensor:
         np.ascontiguousarray(arr, dtype=np.int32)).to(device)
 
 
+def _check_csr(rowptr: np.ndarray, col: np.ndarray) -> None:
+    """Raise ValueError unless rowptr starts at 0, ends at nnz and never
+    decreases and every column is >= 0 (the CSR kernels walk
+    [rowptr[m], rowptr[m + 1]) of col unchecked); the invariants of
+    `dgsparse_tpu/core/formats.py::SparseTensor.validate`."""
+    if len(rowptr) == 0:
+        raise ValueError("rowptr must hold num_rows + 1 >= 1 entries")
+    if rowptr[0] != 0:
+        raise ValueError(f"rowptr must start at 0, got {rowptr[0]}")
+    if rowptr[-1] != len(col):
+        raise ValueError(f"rowptr must end at nnz = {len(col)}, got "
+                         f"{rowptr[-1]}")
+    if (np.diff(rowptr) < 0).any():
+        raise ValueError("rowptr must never decrease")
+    if len(col) and col.min() < 0:
+        raise ValueError(f"col indices must be >= 0, got {col.min()}")
+
+
 def _device_of(*xs) -> torch.device:
     for x in xs:
         if isinstance(x, torch.Tensor):
@@ -104,6 +122,7 @@ class Storage:
         else:
             rowptr_np = _index_host(rowptr)
 
+        _check_csr(rowptr_np, col_np)
         num_rows = len(rowptr_np) - 1
         if sparse_sizes is not None:
             if int(sparse_sizes[0]) != num_rows:

@@ -16,17 +16,25 @@
 // a block no cell visits is written as zero (the tier sum relies on it).
 //
 // What bounds them: a 128x128 cell times a [128, F] window is 2*128*128*F
-// flops on 64 KB of cell and 512*F bytes of window, ~F/4 flops a byte, so
-// at the GCN widths (F = 41, 64) the fp32 FFMA rate and the cell bytes
-// bound it about equally (13.3 GFLOP and ~0.54 GB at Reddit scale, F = 64).
-// fp32 runs on FFMA, not TF32 tensor cores, to keep the JAX package's
-// Precision.HIGHEST parity (1e-5); bf16 inputs are converted on load and
-// summed in fp32. Design: a CTA of 256 threads computes a [128, 64] tile;
-// k-slices of 32 of the cell and of the window are staged in shared memory
-// (the transpose reads the staged cell transposed, no transposed copy of
-// the cells exists) and each thread accumulates an 8x4 register tile.
-// A tensor-core version (wgmma on bf16, 3xTF32 for fp32, TMA loads) is the
-// later step.
+// flops on 64 KB of cell and 512*F bytes of window, ~F/4 flops a byte.
+// spmm_dense_cells runs its products on the tensor cores (mma.sync.m16n8k8,
+// TF32) and keeps fp32 parity with the JAX package's Precision.HIGHEST
+// (1e-5) as 3xTF32 (common.cuh): the cells are split into big + small TF32
+// parts, and so is an fp32 B; a bf16 B is exact in TF32 and takes two
+// passes (small·b + big·b). At 495 / 3 = 165 TFLOP/s of fp32-accurate
+// product the GCN widths (F = 41, 64) are bound by the cell bytes, ~0.53 GB
+// at Reddit scale (6,332 cells), ~160 us at 3.35 TB/s; each cell is read
+// once per 64-feature tile, so once at F <= 64. Design: one CTA of 8 warps
+// (4 x 2, each a 32 x 32 accumulator tile in registers) computes a [128,
+// 64] output tile; the cells of its run are walked in k slices of 32
+// through a four-stage cp.async ring (16-byte copies, zero-filled past the
+// matrix), so a slice's copy overlaps the products of the three before it
+// and the next cell's first slices are in flight while a cell finishes. The
+// transpose stages the cell rows k0 .. k0 + 31 as they lie and reads A(r,
+// k) = cell[k0 + k][r] from them at a row stride of 136 floats, so its
+// fragment loads hit 32 distinct banks; no transposed copy of the cells
+// exists. sddmm_cells stays on FFMA: each thread accumulates an 8x8
+// register tile over feature slices of 32.
 //
 // Offsets indexed by cell * 16384 or by row * F are 64-bit: at Reddit
 // scale the cell array holds ~1.04e8 floats.
@@ -42,103 +50,195 @@ constexpr int kC = 128;       // cell columns (column window)
 constexpr int kCell = kR * kC;
 constexpr int kK = 32;        // contraction slice staged per step
 constexpr int kFT = 64;       // output features per CTA (SpMM)
+constexpr int kStages = 3;    // depth of the SpMM's cp.async ring
 constexpr int kThreads = 256;
+
+// How the SpMM stages its B slices (window rows in0 .. in0 + kK, features
+// f0 .. f0 + kFT): kBRows, 16-byte copies per row, when rows start on
+// 16-byte boundaries; kBFlat, when F <= kFT but rows do not (F = 41 in
+// fp32): the slice's rows lie back to back in memory from a 16-byte
+// boundary (in0 is a multiple of 32), so it is copied as one run of 16-byte
+// chunks and read at row stride F; kBElem otherwise, element by element.
+enum BMode : int { kBRows, kBFlat, kBElem };
+
+// Dynamic shared memory of dense_cells_kernel<T, TRANSPOSE>: a ring of A
+// slices (forward: cell rows [kR][kK + 4]; transpose: cell rows k0 ..
+// k0 + kK, [kK][kC + 8]) and B slices ([kK][kFT + 8] window rows), and the
+// TF32 remainders of the step in use (split_tile). The pads keep rows
+// 16-byte aligned and the fragment loads on 32 distinct banks.
+template <typename T, bool TRANSPOSE>
+struct CellsSmem {
+  static constexpr int kSA = TRANSPOSE ? kC + 8 : kK + 4;
+  static constexpr int kABytes = (TRANSPOSE ? kK : kR) * kSA * 4;
+  static constexpr int kSB = kFT + 8;
+  static constexpr int kBBytes = kK * kSB * sizeof(T);
+  // one step's remainders: of the A slice, and of an fp32 B slice
+  static constexpr int kSmall = kABytes + (sizeof(T) == 4 ? kBBytes : 0);
+  static constexpr int kBytes = kStages * (kABytes + kBBytes) + kSmall;
+};
 
 // One CTA per (output block, 64-feature tile). Forward: output block = row
 // block, A = cell [R, C], B rows = column window. Transpose: output block =
 // column window, A = cellᵀ [C, R], B rows = row block. order[p] (or p when
 // NULL) is the p-th cell of the block runs blk_ptr delimits; win[cell] is
 // the cell's B block.
-template <typename T, bool TRANSPOSE>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool TRANSPOSE, int BMODE>
+__global__ void __launch_bounds__(kThreads, 2)
     dense_cells_kernel(const float* __restrict__ cells,
                        const int* __restrict__ blk_ptr,
                        const int* __restrict__ order,
                        const int* __restrict__ win, const T* __restrict__ b,
                        float* __restrict__ out, int out_rows, int in_rows,
                        int feat) {
-  __shared__ float As[kR][kK + 1];                 // As[r][k] = A(r, k0 + k)
-  __shared__ __align__(16) float Bs[kK][kFT];      // Bs[k][f] = B(k0 + k, f)
+  using L = CellsSmem<T, TRANSPOSE>;
+  constexpr bool kSplitB = sizeof(T) == 4;  // a bf16 B is exact in TF32
+  constexpr int kModeB = kSplitB ? kPreSplit : kExact;
+  constexpr int kE = 16 / sizeof(T);        // B elements per 16-byte copy
+  constexpr int kSlices = kC / kK;          // k slices per cell
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const ring_a = reinterpret_cast<float*>(smem);
+  T* const ring_b = reinterpret_cast<T*>(smem + kStages * L::kABytes);
+  float* const small_a =
+      reinterpret_cast<float*>(smem + kStages * (L::kABytes + L::kBBytes));
+  float* const small_b = small_a + L::kABytes / 4;
   const int blk = blockIdx.x;
   const int f0 = blockIdx.y * kFT;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns tx*4 .. tx*4+3
-  const int ty = tid / 16;  // output rows ty*8 .. ty*8+7
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int wm = warp / 2, wn = warp % 2;  // warp tile: rows 32 wm, cols 32 wn
   const int p0 = blk_ptr[blk];
-  const int p1 = blk_ptr[blk + 1];
-  for (int p = p0; p < p1; ++p) {
+  const int nsteps = (blk_ptr[blk + 1] - p0) * kSlices;
+  const int ldb = BMODE == kBFlat ? feat : L::kSB;  // B's row stride in smem
+
+  // step s: cell p0 + s / kSlices, contraction k0 .. k0 + kK
+  auto issue = [&](int s) {
+    const int p = p0 + s / kSlices;
+    const int k0 = (s % kSlices) * kK;
     const int c = order != nullptr ? order[p] : p;
     const float* cell = cells + static_cast<int64_t>(c) * kCell;
-    const int64_t in0 = static_cast<int64_t>(win[c]) * kC;
-    for (int k0 = 0; k0 < kC; k0 += kK) {
-      // A slice: 128 x 32 floats as 1024 float4 loads, 4 per thread
+    const int64_t in0 = static_cast<int64_t>(win[c]) * kC + k0;
+    float* as = ring_a + (s % kStages) * (L::kABytes / 4);
+    T* bs =
+        ring_b + (s % kStages) * (L::kBBytes / static_cast<int>(sizeof(T)));
+    // the A slice: 128 x 32 floats, 1024 copies of 16 bytes
 #pragma unroll
-      for (int it = 0; it < kR * kK / 4 / kThreads; ++it) {
-        const int i = tid + it * kThreads;
-        if (!TRANSPOSE) {
-          const int r = i / (kK / 4), kq = i % (kK / 4);  // row r of cell
-          const float4 v = *reinterpret_cast<const float4*>(
-              cell + r * kC + k0 + 4 * kq);
-          As[r][4 * kq + 0] = v.x;
-          As[r][4 * kq + 1] = v.y;
-          As[r][4 * kq + 2] = v.z;
-          As[r][4 * kq + 3] = v.w;
-        } else {
-          const int k = i / (kR / 4), rq = i % (kR / 4);  // row k0+k of cell
-          const float4 v = *reinterpret_cast<const float4*>(
-              cell + (k0 + k) * kC + 4 * rq);
-          As[4 * rq + 0][k] = v.x;
-          As[4 * rq + 1][k] = v.y;
-          As[4 * rq + 2][k] = v.z;
-          As[4 * rq + 3][k] = v.w;
-        }
+    for (int it = 0; it < kR * kK / 4 / kThreads; ++it) {
+      const int e = tid + it * kThreads;
+      if (!TRANSPOSE) {
+        const int r = e / (kK / 4), q = (e % (kK / 4)) * 4;
+        cp_async16(as + r * L::kSA + q, cell + r * kC + k0 + q, 16);
+      } else {
+        const int k = e / (kC / 4), q = (e % (kC / 4)) * 4;
+        cp_async16(as + k * L::kSA + q, cell + (k0 + k) * kC + q, 16);
       }
-      // B slice: 32 rows x 64 features, zero past the matrix
+    }
+    // the B slice, zero past the matrix
+    if constexpr (BMODE == kBRows) {
+      constexpr int qb = kFT / kE;
+#pragma unroll
+      for (int it = 0; it < kK * qb / kThreads; ++it) {
+        const int e = tid + it * kThreads;
+        const int k = e / qb, f = (e % qb) * kE;
+        const int64_t row = in0 + k;
+        const int n = row < in_rows ? max(min(kE, feat - f0 - f), 0) : 0;
+        cp_async16(bs + k * L::kSB + f, n ? b + row * feat + f0 + f : b,
+                   n * static_cast<int>(sizeof(T)));
+      }
+    } else if constexpr (BMODE == kBFlat) {
+      const int64_t e0 = in0 * feat;  // 16-byte aligned: in0 % 32 == 0
+      const int64_t e1 = (in0 + kK < in_rows ? in0 + kK : in_rows) * feat;
+      for (int q = tid; q < (kK * feat + kE - 1) / kE; q += kThreads) {
+        const int64_t at = e0 + static_cast<int64_t>(q) * kE;
+        const int64_t left = e1 - at;
+        const int n = left <= 0 ? 0 : left >= kE ? kE : static_cast<int>(left);
+        cp_async16(bs + q * kE, n ? b + at : b,
+                   n * static_cast<int>(sizeof(T)));
+      }
+    } else {
 #pragma unroll
       for (int it = 0; it < kK * kFT / kThreads; ++it) {
-        const int i = tid + it * kThreads;
-        const int k = i / kFT, f = i % kFT;
-        const int64_t row = in0 + k0 + k;
-        float v = 0.f;
-        if (row < in_rows && f0 + f < feat)
-          v = to_float(b[row * feat + f0 + f]);
-        Bs[k][f] = v;
+        const int e = tid + it * kThreads;
+        const int k = e / kFT, f = e % kFT;
+        const int64_t row = in0 + k;
+        const bool ok = row < in_rows && f0 + f < feat;
+        cp_async_elem(bs + k * L::kSB + f, ok ? b + row * feat + f0 + f : b,
+                      ok);
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kK; ++k) {
-        float a[8];
+    }
+  };
+
+  float acc[2][4][4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = As[ty * 8 + i][k];
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][0] = fmaf(a[i], bv.x, acc[i][0]);
-          acc[i][1] = fmaf(a[i], bv.y, acc[i][1]);
-          acc[i][2] = fmaf(a[i], bv.z, acc[i][2]);
-          acc[i][3] = fmaf(a[i], bv.w, acc[i][3]);
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // step s landed; step s - 1's stage is free
+    if (s + kStages - 1 < nsteps) issue(s + kStages - 1);
+    cp_async_commit();
+
+    float* as = ring_a + (s % kStages) * (L::kABytes / 4);
+    T* bs =
+        ring_b + (s % kStages) * (L::kBBytes / static_cast<int>(sizeof(T)));
+    // each value split once, not in each of the 2 (A) or 4 (B) warps that
+    // load it; a flat B slice is split whole (the words past its rows feed
+    // only output columns past F)
+    split_tile(as, small_a, TRANSPOSE ? kK : kR, TRANSPOSE ? kC : kK, L::kSA,
+               tid, kThreads);
+    if constexpr (kSplitB) {
+      if constexpr (BMODE == kBFlat)
+        split_tile(bs, small_b, 1, kK * L::kSB, 0, tid, kThreads);
+      else
+        split_tile(bs, small_b, kK, kFT, L::kSB, tid, kThreads);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kK; kk += 8) {
+      Frag<4> a[2];
+      Frag<2> bf[4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = 32 * wm + 16 * mt;
+        if (!TRANSPOSE) {
+          const int at = r * L::kSA + kk;
+          load_a<kPreSplit>(a[mt], as + at, small_a + at, L::kSA, 1, lane);
+        } else {
+          const int at = kk * L::kSA + r;
+          load_a<kPreSplit>(a[mt], as + at, small_a + at, 1, L::kSA, lane);
         }
       }
-      __syncthreads();
+      // every n-tile, unconditionally: B is zero past F (or, flat, feeds
+      // only columns past F), and a product under a branch the compiler
+      // cannot prove uniform costs a warp barrier each
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int at = kk * ldb + wn * 32 + nt * 8;
+        load_b<kModeB>(bf[nt], bs + at, small_b + at, ldb, lane);
+      }
+      mma_tiles<true, kSplitB>(acc, a, bf, 2, 4);
     }
   }
+
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t row = static_cast<int64_t>(blk) * kR + ty * 8 + i;
-    if (row >= out_rows) break;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = f0 + tx * 4 + j;
-      if (f < feat) out[row * feat + f] = acc[i][j];
-    }
-  }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t row = static_cast<int64_t>(blk) * kR + 32 * wm +
+                            16 * mt + g + 8 * (i >> 1);
+        const int f = f0 + wn * 32 + nt * 8 + 2 * t + (i & 1);
+        if (row < out_rows && f < feat) out[row * feat + f] = acc[mt][nt][i];
+      }
 }
 
 // One CTA per cell: the [128, 128] block d1[rb] @ d2[cw]ᵀ over F features,
@@ -201,26 +301,61 @@ __global__ void __launch_bounds__(kThreads)
       o[(ty + 16 * i) * kC + tx + 16 * j] = acc[i][j];
 }
 
+template <typename T, bool TRANSPOSE, int BMODE>
+int launch_cells_variant(const float* cells, const int* blk_ptr,
+                         const int* order, const int* win, const void* b,
+                         float* out, int num_blocks, int out_rows,
+                         int in_rows, int feat, cudaStream_t s) {
+  constexpr int smem = CellsSmem<T, TRANSPOSE>::kBytes;
+  auto kernel = dense_cells_kernel<T, TRANSPOSE, BMODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_blocks, (feat + kFT - 1) / kFT);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  kernel<<<grid, kThreads, smem, s>>>(cells, blk_ptr, order, win,
+                                      static_cast<const T*>(b), out,
+                                      out_rows, in_rows, feat);
+  return cudaGetLastError();
+}
+
+template <typename T, int BMODE>
+int launch_cells_mode(const float* cells, const int* blk_ptr,
+                      const int* order, const int* win, const void* b,
+                      float* out, int num_blocks, int out_rows, int in_rows,
+                      int feat, int transpose, cudaStream_t s) {
+  if (transpose)
+    return launch_cells_variant<T, true, BMODE>(
+        cells, blk_ptr, order, win, b, out, num_blocks, out_rows, in_rows,
+        feat, s);
+  return launch_cells_variant<T, false, BMODE>(cells, blk_ptr, order, win, b,
+                                               out, num_blocks, out_rows,
+                                               in_rows, feat, s);
+}
+
 template <typename T>
 int launch_cells(int device, const float* cells, const int* blk_ptr,
                  const int* order, const int* win, const void* b, float* out,
                  int num_blocks, int out_rows, int in_rows, int feat,
                  int transpose, void* stream) {
-  if (num_blocks <= 0 || feat <= 0 || out_rows <= 0 || in_rows <= 0)
+  if (num_blocks <= 0 || feat <= 0 || out_rows <= 0 || in_rows <= 0 ||
+      !aligned(cells, 16))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid(num_blocks, (feat + kFT - 1) / kFT);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* bt = static_cast<const T*>(b);
-  if (transpose)
-    dense_cells_kernel<T, true><<<grid, kThreads, 0, s>>>(
-        cells, blk_ptr, order, win, bt, out, out_rows, in_rows, feat);
-  else
-    dense_cells_kernel<T, false><<<grid, kThreads, 0, s>>>(
-        cells, blk_ptr, order, win, bt, out, out_rows, in_rows, feat);
-  return cudaGetLastError();
+  const bool b16 = aligned(b, 16);
+  if (b16 && (feat * static_cast<int>(sizeof(T))) % 16 == 0)
+    return launch_cells_mode<T, kBRows>(cells, blk_ptr, order, win, b, out,
+                                        num_blocks, out_rows, in_rows, feat,
+                                        transpose, s);
+  if (b16 && feat <= kFT)
+    return launch_cells_mode<T, kBFlat>(cells, blk_ptr, order, win, b, out,
+                                        num_blocks, out_rows, in_rows, feat,
+                                        transpose, s);
+  return launch_cells_mode<T, kBElem>(cells, blk_ptr, order, win, b, out,
+                                      num_blocks, out_rows, in_rows, feat,
+                                      transpose, s);
 }
 
 template <typename T>

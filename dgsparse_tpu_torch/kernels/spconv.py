@@ -7,7 +7,9 @@ Counterparts of `dgsparse_tpu/kernels/pallas_spconv.py::fused_pair_matmul`
 and `::fused_pair_dw`. The kernels are `csrc/spconv.cu` (CUDA C++, sm_90a),
 built by `_build.py` and called through ctypes on PyTorch's current
 stream; the plain versions are `kernels/reference.py::spconv_pairs_plain`
-and `::spconv_dw_plain`.
+and `::spconv_dw_plain`. `spconv_pairs` multiplies on the tensor cores,
+fp32 as 3xTF32 (fp32-accurate), in one of two variants that the plan's
+density picks (`PairCSR.density`); `spconv_dw` runs on FFMA.
 
 In place of the TPU's edge-tile plans and slot arrays, a rulebook's pairs
 are held twice, both built once in numpy (`pair_csr`, `offset_pairs`):
@@ -33,9 +35,9 @@ from dgsparse_tpu_torch.kernels import _launch, reference
 
 LAUNCHES = {"spconv_pairs": 0, "spconv_dw": 0}
 
-# destination rows per CTA of spconv_pairs (kRows in csrc/spconv.cu): the
-# pair cache of a CTA holds the pairs of this many rows
-ROW_BLOCK = 64
+# destination rows per CTA of spconv_pairs (kRows in csrc/spconv.cu); a
+# plan's density is reckoned over blocks of this many rows
+ROW_BLOCK = 128
 # spconv_dw cuts each offset's pairs into chunks of at least this many
 # pairs, and of more where that keeps the chunks near DW_CHUNKS (about four
 # per SM of an H100)
@@ -54,8 +56,8 @@ def _lib():
 
     lib = _build.load("spconv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dg_spconv_pairs.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i,
-                                    p]
+    lib.dg_spconv_pairs.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i,
+                                    ctypes.c_float, p]
     lib.dg_spconv_pairs.restype = i
     lib.dg_spconv_dw.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.dg_spconv_dw.restype = i
@@ -80,7 +82,8 @@ class PairCSR:
     src: torch.Tensor      # [P] int32 source row of each pair
     widx: torch.Tensor     # [P] int32 kernel offset of each pair
     dst: torch.Tensor      # [P] int32 destination row (ptr expanded)
-    block_pairs: int       # most pairs of any ROW_BLOCK destination rows
+    k_vol: int             # 1 + the largest offset
+    density: float         # mean pairs per (ROW_BLOCK rows, busy offset)
 
     @property
     def num_rows(self) -> int:
@@ -118,7 +121,9 @@ class OffsetPairs:
 def pair_csr(dst: np.ndarray, src: np.ndarray, widx: np.ndarray,
              num_rows: int, device="cpu") -> PairCSR:
     """The `PairCSR` of pairs (dst, src, widx) in any order; raises if a
-    (destination row, offset) repeats, which the kernel does not take."""
+    (destination row, offset) repeats, which the kernel does not take.
+    Its density, the mean pairs per (block of ROW_BLOCK rows, offset that
+    holds a pair), picks the kernel's variant (csrc/spconv.cu)."""
     dst = np.asarray(dst, np.int64)
     widx = np.asarray(widx, np.int64)
     k_vol = int(widx.max()) + 1 if len(widx) else 1
@@ -128,14 +133,12 @@ def pair_csr(dst: np.ndarray, src: np.ndarray, widx: np.ndarray,
         raise ValueError("a (destination row, offset) holds two pairs")
     ptr = np.zeros(num_rows + 1, np.int64)
     np.cumsum(np.bincount(dst_s, minlength=num_rows), out=ptr[1:])
-    ends = ptr[np.minimum(np.arange(ROW_BLOCK, num_rows + ROW_BLOCK,
-                                    ROW_BLOCK), num_rows)]
-    starts = ptr[np.arange(0, num_rows, ROW_BLOCK)]
-    block_pairs = int((ends - starts).max()) if num_rows else 0
+    blocks = -(-num_rows // ROW_BLOCK) * np.count_nonzero(np.bincount(widx_s))
+    density = len(widx_s) / blocks if blocks else 0.0
     as_t = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, np.int32)).to(device)
     return PairCSR(as_t(ptr), as_t(np.asarray(src)[order]), as_t(widx_s),
-                   as_t(dst_s), block_pairs)
+                   as_t(dst_s), k_vol, density)
 
 
 def offset_pairs(in_ids: np.ndarray, out_ids: np.ndarray, widx: np.ndarray,
@@ -192,6 +195,9 @@ def spconv_pairs_cuda(pairs: PairCSR, x: torch.Tensor,
     for name in ("ptr", "src", "widx"):
         _launch.check_index(name, getattr(pairs, name))
     num_rows, (k_vol, c_in, c_out) = pairs.num_rows, weight.shape
+    if pairs.k_vol > k_vol:
+        raise ValueError(f"the pairs reach offset {pairs.k_vol - 1}, the "
+                         f"weight has {k_vol}")
     if num_rows == 0 or pairs.num_pairs == 0 or c_in == 0 or c_out == 0:
         return torch.zeros((num_rows, c_out), dtype=torch.float32,
                            device=x.device)
@@ -200,7 +206,7 @@ def spconv_pairs_cuda(pairs: PairCSR, x: torch.Tensor,
         _launch.DTYPE_CODE[x.dtype], x.device.index or 0,
         pairs.ptr.data_ptr(), pairs.src.data_ptr(), pairs.widx.data_ptr(),
         x.data_ptr(), weight.data_ptr(), out.data_ptr(), num_rows, c_in,
-        c_out, k_vol, ROW_BLOCK, pairs.block_pairs,
+        c_out, k_vol, ROW_BLOCK, pairs.density,
         _launch.stream(x.device))
     _launch.raise_on(err, "spconv_pairs")
     LAUNCHES["spconv_pairs"] += 1

@@ -6,7 +6,8 @@ Counterparts of `dgsparse_tpu/kernels/pallas_spmm.py::spmm_dense_cells`
 sddmm_cells`. The kernels are `csrc/spmm_cells.cu` (CUDA C++, sm_90a),
 built by `_build.py` and called through ctypes on PyTorch's current
 stream; the plain versions are `kernels/reference.py::spmm_dense_cells`
-and `::sddmm_cells`.
+and `::sddmm_cells`. `spmm_dense_cells` multiplies on the tensor cores,
+fp32 as 3xTF32 (fp32-accurate); `sddmm_cells` runs on FFMA.
 
 Routing as in `spmm_csr.py`: the plain version for tensors on the CPU, the
 kernel (or an exception) for tensors on a CUDA device. `LAUNCHES` counts

@@ -155,6 +155,15 @@ def gcn_norm_csr(rowptr: np.ndarray, col: np.ndarray
     return rowptr, col2, vals
 
 
+def tf32_round(a) -> np.ndarray:
+    """float32 `a` rounded to TF32 (10 explicit mantissa bits) to nearest,
+    ties away from zero, as the card's `cvt.rna.tf32.f32` rounds: a float32
+    whose low 13 mantissa bits are zero (Inf and NaN not handled)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
 def assert_sum_close(out, ref, abs_sum, tol: float) -> float:
     """Check two sums of the same terms taken in different orders, and
     return max |out - ref|.

@@ -149,6 +149,36 @@ def test_bad_inputs_raise():
         pt.SparseTensor.from_csr(rowptr, col, torch.ones(len(col) + 1))
 
 
+# a CSR that breaks one invariant each: the kernels walk [rowptr[m],
+# rowptr[m + 1]) of col and values unchecked
+BAD_CSR = {
+    "rowptr past nnz": ([0, 2, 5], [0, 1, 1]),
+    "rowptr not starting at 0": ([1, 2, 3], [0, 1, 1]),
+    "rowptr decreasing": ([0, 3, 2, 3], [0, 1, 1]),
+    "negative column": ([0, 2, 3], [0, -1, 1]),
+}
+
+
+@pytest.mark.parametrize("case", [*BAD_CSR, "jax refuses rowptr past nnz"])
+def test_storage_refuses_a_broken_csr(case):
+    if case.startswith("jax"):
+        rowptr, col = (np.asarray(a, np.int32)
+                       for a in BAD_CSR["rowptr past nnz"])
+        with pytest.raises(ValueError, match="end at nnz"):
+            jx.SparseTensor.from_csr(rowptr, col, np.ones(3, np.float32),
+                                     sparse_sizes=(2, 2),
+                                     build_plans=False).validate()
+        return
+    rowptr, col = (np.asarray(a, np.int32) for a in BAD_CSR[case])
+    m = len(rowptr) - 1
+    with pytest.raises(ValueError, match="rowptr|col"):
+        pt.SparseTensor.from_csr(rowptr, col, torch.ones(len(col)),
+                                 sparse_sizes=(m, 2))
+    with pytest.raises(ValueError, match="rowptr|col"):
+        pt.Storage(rowptr=torch.from_numpy(rowptr),
+                   col=torch.from_numpy(col))
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, dgsparse_tpu_torch, dgsparse_tpu_torch.entry, "
             "dgsparse_tpu_torch.nn, dgsparse_tpu_torch.utils.bench, "

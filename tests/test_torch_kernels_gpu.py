@@ -499,6 +499,8 @@ def test_spmm_dense_cells_matches_plain(cuda, feat, transpose, dtype):
     assert_sum_close(out, ref, abs_sum, TOLS[dtype])
     if not transpose:
         assert not out[640:768].any()          # the block without a cell
+    again = spmm_cells.spmm_dense_cells_cuda(plan, cells, x, transpose)
+    assert torch.equal(out, again)             # no atomics: repeatable
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -682,18 +684,25 @@ def test_hybrid_kernels_refuse_bad_inputs(cuda):
 #
 # On seeded voxel clouds: a two-batch submanifold plan, a strided plan and
 # the inverse of that strided plan; forward pairs (by output, W) and dX
-# pairs (by input, Wᵀ).
+# pairs (by input, Wᵀ). "subm-dense" fills its grids (2,000 rows, not a
+# multiple of the kernel's 128-row block; most rows have a pair at most
+# offsets), so spconv_pairs takes its padded variant; "subm-sparse" fills
+# ~1 % of them and takes the compacting one.
 
 SPCONV_CHANNELS = [(8, 32), (32, 64), (64, 64), (7, 33)]
+SPCONV_CLOUDS = {"subm": (1500, (16, 14, 12)), "strided": (1500, (16, 14, 12)),
+                 "inverse": (1500, (16, 14, 12)),
+                 "subm-dense": (2000, (10, 10, 10)),
+                 "subm-sparse": (1500, (40, 40, 40))}
 
 
 def _spconv_plan(cuda, kind):
     from dgsparse_tpu_torch.ops.spconv import build_rulebook, inverse_plan
     from dgsparse_tpu_torch.utils.testing import random_cloud
 
-    shape = (16, 14, 12)
-    coords = random_cloud(1500, shape, 2, seed=11)
-    stride = 1 if kind == "subm" else 2
+    points, shape = SPCONV_CLOUDS[kind]
+    coords = random_cloud(points, shape, 2, seed=11)
+    stride = 1 if kind.startswith("subm") else 2
     plan, _ = build_rulebook(coords, 3, stride, 1, spatial_shape=shape,
                              device=cuda)
     return inverse_plan(plan) if kind == "inverse" else plan
@@ -707,7 +716,7 @@ def _randn(cuda, seed, *shape, dtype="float32"):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("direction", ["by_out", "by_in"])
-@pytest.mark.parametrize("kind", ["subm", "strided", "inverse"])
+@pytest.mark.parametrize("kind", list(SPCONV_CLOUDS))
 @pytest.mark.parametrize("c_in,c_out", SPCONV_CHANNELS)
 def test_spconv_pairs_matches_plain(cuda, c_in, c_out, kind, direction,
                                     dtype):
@@ -715,6 +724,10 @@ def test_spconv_pairs_matches_plain(cuda, c_in, c_out, kind, direction,
 
     plan = _spconv_plan(cuda, kind)
     pairs = getattr(plan, direction)
+    if kind == "subm-dense":                    # either side of the rule
+        assert pairs.density >= 64 and pairs.num_rows % spconv.ROW_BLOCK
+    elif kind == "subm-sparse":
+        assert pairs.density < 8
     n_src = plan.num_in if direction == "by_out" else plan.num_out
     x = _randn(cuda, c_in, n_src, c_in, dtype=dtype)
     w = _randn(cuda, c_out, plan.k_vol, c_in, c_out, dtype=dtype)

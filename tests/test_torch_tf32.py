@@ -1,0 +1,75 @@
+"""Why the tensor-core kernels take three TF32 passes for fp32.
+
+`csrc/spconv.cu` (spconv_pairs) and `csrc/spmm_cells.cu` (spmm_dense_cells)
+multiply fp32 operands on TF32 tensor cores as 3xTF32 (`csrc/common.cuh`):
+a = big + small with big = tf32(a) and small = tf32(a - big), rounded to
+nearest as `cvt.rna.tf32.f32` rounds, and a·b summed as small·big +
+big·small + big·big in fp32. Here that arithmetic is emulated on the CPU
+with `utils.testing.tf32_round` (TF32 products are exact in fp32) and held
+to the port's fp32 rule, 1e-5 of the terms' absolute sum, against a
+float64 product, at the shapes of one spconv_pairs step (128 gathered rows
+of 64 channels times a 64 x 64 weight slice) and of an enc2 row block's 26
+offsets. One TF32 pass breaks the rule.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dgsparse_tpu_torch.utils.testing import assert_sum_close, tf32_round
+
+TOL = 1e-5
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10                       # TF32's ulp at 1
+    x = np.array([1 + one_ulp / 2, 1 + one_ulp / 4, 1 + 3 * one_ulp / 4,
+                  -(1 + one_ulp / 2), 3.0, 0.0], np.float32)
+    want = np.array([1 + one_ulp, 1, 1 + one_ulp, -(1 + one_ulp), 3.0, 0.0],
+                    np.float32)
+    np.testing.assert_array_equal(tf32_round(x), want)
+    r = tf32_round(np.random.default_rng(0).standard_normal(1000))
+    assert not (r.view(np.uint32) & np.uint32(0x1FFF)).any()
+
+
+def _terms(offsets):
+    rng = np.random.default_rng(offsets)
+    a = rng.standard_normal((offsets, 128, 64)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((offsets, 64, 64))).astype(np.float32)
+    return a, b
+
+
+def _split(a):
+    big = tf32_round(a)
+    return big, tf32_round(a - big)
+
+
+def _sum_products(a, b, passes):
+    """Σ_k a[k] @ b[k] in fp32, each product in `passes` TF32 passes (1:
+    big·big; 3: small·big + big·small + big·big), as the kernels order
+    their tensor-core products into one fp32 accumulator."""
+    acc = np.zeros((a.shape[1], b.shape[2]), np.float32)
+    for ak, bk in zip(a, b):
+        (ab, asm), (bb, bsm) = _split(ak), _split(bk)
+        if passes == 3:
+            acc = acc + asm @ bb
+            acc = acc + ab @ bsm
+        acc = acc + ab @ bb
+    return acc
+
+
+@pytest.mark.parametrize("offsets", [1, 26])
+def test_3xtf32_keeps_the_fp32_rule_and_one_pass_does_not(offsets):
+    a, b = _terms(offsets)
+    exact = np.einsum("kij,kjl->il", a.astype(np.float64),
+                      b.astype(np.float64))
+    abs_sum = np.einsum("kij,kjl->il", np.abs(a).astype(np.float64),
+                        np.abs(b).astype(np.float64))
+    t = torch.from_numpy
+    three = _sum_products(a, b, 3)
+    assert_sum_close(t(three), t(exact), t(abs_sum), TOL)
+    # well inside the rule: within 1e-6 of the absolute sum
+    assert (np.abs(three - exact) <= 1e-6 * abs_sum).all()
+    with pytest.raises(AssertionError):
+        assert_sum_close(t(_sum_products(a, b, 1)), t(exact), t(abs_sum),
+                         TOL)
