@@ -11,8 +11,9 @@ exits non-zero without a result line:
      one nvcc each, started together, with ptxas's resource lines.
   3. kernels vs their plain PyTorch versions on the card, on a
      p2p-Gnutella31-shaped synthetic graph and on a graph with empty rows:
-     - csr_spmm and segment_sum_csr at F=32 (p2p) and F in {1, 7, 32, 64,
-       128, 256} (empty rows), SUM and MEAN, with and without values;
+     - csr_spmm and segment_sum_csr at F=32 (p2p) and F in {1, 7, 32, 40,
+       41, 64, 128, 256} (empty rows), SUM and MEAN, with and without
+       values;
      - sddmm_csr at H in {1, 4} heads and F per head in {1, 7, 16, 32, 64,
        128}, SUM and MEAN;
      - csr_spmm with 4 heads (values [nnz, 4]) at F per head in {1, 7, 16,
@@ -91,7 +92,13 @@ exits non-zero without a result line:
      of both main paths, beside the bound: the larger of the compulsory
      bytes (each input read once, each output written once) over
      3.35 TB/s and the operations over 67 TFLOP/s (H100 SXM data sheet,
-     fp32). At Reddit scale (F = 64 and 41): spmm_dense_cells forward and
+     fp32; 495 / 3 TFLOP/s for the kernels on 3xTF32 tensor cores).
+     csr_spmm at each shape also on `wide_path`, the one-warp-a-row
+     mapping it had before its narrow-width path, and at F = 256 on the
+     one-pass path (4, 32, 2); on the Reddit-scale storage over the
+     residue's sub-CSR and the non-cell edges' CSC (the hybrid route's two
+     CSR launches) at F = 64 and 41. At Reddit scale (F = 64 and 41):
+     spmm_dense_cells forward and
      transpose, spmm_bell and sddmm_cells beside their plain versions and
      torch.bmm over the gathered blocks (cuSPARSE over the BELL edges for
      spmm_bell), and the whole hybrid SpMM against csr_spmm and cuSPARSE
@@ -115,6 +122,7 @@ Imports nothing of JAX.
 """
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -131,7 +139,7 @@ HYBRID_FIXTURE = os.path.join(FIXTURES, "hybrid_small.npz")
 UNET_FIXTURE = os.path.join(FIXTURES, "unet_small.npz")
 # bench.py:57-61 — the p2p-Gnutella31 shape; the .mtx is not in the repo
 P2P_NODES, P2P_EDGES = 62586, 147892
-FEATS = (1, 7, 32, 64, 128, 256)
+FEATS = (1, 7, 32, 40, 41, 64, 128, 256)
 SDDMM_FEATS = (1, 7, 16, 32, 64, 128)
 MH_FEATS = (1, 7, 16, 64)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -1243,6 +1251,15 @@ def phase_numbers(torch, cuda, runs, graphs):
                        alpha, st.num_cols, 64))
     spmm_cases.append(("arxiv gat2 forward H=1 F=7", st.rowptr(), st.col(),
                        alpha[:, :1].contiguous(), st.num_cols, 7))
+    # the hybrid route's CSR launches at Reddit scale (~23 M edges each)
+    st = graphs["reddit"][0].storage
+    hp, tiers = st.ell_plan(), st.tier_values()
+    for feat in REDDIT_FEATS:
+        spmm_cases.append((f"reddit residue F={feat}", hp.res.rowptr,
+                           hp.res.col, tiers["res"], st.num_cols, feat))
+        spmm_cases.append((f"reddit non-cell transpose (CSC) F={feat}",
+                           hp.nd_t.rowptr, hp.nd_t.col, tiers["nd_t"],
+                           st.num_rows, feat))
 
     for label, rowptr, col_t, vals_t, n, width in spmm_cases:
         m, nnz = rowptr.numel() - 1, col_t.numel()
@@ -1250,6 +1267,13 @@ def phase_numbers(torch, cuda, runs, graphs):
         x = torch.randn(n, width, generator=gen, device=cuda)
         fns = {"kernel": (K.csr_spmm_cuda, (rowptr, col_t, vals_t, x)),
                "plain": (K.csr_spmm_plain, (rowptr, col_t, vals_t, x))}
+        # the same kernel on the earlier mapping, and at F = 256 in one pass
+        paths = {"wide_path": K.wide_path(width, heads, 4)}
+        if width == 256:
+            paths["one_pass_path"] = (4, 32, 2)
+        for key, path in paths.items():
+            fns[key] = (functools.partial(K.csr_spmm_cuda, path=path),
+                        (rowptr, col_t, vals_t, x))
         if heads == 1:
             a = torch.sparse_csr_tensor(rowptr, col_t, vals_t.reshape(-1),
                                         size=(m, n))
@@ -1263,18 +1287,23 @@ def phase_numbers(torch, cuda, runs, graphs):
             fns["library"] = (torch.matmul, (a, xh))
             library_call = ("torch.matmul(block-diagonal sparse_csr "
                             "[H*M, H*N], dense [H*N, F]) (cuSPARSE)")
-        ms = _time_turns(fns)
+        # ~23 M edges: fewer launches (the plain version takes ~100 ms)
+        ms = _time_turns(fns, **({"warmup": 2, "iters": 10}
+                                 if label.startswith("reddit") else {}))
         nbytes = 4 * ((m + 1) + nnz + nnz * heads + n * width + m * width)
         ms.update(bound(nbytes, 2.0 * nnz * width))
         ms["library_call"] = library_call
+        ms["paths"] = {"kernel": K.spmm_path(width, heads, 4), **paths}
         results["csr_spmm"][label] = ms
-        log(f"[numbers] csr_spmm {label} ({m} rows, {nnz} nnz, fp32): "
+        log(f"[numbers] csr_spmm {label} ({m} rows, {nnz} nnz, fp32, path "
+            f"{ms['paths']['kernel']}): "
             + ", ".join(f"{k} {ms[k] * 1e3:.2f} us "
                         f"{spmm_gflops(nnz, width, ms[k] / 1e3):.2f} GF/s"
-                        for k in ("kernel", "plain", "library")
+                        for k in ("kernel", "plain", "library", *paths)
                         if k in ms)
             + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
-            f"{ms['bound_rate']})")
+            f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of the "
+            f"bound; other paths {paths}")
 
     # SDDMM cases: d_values of the GAT layers, g [M, H*F] with h [N, H*F]
     for config in ("cora", "arxiv"):
@@ -1402,7 +1431,8 @@ def phase_hybrid_numbers(torch, cuda, reddit):
             + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
                         for k in ("kernel", "plain", "library") if k in ms)
             + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
-            f"{ms['bound_rate']})")
+            f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of the "
+            f"bound")
 
     # the BELL tier as a CSR of its own edges, for cuSPARSE
     ep = hp.bell.eperm
@@ -1452,7 +1482,8 @@ def phase_hybrid_numbers(torch, cuda, reddit):
                                     blocks(d2, 128, plan.cell_cw).transpose(
                                         1, 2)))})
         ms.update(bound(
-            4 * (d1.numel() + d2.numel() + cells.numel()), cell_flops * feat))
+            4 * (d1.numel() + d2.numel() + cells.numel()), cell_flops * feat,
+            TF32X3_FLOPS))
         report("sddmm_cells", f"reddit F={feat}", ms,
                "torch.bmm(gathered d1 blocks, gathered d2 blocksᵀ), TF32 off")
 

@@ -1,8 +1,8 @@
 // Helpers shared by the port's CUDA kernels (csrc/*.cu): warp shape, the
 // dtype codes of the C interface, fp32 <-> storage-type conversions,
-// vectorised loads and stores, cp.async copies into shared memory, and the
-// tensor-core product of `spconv.cu` and `spmm_cells.cu` (mma.sync on TF32,
-// fp32 kept as 3xTF32).
+// vectorised loads and stores, streaming stores, cp.async copies into
+// shared memory, and the tensor-core product of `spconv.cu` and
+// `spmm_cells.cu` (mma.sync on TF32, fp32 kept as 3xTF32).
 
 #pragma once
 
@@ -84,6 +84,15 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16 bytes to global memory with the streaming hint (.cs: evict first), for
+// output written once and not read again by the kernel, so that it does not
+// push the inputs out of L2.
+__device__ __forceinline__ void store_streaming(float* p, float4 v) {
+  asm volatile("st.global.cs.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // --- tensor cores: mma.sync.m16n8k8 on TF32 ------------------------------
@@ -205,6 +214,17 @@ __device__ __forceinline__ void load_b(Frag<2>& f, const T* s,
   const int g = lane >> 2, t = lane & 3;
   operand<MODE>(s, small, t * ks + g, f.big[0], f.small[0]);
   operand<MODE>(s, small, (t + 4) * ks + g, f.big[1], f.small[1]);
+}
+
+// The B fragment at (k 0, column 0) of `s` staged n-major, B(k, n) =
+// s[n * ns + k]: the rows of a matrix that enters the product transposed.
+template <int MODE, typename T>
+__device__ __forceinline__ void load_b_nk(Frag<2>& f, const T* s,
+                                          const float* small, int ns,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  operand<MODE>(s, small, g * ns + t, f.big[0], f.small[0]);
+  operand<MODE>(s, small, g * ns + t + 4, f.big[1], f.small[1]);
 }
 
 // acc[m][n] += a[m] · b[n] for m < m_valid, n < n_valid: the small cross

@@ -33,8 +33,23 @@
 // transpose stages the cell rows k0 .. k0 + 31 as they lie and reads A(r,
 // k) = cell[k0 + k][r] from them at a row stride of 136 floats, so its
 // fragment loads hit 32 distinct banks; no transposed copy of the cells
-// exists. sddmm_cells stays on FFMA: each thread accumulates an 8x8
-// register tile over feature slices of 32.
+// exists.
+//
+// sddmm_cells writes a [128, 128] fp32 block per cell, 64 KB, against
+// 2 * 128 * F input values: at Reddit scale (6,332 cells) 415 MB of output,
+// ~78 % of its compulsory bytes at F = 64, so the block store bounds it
+// once the products run on the tensor cores (13.3 GFLOP at F = 64: 80 us at
+// 165 TFLOP/s of 3xTF32, 198 us at FFMA's 67). Design: the products are
+// 3xTF32 mma.sync as above, stepped 16 features at a time (F = 41 pads to
+// 48); a CTA walks a chunk of consecutive cells, which the plan sorts by
+// row block, and stages a row block's d1 once for the run of cells that
+// shares it (~3.5 at Reddit scale; split as its fragments load, which
+// leaves room for the store's staging), while each cell's d2 window
+// streams through a three-stage cp.async ring and is split once a slice;
+// a finished block goes out through each warp's staging tile in shared
+// memory as 16-byte streaming stores that cover whole 128-byte lines
+// (stores straight from the fragments, 32-byte pieces of 16 rows each, were
+// slower), and the other CTA on the SM multiplies meanwhile.
 //
 // Offsets indexed by cell * 16384 or by row * F are 64-bit: at Reddit
 // scale the cell array holds ~1.04e8 floats.
@@ -241,64 +256,202 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 }
 
-// One CTA per cell: the [128, 128] block d1[rb] @ d2[cw]ᵀ over F features,
-// staged 32 features at a time; each thread holds an 8x8 tile of rows
-// ty + 16 i and columns tx + 16 j (conflict-free shared reads).
+// --- sddmm_cells ----------------------------------------------------------
+
+constexpr int kSK = 16;       // d2 features staged per step
+constexpr int kD1F = 64;      // d1 features resident (a feature chunk)
+constexpr int kSddmmStages = 3;
+
+// Dynamic shared memory of sddmm_cells_kernel<T>: the row block's d1 chunk
+// [kR][kD1F + pad], as it lies in memory (fp32 is split as its fragments
+// are loaded); a ring of d2 slices [kC][kSK + pad] and, for fp32, the
+// remainders of the slice in use; and each warp's staging tile [16][64 +
+// 8] fp32 for the block store. The pads (16 bytes) keep rows 16-byte
+// aligned and the fragment loads on 32 distinct banks; the staging tile's
+// row stride (72, 8 banks apart) keeps its 8-byte writes on distinct
+// banks. fp32: 112,640 bytes, two CTAs an SM.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct SddmmSmem {
+  static constexpr bool kSplit = sizeof(T) == 4;  // bf16 is exact in TF32
+  static constexpr int kPad = 16 / sizeof(T);
+  static constexpr int kSA = kD1F + kPad;
+  static constexpr int kSB = kSK + kPad;
+  static constexpr int kSO = 64 + 8;
+  static constexpr int kABytes = kR * kSA * sizeof(T);
+  static constexpr int kBBytes = kC * kSB * sizeof(T);
+  static constexpr int kSmallB = kABytes + kSddmmStages * kBBytes;
+  static constexpr int kStage = kSmallB + (kSplit ? kC * kSB * 4 : 0);
+  static constexpr int kBytes = kStage + kThreads / kWarp * 16 * kSO * 4;
+};
+
+// Copies rows r0 .. r0 + rows, features f0 .. f0 + cols (cols a multiple of
+// 16) of the row-major [nrows, feat] matrix `src` into `dst` at row stride
+// `ld`, zero past nrows or feat: 16-byte copies when VEC16 (rows 16-byte
+// aligned), else element by element. The CTA's threads share the copies.
+template <typename T, bool VEC16>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
+                                           int64_t r0, int rows, int nrows,
+                                           int feat, int f0, int cols,
+                                           int tid) {
+  if constexpr (VEC16) {
+    constexpr int kE = 16 / sizeof(T);
+    const int q = cols / kE;
+    for (int e = tid; e < rows * q; e += kThreads) {
+      const int r = e / q, c = (e % q) * kE;
+      const int64_t row = r0 + r;
+      const int n = row < nrows ? max(min(kE, feat - f0 - c), 0) : 0;
+      cp_async16(dst + r * ld + c, n ? src + row * feat + f0 + c : src,
+                 n * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    for (int e = tid; e < rows * cols; e += kThreads) {
+      const int r = e / cols, c = e % cols;
+      const int64_t row = r0 + r;
+      const bool ok = row < nrows && f0 + c < feat;
+      cp_async_elem(dst + r * ld + c, ok ? src + row * feat + f0 + c : src,
+                    ok);
+    }
+  }
+}
+
+// Cells p0 .. p0 + chunk of the plan (sorted by row block): per cell p the
+// block out[p] = d1[rb[p] * 128 : +128] @ d2[cw[p] * 128 : +128]ᵀ, on the
+// tensor cores. The CTA keeps the row block's d1 (a 64-feature chunk of it)
+// staged while consecutive cells share it, and streams each cell's d2
+// window in 16-feature slices through a cp.async ring. 8 warps, 4 x 2,
+// each a 32 x 64 tile of the block (two halves of 4 n-tiles) in registers;
+// a finished block goes out through the warps' staging tiles.
+template <typename T, bool VEC16>
+__global__ void __launch_bounds__(kThreads, 2)
     sddmm_cells_kernel(const int* __restrict__ cell_rb,
                        const int* __restrict__ cell_cw,
                        const T* __restrict__ d1, const T* __restrict__ d2,
-                       float* __restrict__ out, int num_rows, int num_cols,
-                       int feat) {
-  __shared__ float As[kK][kR + 1];  // As[k][r] = d1[r0 + r, f0 + k]
-  __shared__ float Bs[kK][kC + 1];  // Bs[k][c] = d2[c0 + c, f0 + k]
-  const int cell = blockIdx.x;
-  const int64_t r0 = static_cast<int64_t>(cell_rb[cell]) * kR;
-  const int64_t c0 = static_cast<int64_t>(cell_cw[cell]) * kC;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+                       float* __restrict__ out, int num_cells, int num_rows,
+                       int num_cols, int feat, int chunk) {
+  using L = SddmmSmem<T>;
+  constexpr bool kSplit = L::kSplit;
+  constexpr int kModeA = kSplit ? kSplitOnLoad : kExact;
+  constexpr int kModeB = kSplit ? kPreSplit : kExact;
+  constexpr int kSlicesPerChunk = kD1F / kSK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const a_tile = reinterpret_cast<T*>(smem);
+  T* const ring = reinterpret_cast<T*>(smem + L::kABytes);
+  float* const b_small = reinterpret_cast<float*>(smem + L::kSmallB);
+  const int p0 = blockIdx.x * chunk;
+  const int slices = (feat + kSK - 1) / kSK;  // per cell
+  const int nsteps = (min(p0 + chunk, num_cells) - p0) * slices;
+  const int chunks = (feat + kD1F - 1) / kD1F;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int wm = warp / 2, wn = warp % 2;  // rows 32 wm, columns 64 wn
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // step s: cell p0 + s / slices, features (s % slices) * kSK + [0, kSK)
+  auto issue = [&](int s) {
+    const int p = p0 + s / slices;
+    stage_rows<T, VEC16>(ring + (s % kSddmmStages) * (L::kBBytes / sizeof(T)),
+                         L::kSB, d2, static_cast<int64_t>(cell_cw[p]) * kC,
+                         kC, num_cols, feat, (s % slices) * kSK, kSK, tid);
+  };
 
-  for (int f0 = 0; f0 < feat; f0 += kK) {
-#pragma unroll 4
-    for (int it = 0; it < kR * kK / kThreads; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / kK, k = i % kK;  // a warp reads 32 features of a row
-      const bool in_f = f0 + k < feat;
-      const int64_t row = r0 + r, col = c0 + r;
-      As[k][r] = in_f && row < num_rows ? to_float(d1[row * feat + f0 + k])
-                                        : 0.f;
-      Bs[k][r] = in_f && col < num_cols ? to_float(d2[col * feat + f0 + k])
-                                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kK; ++k) {
-      float a[8], bv[8];
+  float acc[2][2][4][4];  // [half][m-tile][n-tile][fragment]
+  auto zero = [&]() {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[k][ty + 16 * i];
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = Bs[k][tx + 16 * j];
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+          for (int i = 0; i < 4; ++i) acc[h][mt][nt][i] = 0.f;
+  };
+  zero();
+
+#pragma unroll
+  for (int s = 0; s < kSddmmStages - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
   }
-  float* o = out + static_cast<int64_t>(cell) * kCell;
+  int64_t staged = -1;  // row block * chunks + feature chunk of the d1 tile
+  for (int s = 0; s < nsteps; ++s) {
+    const int p = p0 + s / slices, j = s % slices;
+    const int fc = j / kSlicesPerChunk;
+    const int64_t key = static_cast<int64_t>(cell_rb[p]) * chunks + fc;
+    if (key != staged) {  // uniform: a new row block or feature chunk
+      __syncthreads();    // every warp is done with the staged tile
+      const int f0 = fc * kD1F;
+      const int cols = min(kD1F, (feat - f0 + kSK - 1) / kSK * kSK);
+      stage_rows<T, VEC16>(a_tile, L::kSA, d1,
+                           static_cast<int64_t>(cell_rb[p]) * kR, kR,
+                           num_rows, feat, f0, cols, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      staged = key;  // visible to every warp after the barrier below
+    }
+    cp_async_wait<kSddmmStages - 2>();
+    __syncthreads();  // step s landed; step s - 1's stage is free
+    if (s + kSddmmStages - 1 < nsteps) issue(s + kSddmmStages - 1);
+    cp_async_commit();
+
+    T* bs = ring + (s % kSddmmStages) * (L::kBBytes / sizeof(T));
+    if constexpr (kSplit)
+      split_tile(reinterpret_cast<float*>(bs), b_small, kC, kSK, L::kSB, tid,
+                 kThreads);
+    __syncthreads();
+    const int ka = (j % kSlicesPerChunk) * kSK;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int kk = 0; kk < kSK; kk += 8) {
+      Frag<4> a[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o[(ty + 16 * i) * kC + tx + 16 * j] = acc[i][j];
+      for (int mt = 0; mt < 2; ++mt) {
+        const int at = (32 * wm + 16 * mt) * L::kSA + ka + kk;
+        load_a<kModeA>(a[mt], a_tile + at, nullptr, L::kSA, 1, lane);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Frag<2> b[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int at = (64 * wn + 32 * h + 8 * nt) * L::kSB + kk;
+          load_b_nk<kModeB>(b[nt], bs + at, b_small + at, L::kSB, lane);
+        }
+        mma_tiles<kSplit, kSplit>(acc[h], a, b, 2, 4);
+      }
+    }
+
+    if (j == slices - 1) {
+      // the block out, 16 rows of the warp's tile at a time through its
+      // staging tile: a store instruction then covers two rows' 256
+      // contiguous bytes, whole 128-byte lines
+      const int g = lane >> 2, t = lane & 3;
+      float* st = reinterpret_cast<float*>(smem + L::kStage) +
+                  warp * 16 * L::kSO;
+      float* o = out + static_cast<int64_t>(p) * kCell +
+                 (32 * wm) * kC + 64 * wn;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float* c = acc[h][mt][nt];
+            const int col = 32 * h + 8 * nt + 2 * t;
+            *reinterpret_cast<float2*>(st + g * L::kSO + col) =
+                make_float2(c[0], c[1]);
+            *reinterpret_cast<float2*>(st + (g + 8) * L::kSO + col) =
+                make_float2(c[2], c[3]);
+          }
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = 2 * i + lane / 16, col = (lane % 16) * 4;
+          store_streaming(o + (16 * mt + row) * kC + col,
+                          *reinterpret_cast<const float4*>(st + row * L::kSO +
+                                                           col));
+        }
+        __syncwarp();
+      }
+      zero();
+    }
+  }
 }
 
 template <typename T, bool TRANSPOSE, int BMODE>
@@ -358,18 +511,40 @@ int launch_cells(int device, const float* cells, const int* blk_ptr,
                                       transpose, s);
 }
 
+template <typename T, bool VEC16>
+int launch_sddmm_variant(const int* cell_rb, const int* cell_cw,
+                         const void* d1, const void* d2, float* out,
+                         int num_cells, int num_rows, int num_cols, int feat,
+                         int chunk, cudaStream_t s) {
+  constexpr int smem = SddmmSmem<T>::kBytes;
+  auto kernel = sddmm_cells_kernel<T, VEC16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(num_cells + chunk - 1) / chunk, kThreads, smem, s>>>(
+      cell_rb, cell_cw, static_cast<const T*>(d1), static_cast<const T*>(d2),
+      out, num_cells, num_rows, num_cols, feat, chunk);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_sddmm(int device, const int* cell_rb, const int* cell_cw,
                  const void* d1, const void* d2, float* out, int num_cells,
-                 int num_rows, int num_cols, int feat, void* stream) {
-  if (num_cells <= 0 || feat <= 0) return cudaErrorInvalidValue;
+                 int num_rows, int num_cols, int feat, int chunk,
+                 void* stream) {
+  if (num_cells <= 0 || feat <= 0 || chunk <= 0 || !aligned(out, 16))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  sddmm_cells_kernel<T><<<num_cells, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      cell_rb, cell_cw, static_cast<const T*>(d1),
-      static_cast<const T*>(d2), out, num_rows, num_cols, feat);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (aligned(d1, 16) && aligned(d2, 16) &&
+      (feat * static_cast<int>(sizeof(T))) % 16 == 0)
+    return launch_sddmm_variant<T, true>(cell_rb, cell_cw, d1, d2, out,
+                                         num_cells, num_rows, num_cols, feat,
+                                         chunk, s);
+  return launch_sddmm_variant<T, false>(cell_rb, cell_cw, d1, d2, out,
+                                        num_cells, num_rows, num_cols, feat,
+                                        chunk, s);
 }
 
 }  // namespace
@@ -401,18 +576,21 @@ int dg_spmm_dense_cells(int dtype, int device, const float* cells,
 // out [num_cells * 128 * 128] fp32: per cell t the block
 // d1[cell_rb[t] * 128 + r] . d2[cell_cw[t] * 128 + c] for r, c < 128, over
 // F features of d1 [num_rows, F] and d2 [num_cols, F] in `dtype`; rows
-// past num_rows / num_cols count as 0. Returns a cudaError_t.
+// past num_rows / num_cols count as 0. A CTA takes `chunk` consecutive
+// cells; cells of one row block next to each other share its staged d1
+// (any order is right). Returns a cudaError_t.
 int dg_sddmm_cells(int dtype, int device, const int* cell_rb,
                    const int* cell_cw, const void* d1, const void* d2,
                    float* out, int num_cells, int num_rows, int num_cols,
-                   int feat, void* stream) {
+                   int feat, int chunk, void* stream) {
   if (dtype == kFloat32)
     return launch_sddmm<float>(device, cell_rb, cell_cw, d1, d2, out,
-                               num_cells, num_rows, num_cols, feat, stream);
+                               num_cells, num_rows, num_cols, feat, chunk,
+                               stream);
   if (dtype == kBFloat16)
     return launch_sddmm<__nv_bfloat16>(device, cell_rb, cell_cw, d1, d2,
                                        out, num_cells, num_rows, num_cols,
-                                       feat, stream);
+                                       feat, chunk, stream);
   return cudaErrorInvalidValue;
 }
 

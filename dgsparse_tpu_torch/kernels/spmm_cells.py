@@ -6,8 +6,9 @@ Counterparts of `dgsparse_tpu/kernels/pallas_spmm.py::spmm_dense_cells`
 sddmm_cells`. The kernels are `csrc/spmm_cells.cu` (CUDA C++, sm_90a),
 built by `_build.py` and called through ctypes on PyTorch's current
 stream; the plain versions are `kernels/reference.py::spmm_dense_cells`
-and `::sddmm_cells`. `spmm_dense_cells` multiplies on the tensor cores,
-fp32 as 3xTF32 (fp32-accurate); `sddmm_cells` runs on FFMA.
+and `::sddmm_cells`. Both multiply on the tensor cores, fp32 as 3xTF32
+(fp32-accurate); `sddmm_cells` gives each CTA a chunk of consecutive cells
+(`cells_per_cta`).
 
 Routing as in `spmm_csr.py`: the plain version for tensors on the CPU, the
 kernel (or an exception) for tensors on a CUDA device. `LAUNCHES` counts
@@ -40,7 +41,7 @@ def _lib():
     lib.dg_spmm_dense_cells.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i,
                                         i, p]
     lib.dg_spmm_dense_cells.restype = i
-    lib.dg_sddmm_cells.argtypes = [i, i, p, p, p, p, p, i, i, i, i, p]
+    lib.dg_sddmm_cells.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, p]
     lib.dg_sddmm_cells.restype = i
     return lib
 
@@ -117,6 +118,21 @@ def spmm_dense_cells(plan: DenseCellPlan, cells: torch.Tensor,
 
 # --- sddmm_cells -------------------------------------------------------------
 
+CTAS_PER_SM = 2      # sddmm_cells_kernel's occupancy (its shared memory)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cells_per_cta(num_cells: int, num_sms: int) -> int:
+    """Cells a CTA of the SDDMM takes: one wave of equal chunks over every
+    CTA slot of the card (every cell costs the same block of products and
+    stores)."""
+    return max(1, -(-num_cells // (CTAS_PER_SM * num_sms)))
+
+
 def _check_sddmm(plan: DenseCellPlan, d1, d2) -> None:
     if d1.dim() != 2 or d2.dim() != 2 or d1.shape[1] != d2.shape[1] \
             or d1.shape[0] != plan.num_rows or d2.shape[0] != plan.num_cols:
@@ -149,11 +165,13 @@ def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
                            device=d1.device)
     out = torch.empty(plan.cell_slots, dtype=torch.float32,
                       device=d1.device)
+    index = d1.device.index or 0
     err = _lib().dg_sddmm_cells(
-        _launch.DTYPE_CODE[d1.dtype], d1.device.index or 0,
-        plan.cell_rb.data_ptr(), plan.cell_cw.data_ptr(), d1.data_ptr(),
-        d2.data_ptr(), out.data_ptr(), plan.num_cells, plan.num_rows,
-        plan.num_cols, d1.shape[1], _launch.stream(d1.device))
+        _launch.DTYPE_CODE[d1.dtype], index, plan.cell_rb.data_ptr(),
+        plan.cell_cw.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+        out.data_ptr(), plan.num_cells, plan.num_rows, plan.num_cols,
+        d1.shape[1], cells_per_cta(plan.num_cells, _sm_count(index)),
+        _launch.stream(d1.device))
     _launch.raise_on(err, "sddmm_cells")
     LAUNCHES["sddmm_cells"] += 1
     return out

@@ -8,6 +8,11 @@ and called through ctypes on PyTorch's current stream. Run over the CSC
 view (colptr, row, values permuted by csr2csc) it is the transpose the
 backward needs.
 
+The kernel's path, (vec, group, nv): `vec` elements a load, `group` lanes
+a row, `nv` vectors a lane, is chosen here by `spmm_path`, a pure function
+of the width, the heads, the dtype and the pointers' alignment, so that the
+CPU tests can check that it covers every feature once.
+
 Routing: `csr_spmm` and `segment_sum_csr` take the plain version in
 `kernels/reference.py` for tensors on the CPU, and launch the kernel for
 tensors on a CUDA device. On CUDA they launch or raise (no nvcc, a failed
@@ -39,11 +44,78 @@ def _lib():
 
     lib = _build.load("spmm_csr")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dg_csr_spmm.argtypes = [i, i, p, p, p, p, p, i, i, i, i, p]
+    lib.dg_csr_spmm.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.dg_csr_spmm.restype = i
-    lib.dg_segment_sum_csr.argtypes = [i, i, p, p, p, i, i, p]
+    lib.dg_segment_sum_csr.argtypes = [i, i, p, p, p, i, i, i, i, i, p]
     lib.dg_segment_sum_csr.restype = i
     return lib
+
+
+# --- the path ----------------------------------------------------------------
+
+GROUPS = (32, 16, 8, 4)         # lanes a row, widest first
+
+
+def max_vectors(vec: int, itemsize: int) -> int:
+    """Most vectors a lane may carry (`max_vectors` in csrc/spmm_csr.cu)."""
+    return 2 if vec * itemsize == 16 else 4
+
+
+def widest_vec(feat: int, heads: int, itemsize: int, align: int) -> int:
+    """Widest load (at most 16 bytes, `align` bytes the pointers allow)
+    whose element count divides the head width, so no vector straddles
+    two heads."""
+    vec = 16 // itemsize
+    while vec > 1 and ((feat // heads) % vec or align % (vec * itemsize)):
+        vec //= 2
+    return vec
+
+
+@functools.lru_cache(maxsize=None)
+def spmm_path(feat: int, heads: int, itemsize: int, align: int = 16):
+    """(vec, group, nv) for a width `feat` of `heads` heads: the widest
+    load; at most 16 bytes a lane (more costs registers, and so warps in
+    flight: at arxiv F = 256 on an H100, two 16-byte vectors a lane in one
+    pass ran 12-15 % slower than one vector in two feature slices,
+    chip_smoke.py's phase 7); then the fewest feature slices (one pass
+    over a row's edges wherever the group can span the row), the fewest
+    lane slots a row (group * nv), the widest group (fewer rows a warp, so
+    less waiting on a warp's longest row). A group is at least 8 lanes
+    where the row has 8 vectors."""
+    vec = widest_vec(feat, heads, itemsize, align)
+    nvec = feat // vec
+    least = 8 if nvec >= 8 else 4
+    most = min(max_vectors(vec, itemsize), 16 // (vec * itemsize))
+    best = None
+    for group in GROUPS:
+        if group < least:
+            continue
+        for nv in range(1, most + 1):
+            slices = -(-nvec // (group * nv))
+            key = (slices, slices * group * nv, -group)
+            if best is None or key < best[0]:
+                best = (key, (vec, group, nv))
+    return best[1]
+
+
+def wide_path(feat: int, heads: int, itemsize: int, align: int = 16):
+    """The mapping before the narrow-width path: one warp a row and a
+    feature slice of 32 vectors, a vector only where the row has 32 of
+    them. Not used by the port; `chip_smoke.py` times it beside
+    `spmm_path`."""
+    vec = widest_vec(feat, heads, itemsize, align)
+    while vec > 1 and feat < 32 * vec:
+        vec //= 2
+    return vec, 32, 1
+
+
+def _align(*tensors) -> int:
+    """The largest power of two up to 16 dividing every data pointer."""
+    a = 16
+    for t in tensors:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
 
 
 # --- csr_spmm ----------------------------------------------------------------
@@ -70,12 +142,13 @@ def csr_spmm_plain(rowptr, col, values, dense, reduce=ReduceOp.SUM,
     return out
 
 
-def csr_spmm_cuda(rowptr, col, values, dense,
-                  reduce=ReduceOp.SUM) -> torch.Tensor:
+def csr_spmm_cuda(rowptr, col, values, dense, reduce=ReduceOp.SUM,
+                  path=None) -> torch.Tensor:
     """The kernel: out[m] = sum_{e in row m} values[e] * dense[col[e]]
     (values None means 1.0; values [nnz, H] scale feature j by
-    values[e, j // (F / H)]), MEAN divides by max(deg, 1). Raises unless
-    every tensor is on one CUDA device with the types it takes."""
+    values[e, j // (F / H)]), MEAN divides by max(deg, 1), on `path`
+    (default `spmm_path`). Raises unless every tensor is on one CUDA device
+    with the types it takes."""
     reduce = as_reduce(reduce)
     if reduce not in (ReduceOp.SUM, ReduceOp.MEAN):
         raise NotImplementedError(f"csr_spmm handles SUM/MEAN, got {reduce}")
@@ -94,12 +167,15 @@ def csr_spmm_cuda(rowptr, col, values, dense,
                            device=dense.device)
     out = torch.empty((num_rows, feat), dtype=dense.dtype,
                       device=dense.device)
+    if path is None:
+        path = spmm_path(feat, heads, dense.element_size(),
+                         _align(dense, out))
     err = _lib().dg_csr_spmm(
         _launch.DTYPE_CODE[dense.dtype], dense.device.index or 0,
         rowptr.data_ptr(), col.data_ptr(),
         None if values is None else values.data_ptr(),
         dense.data_ptr(), out.data_ptr(), num_rows, feat, heads,
-        int(reduce == ReduceOp.MEAN), _launch.stream(dense.device))
+        int(reduce == ReduceOp.MEAN), *path, _launch.stream(dense.device))
     _launch.raise_on(err, "csr_spmm")
     LAUNCHES["csr_spmm"] += 1
     return out
@@ -139,10 +215,11 @@ def segment_sum_csr_cuda(rowptr, contrib) -> torch.Tensor:
                            device=contrib.device)
     out = torch.empty((num_rows, feat), dtype=contrib.dtype,
                       device=contrib.device)
+    path = spmm_path(feat, 1, contrib.element_size(), _align(contrib, out))
     err = _lib().dg_segment_sum_csr(
         _launch.DTYPE_CODE[contrib.dtype], contrib.device.index or 0,
         rowptr.data_ptr(), contrib.data_ptr(), out.data_ptr(), num_rows,
-        feat, _launch.stream(contrib.device))
+        feat, *path, _launch.stream(contrib.device))
     _launch.raise_on(err, "segment_sum_csr")
     LAUNCHES["segment_sum_csr"] += 1
     return out

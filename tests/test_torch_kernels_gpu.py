@@ -57,7 +57,7 @@ def _graph(cuda, seed, has_value, m=3000, n=2500):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("has_value", [True, False])
-@pytest.mark.parametrize("feat", [1, 7, 32, 64, 128, 256])
+@pytest.mark.parametrize("feat", [1, 7, 32, 40, 41, 64, 96, 128, 256])
 def test_csr_spmm_matches_plain(cuda, feat, has_value, reduce, dtype):
     rowptr, col, values = _graph(cuda, feat, has_value)
     g = torch.Generator(device=cuda).manual_seed(feat)
@@ -71,10 +71,12 @@ def test_csr_spmm_matches_plain(cuda, feat, has_value, reduce, dtype):
     torch.cuda.synchronize()
     assert out.dtype == x.dtype and out.shape == (3000, feat)
     assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    again = spmm_csr.csr_spmm_cuda(rowptr, col, values, x, reduce)
+    assert torch.equal(out, again)             # no atomics: repeatable
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("feat", [1, 7, 32, 64, 128, 256])
+@pytest.mark.parametrize("feat", [1, 7, 32, 40, 41, 64, 96, 128, 256])
 def test_segment_sum_csr_matches_plain(cuda, feat, dtype):
     rowptr, col, _ = _graph(cuda, feat + 100, False)
     g = torch.Generator(device=cuda).manual_seed(feat)
@@ -186,7 +188,7 @@ def test_sddmm_csr_matches_plain(cuda, feat, heads, reduce, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
-@pytest.mark.parametrize("feat", [1, 7, 16, 64])
+@pytest.mark.parametrize("feat", [1, 7, 16, 40, 64])
 def test_csr_spmm_heads_matches_plain(cuda, feat, reduce, dtype):
     rowptr, col, _ = _graph(cuda, feat + 300, False)
     g = torch.Generator(device=cuda).manual_seed(feat)
@@ -541,6 +543,32 @@ def test_sddmm_cells_matches_plain(cuda, feat, dtype):
                                            d2.float().abs())
     torch.cuda.synchronize()
     assert out.shape == (plan.cell_slots,)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    again = spmm_cells.sddmm_cells_cuda(plan, d1, d2)
+    assert torch.equal(out, again)             # no atomics: repeatable
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [2, 5, 24])
+def test_sddmm_cells_chunks_split_and_span_row_blocks(cuda, chunk, dtype,
+                                                      monkeypatch):
+    # 1500 rows (the last row block holds 92); row blocks of 1-3 cells: a
+    # chunk of 2 splits a row block's run, 5 and 24 span several
+    from dgsparse_tpu_torch.kernels import spmm_cells
+
+    plan = _hybrid(cuda).storage.ell_plan().cells
+    assert plan.num_rows % 128 and plan.num_cells == 24
+    assert int(plan.fwd_ptr.diff().max()) > 2
+    monkeypatch.setattr(spmm_cells, "cells_per_cta", lambda n, sms: chunk)
+    g = torch.Generator(device=cuda).manual_seed(chunk)
+    dt = getattr(torch, dtype)
+    d1 = torch.randn(1500, 41, generator=g, device=cuda).to(dt)
+    d2 = torch.randn(1500, 41, generator=g, device=cuda).to(dt)
+    out = spmm_cells.sddmm_cells_cuda(plan, d1, d2)
+    ref = spmm_cells.sddmm_cells_plain(plan, d1, d2)
+    abs_sum = spmm_cells.sddmm_cells_plain(plan, d1.float().abs(),
+                                           d2.float().abs())
+    torch.cuda.synchronize()
     assert_sum_close(out, ref, abs_sum, TOLS[dtype])
 
 

@@ -1,7 +1,7 @@
 """Why the tensor-core kernels take three TF32 passes for fp32.
 
-`csrc/spconv.cu` (spconv_pairs) and `csrc/spmm_cells.cu` (spmm_dense_cells)
-multiply fp32 operands on TF32 tensor cores as 3xTF32 (`csrc/common.cuh`):
+`csrc/spconv.cu` (spconv_pairs) and `csrc/spmm_cells.cu` (spmm_dense_cells,
+sddmm_cells) multiply fp32 operands on TF32 tensor cores as 3xTF32 (`csrc/common.cuh`):
 a = big + small with big = tf32(a) and small = tf32(a - big), rounded to
 nearest as `cvt.rna.tf32.f32` rounds, and a·b summed as small·big +
 big·small + big·big in fp32. Here that arithmetic is emulated on the CPU
@@ -70,6 +70,27 @@ def test_3xtf32_keeps_the_fp32_rule_and_one_pass_does_not(offsets):
     assert_sum_close(t(three), t(exact), t(abs_sum), TOL)
     # well inside the rule: within 1e-6 of the absolute sum
     assert (np.abs(three - exact) <= 1e-6 * abs_sum).all()
+    with pytest.raises(AssertionError):
+        assert_sum_close(t(_sum_products(a, b, 1)), t(exact), t(abs_sum),
+                         TOL)
+
+
+@pytest.mark.parametrize("feat", [41, 64])
+def test_3xtf32_sddmm_block_keeps_the_fp32_rule(feat):
+    # d1[rb] @ d2[cw]ᵀ for one cell, F zero-padded to a multiple of 8 (the
+    # kernel's 16-feature slices add zeros only) and summed 8 features a
+    # product, in order, into one fp32 accumulator
+    rng = np.random.default_rng(feat)
+    padded = -(-feat // 8) * 8
+    d1, d2 = (np.zeros((128, padded), np.float32) for _ in range(2))
+    d1[:, :feat] = rng.standard_normal((128, feat))
+    d2[:, :feat] = rng.standard_normal((128, feat))
+    a = d1.reshape(128, -1, 8).transpose(1, 0, 2)        # [steps, 128, 8]
+    b = d2.reshape(128, -1, 8).transpose(1, 2, 0)        # [steps, 8, 128]
+    exact = d1.astype(np.float64) @ d2.T.astype(np.float64)
+    abs_sum = np.abs(d1).astype(np.float64) @ np.abs(d2).T.astype(np.float64)
+    t = torch.from_numpy
+    assert_sum_close(t(_sum_products(a, b, 3)), t(exact), t(abs_sum), TOL)
     with pytest.raises(AssertionError):
         assert_sum_close(t(_sum_products(a, b, 1)), t(exact), t(abs_sum),
                          TOL)
