@@ -86,16 +86,22 @@ exits non-zero without a result line:
      is one (torch.sparse CSR matmul, i.e. cuSPARSE, for the SpMM, over a
      block-diagonal CSR of H copies for H heads; torch.sparse.sampled_addmm
      over a batched CSR for the SDDMM; torch.sparse.mm(..., reduce="amax")
-     for the MAX SpMM, its error recorded where CUDA refuses it;
-     comparators only, never called by the port; the multi-head and SDDMM
-     ones held to the kernel at 1e-4), at the p2p shape and at the shapes
+     for the MAX SpMM, its error recorded where CUDA refuses it, and
+     beside it, labelled as two calls, x.index_select(0, col) followed by
+     torch.segment_reduce(..., "max", offsets=rowptr), held to the
+     kernel's out on the non-empty rows; comparators only, never called by
+     the port; the multi-head and SDDMM ones held to the kernel at 1e-4),
+     at the p2p shape and at the shapes
      of both main paths, beside the bound: the larger of the compulsory
      bytes (each input read once, each output written once) over
      3.35 TB/s and the operations over 67 TFLOP/s (H100 SXM data sheet,
      fp32; 495 / 3 TFLOP/s for the kernels on 3xTF32 tensor cores).
      csr_spmm at each shape also on `wide_path`, the one-warp-a-row
      mapping it had before its narrow-width path, and at F = 256 on the
-     one-pass path (4, 32, 2); on the Reddit-scale storage over the
+     one-pass path (4, 32, 2); spmm_maxmin also on feature slices of 32,
+     64 and 128 fp32 features, on 16 and 8 lanes of 16 bytes a row and on
+     the one-warp-a-row `wide_path` it had before; on the
+     Reddit-scale storage over the
      residue's sub-CSR and the non-cell edges' CSC (the hybrid route's two
      CSR launches) at F = 64 and 41. At Reddit scale (F = 64 and 41):
      spmm_dense_cells forward and
@@ -1657,7 +1663,8 @@ def phase_spconv_numbers(torch, cuda, cloud):
                                     [False, True, False]))}, **counts)
         ms.update(bound(
             4 * (x.numel() + g.numel() + 2 * plan.total_pairs
-                 + plan.by_offset.num_chunks + 1 + w.numel()), pairs_ops))
+                 + plan.by_offset.num_chunks + 1 + w.numel()), pairs_ops,
+            TF32X3_FLOPS))
         ms["library_call"] = ("torch.ops.aten.convolution_backward (weight "
                               "gradient) over the densified grid, cuDNN, "
                               "TF32 off")
@@ -1694,10 +1701,26 @@ def _library_amax(torch, rowptr, col, x, out):
     return (lambda a, x: torch.sparse.mm(a, x, reduce="amax"), (a, x))
 
 
+def _gather_segment_max(x, col, offsets):
+    """MAX copy_u in two PyTorch calls: the per-edge gather, then a
+    segment max over CSR offsets (-inf in an empty row)."""
+    import torch
+
+    return torch.segment_reduce(x.index_select(0, col), "max",
+                                offsets=offsets)
+
+
 def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
     """spmm_maxmin and its d_dense at the GIN-max shapes (copy_u over the
     bare graph, as GIN aggregates) and at p2p F=32, beside their bounds,
-    plain versions and, for the forward, torch.sparse.mm's "amax"."""
+    plain versions and, for the forward, torch.sparse.mm's "amax" (one
+    call; it raises on CUDA) and the gather + torch.segment_reduce pair
+    (two calls, held to the kernel's out on the non-empty rows); the
+    forward also on `maxmin_path`'s slices of 32, 64 and 128 fp32
+    features (128, 256 and 512 bytes of a row), on 16 and 8 lanes of 16
+    bytes a row, and on `spmm_csr.wide_path`, the one-warp-a-row mapping
+    it had before them."""
+    from dgsparse_tpu_torch.kernels import spmm_csr as K
     from dgsparse_tpu_torch.kernels import spmm_maxmin as M
 
     results = {"spmm_maxmin": {}, "spmm_maxmin_bwd": {}}
@@ -1713,10 +1736,25 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
         args = (rowptr, col, None, x)
         fns = {"kernel": (M.spmm_maxmin_cuda, args),
                "plain": (M.spmm_maxmin_plain, args)}
-        lib = _library_amax(torch, rowptr, col, x,
-                            M.spmm_maxmin_cuda(*args)[0])
+        paths = {f"slice_{b}B": M.maxmin_path(feat, 1, 4, 16, b)
+                 for b in (128, 256, 512)}
+        # 16 and 8 lanes of 16 bytes a row (256- and 128-byte slices), and
+        # the mapping before maxmin_path: the CSR kernel's one warp a row
+        paths["lanes_16x16B"] = (4, 16, 1)
+        paths["lanes_8x16B"] = (4, 8, 1)
+        paths["wide_path"] = K.wide_path(feat, 1, 4)
+        for key, path in paths.items():
+            fns[key] = (functools.partial(M.spmm_maxmin_cuda, path=path),
+                        args)
+        out = M.spmm_maxmin_cuda(*args)[0]
+        lib = _library_amax(torch, rowptr, col, x, out)
         if isinstance(lib, tuple):
             fns["library"] = lib
+        offsets = rowptr.long()
+        two = _gather_segment_max(x, col, offsets)
+        busy = rowptr[1:] != rowptr[:-1]
+        max_err(two[busy], out[busy], 0.0)
+        fns["two_calls"] = (_gather_segment_max, (x, col, offsets))
         ms = _time_turns(fns)
         if not isinstance(lib, tuple):
             ms["library_error"] = lib
@@ -1725,15 +1763,23 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
         ms.update(bound(nbytes, 1.0 * nnz * feat))
         ms["library_call"] = ('torch.sparse.mm(sparse_csr of ones, dense, '
                               'reduce="amax")')
+        ms["two_calls_desc"] = ("two PyTorch calls, not one: "
+                                "x.index_select(0, col), then "
+                                "torch.segment_reduce(..., 'max', "
+                                "offsets=rowptr); out only, no winners")
+        ms["paths"] = {"kernel": M.maxmin_path(feat, 1, 4), **paths}
         results["spmm_maxmin"][label] = ms
         log(f"[numbers] spmm_maxmin MAX copy_u {label} ({m} rows, {nnz} nnz, "
-            f"fp32): " + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
-                                   for k in ("kernel", "plain", "library")
-                                   if k in ms)
+            f"fp32, path {ms['paths']['kernel']}): "
+            + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
+                        for k in ("kernel", "plain", "library", *paths,
+                                  "two_calls")
+                        if k in ms)
             + (f", library refused: {ms['library_error']}"
                if "library_error" in ms else "")
             + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
-            f"{ms['bound_rate']})")
+            f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of the "
+            f"bound; paths {paths}")
 
     # d_dense of the second GINConv (F=256) and at p2p F=32; the d_values
     # of a weighted MAX at F=256, which no GIN step runs

@@ -1,8 +1,8 @@
 // Helpers shared by the port's CUDA kernels (csrc/*.cu): warp shape, the
 // dtype codes of the C interface, fp32 <-> storage-type conversions,
 // vectorised loads and stores, streaming stores, cp.async copies into
-// shared memory, and the tensor-core product of `spconv.cu` and
-// `spmm_cells.cu` (mma.sync on TF32, fp32 kept as 3xTF32).
+// shared memory, and the tensor-core product of `spconv.cu` (spconv_pairs,
+// spconv_dw) and `spmm_cells.cu` (mma.sync on TF32, fp32 kept as 3xTF32).
 
 #pragma once
 
@@ -95,23 +95,46 @@ __device__ __forceinline__ void store_streaming(float* p, float4 v) {
                : "memory");
 }
 
+// VEC elements to `p` (aligned to their size) with the same hint, as
+// 16-byte stores where they are that wide, else as one store.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_streaming(T* p,
+                                                const Packed<T, VEC>& v) {
+  constexpr int kBytes = sizeof(Packed<T, VEC>);
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i)
+      __stcs(reinterpret_cast<int4*>(p) + i,
+             reinterpret_cast<const int4*>(&v)[i]);
+  } else if constexpr (kBytes == 8) {
+    __stcs(reinterpret_cast<int2*>(p), *reinterpret_cast<const int2*>(&v));
+  } else if constexpr (kBytes == 4) {
+    __stcs(reinterpret_cast<int*>(p), *reinterpret_cast<const int*>(&v));
+  } else {
+    __stcs(reinterpret_cast<short*>(p), *reinterpret_cast<const short*>(&v));
+  }
+}
+
 // --- tensor cores: mma.sync.m16n8k8 on TF32 ------------------------------
 //
 // fp32 parity (the JAX package's Precision.HIGHEST, 1e-5 of the terms'
 // absolute sum) survives the tensor cores only as 3xTF32: each fp32 operand
-// is split into big = tf32(a) (cvt.rna: round to nearest on 10 mantissa
-// bits, ties away from zero) and small = tf32(a - big), and a·b is summed
-// as small·big + big·small + big·big in fp32 (the small·small term, ~2^-22
-// of the product, is dropped). A bf16 value is exact in TF32 and needs no
-// split, so a product with one bf16 side takes two passes and one of two
-// bf16 sides a single exact pass. `utils/testing.py::tf32_round` emulates
-// the rounding for the CPU tests. Round to nearest, not a cut toward zero:
-// a cut is cheaper but biased, and over the ~10^5-term sums of a Reddit
-// layer's bias gradient the bias broke the step-1 gradient check against
-// the plain versions. cvt.rna is four instructions (a NaN test among
-// them), so a split costs ~10 a value, more than its products: a kernel
-// splits each staged value once (`split_tile`) where its shared memory
-// allows, not in every warp that loads it into a fragment.
+// is split into big = tf32(a) (round to nearest on 10 mantissa bits, ties
+// away from zero) and small = a - big (which the tensor core cuts to
+// TF32), and a·b is summed as small·big + big·small + big·big in fp32 (the
+// small·small term, ~2^-22 of the product, is dropped). A bf16 value is
+// exact in TF32 and needs no split, so a product with one bf16 side takes
+// two passes and one of two bf16 sides a single exact pass.
+// `utils/testing.py::tf32_round` emulates the rounding for the CPU tests.
+// big is rounded to nearest, not cut toward zero: a cut is cheaper but
+// biased, and over the ~10^5-term sums of a Reddit layer's bias gradient
+// the bias broke the step-1 gradient check against the plain versions. A
+// split is three instructions (`tf32` two integer ones, then a subtract),
+// where cvt.rna twice cost several times that (spconv_dw at enc2 ran
+// faster on an H100 without it). Where the products outrun the shared
+// memory, a kernel splits each staged value once (`split_tile`); where the
+// shared memory is the limit (spconv_dw), each warp splits the values it
+// loads into a fragment.
 //
 // Fragments of mma.m16n8k8 (lane = 4 g + t, g = lane / 4, t = lane % 4):
 //   A [16 x 8]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
@@ -119,10 +142,15 @@ __device__ __forceinline__ void store_streaming(float* p, float4 v) {
 //   C [16 x 8]: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
 //               c3 (g + 8, 2t + 1).
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest
+// on the top 10 mantissa bits, ties away from zero) in two integer
+// instructions, which issue at a higher rate than the conversion: a carry
+// into bit 13, then the low 13 bits cleared, as `utils/testing.py::
+// tf32_round` does. An infinity stays one; a NaN may come out as an
+// infinity or a zero (the carry runs into the sign bit), so `split_tf32`
+// keeps it in the remainder.
 __device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // How an operand's TF32 parts are had: kExact, the value itself (a bf16
@@ -131,11 +159,16 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 // its big parts in place and its remainders in a tile of the same layout.
 enum Split : int { kExact, kSplitOnLoad, kPreSplit };
 
-// x as TF32 operands: big + small ≈ x to ~2^-22.
+// x as TF32 operands: big + small ≈ x to ~2^-22. small = x - big is exact
+// in fp32 and passed as it is: the tensor core reads a TF32 operand's top
+// 19 bits and drops the rest, so small loses at most 2^-11 of itself (up
+// to 2^-22 of x, the order of the small·small term already dropped). A
+// NaN x leaves a NaN in small, whatever tf32 made of it, so the product
+// stays NaN.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 // Splits `n` floats at `s` (16-byte aligned, n a multiple of 4; rows of
@@ -205,6 +238,18 @@ __device__ __forceinline__ void load_a(Frag<4>& f, const T* s,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     operand<MODE>(s, small, at[i], f.big[i], f.small[i]);
+}
+
+// The A fragment at (row 0, k 0) of a tile staged k-major, A(r, k) =
+// s[k * ks + r]: rows of [k][channels] staging read as the transposed
+// operand without a copy (spconv_dw: A = xᵀ). With ks = 72 elements,
+// fp32 or bf16, no two lanes of a fragment load meet in one bank at
+// different words.
+template <int MODE, typename T>
+__device__ __forceinline__ void load_a_kmajor(Frag<4>& f, const T* s,
+                                              const float* small, int ks,
+                                              int lane) {
+  load_a<MODE>(f, s, small, 1, ks, lane);
 }
 
 // The B fragment at (k 0, column 0) of `s`, where B(k, n) = s[k * ks + n].

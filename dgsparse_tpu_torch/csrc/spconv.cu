@@ -15,13 +15,13 @@
 //
 // What bounds them: at the 60K-voxel UNet's enc2 (2,078,556 pairs, 64 -> 64
 // channels) one direction is 2 * 2.08 M * 64 * 64 = 17 GFLOP against ~27 MB
-// of compulsory bytes: operations bound it. spconv_pairs runs its products
-// on the tensor cores (mma.sync.m16n8k8, TF32) and keeps fp32 parity with
-// the JAX package's Precision.HIGHEST (1e-5) as 3xTF32 (common.cuh), at
-// 495 / 3 = 165 TFLOP/s of fp32-accurate product against 67 TFLOP/s of
-// FFMA: 0.10 ms at enc2. bf16 values are exact in TF32, so bf16 takes one
-// exact TF32 pass with fp32 sums (the same fragments as fp32, where an
-// m16n8k16 bf16 path would need its own). spconv_dw stays on FFMA.
+// of compulsory bytes: operations bound it, and dW has as many. Both
+// kernels run their products on the tensor cores (mma.sync.m16n8k8, TF32)
+// and keep fp32 parity with the JAX package's Precision.HIGHEST (1e-5) as
+// 3xTF32 (common.cuh), at 495 / 3 = 165 TFLOP/s of fp32-accurate product
+// against 67 TFLOP/s of FFMA: 0.10 ms at enc2 for each. bf16 values are
+// exact in TF32, so bf16 takes one exact TF32 pass with fp32 sums (the
+// same fragments as fp32, where an m16n8k16 bf16 path would need its own).
 //
 // spconv_pairs: each (destination row, offset) has at most one pair, so at
 // one offset the pairs of a block of 128 destination rows form a dense
@@ -52,10 +52,25 @@
 // less than half the padded one's products. No atomics; every sum is taken
 // in a fixed order, so results are bitwise repeatable.
 //
-// spconv_dw: one CTA per (chunk of one offset's pairs, 64 x 64 tile of dW)
-// stages 32 pairs' gathered x and g rows at a time and accumulates its
-// [c_in, c_out] tile in registers; a second launch sums each offset's
-// chunks in chunk order. Deterministic, no atomics.
+// spconv_dw: dW[k] = Σ over offset k's pairs of x[in]ᵀ g[out] is a product
+// of M = c_in by N = c_out over K = the pairs. One CTA per (chunk of one
+// offset's pairs, 64 x 64 tile of dW) walks its chunk 32 pairs a step
+// through a three-stage cp.async ring: the step's gathered x rows and g
+// rows land as [pair][channel] tiles (one 16-byte cp.async per 4 fp32 or 8
+// bf16 channels where rows are 16-byte aligned, element copies otherwise),
+// which the fragments read as they are, x's k-major as A = xᵀ
+// (`load_a_kmajor`) and g's as B; each step's pair ids are read once,
+// into shared memory, a step ahead of the copies that use them. What
+// bounds this kernel is shared-memory traffic: fp32 values are split into
+// TF32 parts as their fragments load: a split pass (`split_tile`) that
+// writes big and small tiles, and doubles the bytes each fragment reads,
+// ran slower on an H100 than the repeated splits; the three products
+// follow `mma_tiles`' order, under masks that are uniform across each
+// warp. 8 warps in two groups of 2 x 2 hold 32 x 32 tiles of dW in
+// registers, each group over half of a step's k8 slices, and their sums
+// join once, in a fixed order, into the chunk's partial; a second launch
+// sums each offset's partials in chunk order. Deterministic, no atomics.
+// Two CTAs an SM (125 registers a thread).
 
 #include "common.cuh"
 
@@ -73,6 +88,9 @@ constexpr int kSmemLimit = 232448 - 1024;  // a CTA's shared memory, less
                                            // the static row_ptr
 constexpr int kDwPairs = 32;   // pairs staged per step (spconv_dw)
 constexpr int kDwTile = 64;    // dW tile: 64 input x 64 output channels
+constexpr int kDwStride = kDwTile + 8;  // staged row stride, elements
+constexpr int kDwStages = 3;   // depth of spconv_dw's cp.async ring
+constexpr int kDwIdSlots = 4;  // steps of pair ids in shared memory
 
 // Dynamic shared memory of pairs_kernel<T, CT, DENSE>: the ring of A tiles
 // (gathered rows [kRows][kSA]) and B tiles (weight slices [kKC][kSB]); the
@@ -383,74 +401,198 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Dynamic shared memory of dw_partial_kernel<T>: the ring of staged x
+// rows and g rows, each tile [kDwPairs][kDwStride] (a pair's channels in a
+// row: the product reads x's tile k-major as A = xᵀ and g's as B), then
+// the pair ids of kDwIdSlots steps ([slot][in ids, out ids]). The stride
+// of 72 elements keeps rows 16-byte aligned and the fragment loads on
+// distinct banks.
+template <typename T>
+struct DwSmem {
+  static constexpr int kTile = kDwPairs * kDwStride * sizeof(T);
+  static constexpr int kRing = kDwStages * 2 * kTile;
+  static constexpr int kIds = kDwIdSlots * 2 * kDwPairs * 4;
+  static constexpr int kBytes = kRing + kIds;
+};
+
 // One CTA per (chunk c of one offset's pairs, 64 x 64 tile of dW): the
 // partial sum over pairs [bounds[c], bounds[c + 1]) of x[in]ᵀ g[out], into
-// part[c] [c_in, c_out].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// part[c] [c_in, c_out]. M = input channels, N = output channels, K = the
+// chunk's pairs, kDwPairs a step through a kDwStages-deep cp.async ring.
+// 8 warps in two groups of 2 x 2: each warp holds a 32 x 32 tile of dW in
+// registers, and group kg multiplies the k8 slices 2 j + kg of each step
+// (fewer fragment loads a product than 8 warps of 32 x 16 over every
+// slice); group 1's sums join group 0's once, at the end.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
     dw_partial_kernel(const int* __restrict__ bounds,
                       const int* __restrict__ in_ids,
                       const int* __restrict__ out_ids,
                       const T* __restrict__ x, const T* __restrict__ g,
                       float* __restrict__ part, int c_in, int c_out) {
-  __shared__ __align__(16) float xs[kDwPairs][kDwTile + 4];
-  __shared__ __align__(16) float gs[kDwPairs][kDwTile + 4];
+  // fp32: 3xTF32, each value split as its fragment loads (a split pass
+  // over the staged tiles costs more shared-memory traffic than the
+  // repeated splits cost instructions); bf16: one exact pass
+  constexpr bool kSplit = sizeof(T) == 4;
+  constexpr int kMode = kSplit ? kSplitOnLoad : kExact;
+  constexpr int kE = 16 / sizeof(T);               // elements a 16-byte copy
+  constexpr int kTileElems = kDwPairs * kDwStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const ring = reinterpret_cast<T*>(smem);
+  int* const ids = reinterpret_cast<int*>(smem + DwSmem<T>::kRing);
+
   const int c = blockIdx.x;
   const int i0 = blockIdx.y * kDwTile;
   const int o0 = blockIdx.z * kDwTile;
-  const int tid = threadIdx.x;
-  const int ti = tid / 16;  // input channels ti*4 .. ti*4+3
-  const int to = tid % 16;  // output channels to*4 .. to*4+3
+  const int tid = threadIdx.x, lane = tid % kWarp;
+  // warp-uniform as the compiler sees it, so the masks below branch
+  // uniformly and the products need no warp barrier
+  const int warp = __shfl_sync(kFullMask, tid / kWarp, 0);
+  const int kg = warp / 4, wm = warp % 4 / 2, wn = warp % 2;
   const int lo = bounds[c];
   const int hi = bounds[c + 1];
+  const int nsteps = (hi - lo + kDwPairs - 1) / kDwPairs;
 
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  // pair ids of step s, one a thread of the first 2 * kDwPairs: in ids,
+  // then out ids; -1 past the chunk
+  auto load_id = [&](int s) {
+    const int q = lo + s * kDwPairs + tid % kDwPairs;
+    if (q >= hi) return -1;
+    return tid < kDwPairs ? in_ids[q] : out_ids[q];
+  };
+  auto id_slot = [&](int s) { return ids + (s % kDwIdSlots) * 2 * kDwPairs; };
 
-  for (int q0 = lo; q0 < hi; q0 += kDwPairs) {
-    for (int e = tid; e < kDwPairs * kDwTile; e += kThreads) {
-      const int p = e / kDwTile, j = e % kDwTile;
-      const int q = q0 + p;
-      float xv = 0.f, gv = 0.f;
-      if (q < hi) {
-        if (i0 + j < c_in)
-          xv = to_float(x[static_cast<int64_t>(in_ids[q]) * c_in + i0 + j]);
-        if (o0 + j < c_out)
-          gv = to_float(g[static_cast<int64_t>(out_ids[q]) * c_out + o0 + j]);
-      }
-      xs[p][j] = xv;
-      gs[p][j] = gv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int p = 0; p < kDwPairs; ++p) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[p][ti * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&gs[p][to * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+  // step s: pairs lo + s * kDwPairs .., their x rows (channels i0 ..) and
+  // g rows (channels o0 ..), zero-filled past the chunk and the channels
+  auto issue = [&](int s) {
+    T* xs = ring + (s % kDwStages) * 2 * kTileElems;
+    T* gs = xs + kTileElems;
+    const int* sid = id_slot(s);
+    if (VEC) {
+      constexpr int q = kDwTile / kE;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[r][0] = fmaf(av[r], b.x, acc[r][0]);
-        acc[r][1] = fmaf(av[r], b.y, acc[r][1]);
-        acc[r][2] = fmaf(av[r], b.z, acc[r][2]);
-        acc[r][3] = fmaf(av[r], b.w, acc[r][3]);
+      for (int it = 0; it < kDwPairs * q / kThreads; ++it) {
+        const int e = tid + it * kThreads;
+        const int p = e / q, col = (e % q) * kE;
+        const int xi = sid[p], gi = sid[kDwPairs + p];
+        const int nx = xi >= 0 && i0 + col < c_in ? kE : 0;
+        const int ng = gi >= 0 && o0 + col < c_out ? kE : 0;
+        cp_async16(xs + p * kDwStride + col,
+                   nx ? x + static_cast<int64_t>(xi) * c_in + i0 + col : x,
+                   nx * static_cast<int>(sizeof(T)));
+        cp_async16(gs + p * kDwStride + col,
+                   ng ? g + static_cast<int64_t>(gi) * c_out + o0 + col : g,
+                   ng * static_cast<int>(sizeof(T)));
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < kDwPairs * kDwTile; e += kThreads) {
+        const int p = e / kDwTile, col = e % kDwTile;
+        const int xi = sid[p], gi = sid[kDwPairs + p];
+        const bool okx = xi >= 0 && i0 + col < c_in;
+        const bool okg = gi >= 0 && o0 + col < c_out;
+        cp_async_elem(xs + p * kDwStride + col,
+                      okx ? x + static_cast<int64_t>(xi) * c_in + i0 + col
+                          : x,
+                      okx);
+        cp_async_elem(gs + p * kDwStride + col,
+                      okg ? g + static_cast<int64_t>(gi) * c_out + o0 + col
+                          : g,
+                      okg);
       }
     }
-    __syncthreads();
+  };
+
+  // the ids of steps 0 .. kDwStages - 1 in shared memory, the next step's
+  // in a register: each step's ids are read once, a step ahead of the
+  // copies that use them
+  int next_id = 0;
+  if (tid < 2 * kDwPairs) {
+#pragma unroll
+    for (int s = 0; s < kDwStages; ++s) id_slot(s)[tid] = load_id(s);
+    next_id = load_id(kDwStages);
   }
+  __syncthreads();
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+  // this warp's m16 / n8 tiles that hold channels (zero-filled past them:
+  // the mask only saves products)
+  const int m_valid = min(max((c_in - i0 - 32 * wm + 15) / 16, 0), 2);
+  const int n_valid = min(max((c_out - o0 - 32 * wn + 7) / 8, 0), 4);
+
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();  // step s landed; step s - 1's stage is free
+    if (s + kDwStages - 1 < nsteps) issue(s + kDwStages - 1);
+    cp_async_commit();
+    if (tid < 2 * kDwPairs) {
+      // slot s + kDwStages was last read by issue(s + kDwStages -
+      // kDwIdSlots), before this step's barrier
+      id_slot(s + kDwStages)[tid] = next_id;
+      next_id = load_id(s + kDwStages + 1);
+    }
+
+    const T* xs = ring + (s % kDwStages) * 2 * kTileElems;
+    const T* gs = xs + kTileElems;
+#pragma unroll
+    for (int j = 0; j < kDwPairs / 16; ++j) {
+      const int kk = 16 * j + 8 * kg;  // this group's k8 slices
+      Frag<4> a[2];
+      Frag<2> b[4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        load_a_kmajor<kMode>(a[mt], xs + kk * kDwStride + 32 * wm + 16 * mt,
+                             nullptr, kDwStride, lane);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        load_b<kMode>(b[nt], gs + kk * kDwStride + 32 * wn + 8 * nt, nullptr,
+                      kDwStride, lane);
+      mma_tiles<kSplit, kSplit>(acc, a, b, m_valid, n_valid);
+    }
+  }
+
+  // group 1's sums into group 0's through the idle ring, in a fixed order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red =
+      reinterpret_cast<float*>(smem) + (warp % 4) * 32 * kWarp + lane;
+  if (kg == 1) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          red[((m * 4 + n) * 4 + i) * kWarp] = acc[m][n][i];
+  }
+  __syncthreads();
+  if (kg == 1) return;
   float* pc = part + static_cast<int64_t>(c) * c_in * c_out;
+  const int gq = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ti * 4 + a;
-    if (i >= c_in) break;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int o = o0 + to * 4 + b;
-      if (o < c_out) pc[static_cast<int64_t>(i) * c_out + o] = acc[a][b];
-    }
-  }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v =
+            acc[mt][nt][i] + red[((mt * 4 + nt) * 4 + i) * kWarp];
+        const int r = i0 + 32 * wm + 16 * mt + gq + 8 * (i >> 1);
+        const int o = o0 + 32 * wn + 8 * nt + 2 * t + (i & 1);
+        if (r < c_in && o < c_out)
+          pc[static_cast<int64_t>(r) * c_out + o] = v;
+      }
 }
 
 // dw[k] = sum of part[c] over the chunks c in [chunk_ptr[k],
@@ -528,6 +670,24 @@ int launch_pairs(int device, const int* ptr, const int* src, const int* widx,
                                 c_out, k_vol, dense, vec, s);
 }
 
+template <typename T, bool VEC>
+cudaError_t launch_dw_partial(const int* bounds, const int* in_ids,
+                              const int* out_ids, const void* x,
+                              const void* g, float* part, int num_chunks,
+                              int c_in, int c_out, cudaStream_t s) {
+  auto kernel = dw_partial_kernel<T, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DwSmem<T>::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_chunks, (c_in + kDwTile - 1) / kDwTile,
+                  (c_out + kDwTile - 1) / kDwTile);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
+  kernel<<<grid, kThreads, DwSmem<T>::kBytes, s>>>(
+      bounds, in_ids, out_ids, static_cast<const T*>(x),
+      static_cast<const T*>(g), part, c_in, c_out);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_dw(int device, const int* bounds, const int* chunk_ptr,
               const int* in_ids, const int* out_ids, const void* x,
@@ -539,13 +699,16 @@ int launch_dw(int device, const int* bounds, const int* chunk_ptr,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_chunks > 0) {
-    const dim3 grid(num_chunks, (c_in + kDwTile - 1) / kDwTile,
-                    (c_out + kDwTile - 1) / kDwTile);
-    if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
-    dw_partial_kernel<T><<<grid, kThreads, 0, s>>>(
-        bounds, in_ids, out_ids, static_cast<const T*>(x),
-        static_cast<const T*>(g), part, c_in, c_out);
-    err = cudaGetLastError();
+    // 16-byte cp.async needs every row of x and g to start on a 16-byte
+    // boundary; otherwise the element-wise copies
+    const int esize = static_cast<int>(sizeof(T));
+    const bool vec = (c_in * esize) % 16 == 0 && (c_out * esize) % 16 == 0 &&
+                     aligned(x, 16) && aligned(g, 16);
+    err = vec ? launch_dw_partial<T, true>(bounds, in_ids, out_ids, x, g,
+                                           part, num_chunks, c_in, c_out, s)
+              : launch_dw_partial<T, false>(bounds, in_ids, out_ids, x, g,
+                                            part, num_chunks, c_in, c_out,
+                                            s);
     if (err != cudaSuccess) return err;
   }
   const int size = c_in * c_out;

@@ -31,12 +31,27 @@
 //
 // What bounds them: the forward gathers a random F-element row of X for
 // every edge and writes out and arg once, so it is bound by those gathers,
-// like the SUM kernel, and moves 4 more bytes per output element (arg). The
-// design is that kernel's: one warp per (row, 32*VEC-feature slice), col and
-// w read 32 at a time and broadcast by __shfl_sync, VEC-wide loads, the
-// running extremum and its edge id in registers, each output written once,
-// no atomics. The row is walked in CSR order by one warp, so "earliest edge
-// wins a tie" needs no merge of partials.
+// like the SUM kernel, and moves 4 more bytes per output element (arg).
+// The gathers reach HBM when X outgrows the 50 MB L2 (arxiv at F = 256:
+// 173 MB, every edge a miss). The design is the CSR SUM kernel's
+// (csrc/spmm_csr.cu) with one change of grid:
+//   - a group of G lanes (4, 8, 16 or 32; 32 / G rows a warp) covers one
+//     row's feature slice, each lane NV vectors of VEC elements; the group
+//     reads the row's col (and w) G edges at a time, coalesced, and
+//     broadcasts them by __shfl_sync(width G); every lane runs the warp's
+//     longest row's trips, so the full-mask shuffles stay legal;
+//   - each lane issues the gathers of 4 edges before their compares, which
+//     then run in CSR edge order with strict improvement only: a tie keeps
+//     the earliest edge, with no merge of partials;
+//   - the feature slice (G * NV * VEC features, at most 256 bytes of a
+//     row: `kernels/spmm_maxmin.py::maxmin_path`; at the GIN widths one
+//     row a warp of 8-byte loads) is the grid's slowest dimension, so the
+//     slice of X being gathered from (arxiv: 169,343 rows x 256 B = 43.4
+//     MB) stays in L2 while every row block reads it, and X comes from HBM
+//     about once; out and arg are written with the streaming hint so that
+//     they do not push the slice out;
+//   - the running extremum and its edge id stay in registers; each output
+//     written once, no atomics; an empty row gives 0 and arg = nnz.
 // d_dense is one warp per CSC column: per edge of the column it gathers the
 // row's arg slice (VEC int32 per lane) and only where an element won
 // through this edge also the g slice; no atomics, and sentinel winners
@@ -58,6 +73,9 @@ using namespace dg;
 namespace {
 
 constexpr int kRowK = 8;  // elements a lane holds in d_values: 256 a pass
+constexpr int kAhead = 4;  // edges whose gathers are issued before their
+                           // compares (forward)
+constexpr int kMaxVectors = 2;  // vectors a lane (forward)
 
 enum Compute : int { kCopy = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4 };
 
@@ -76,69 +94,114 @@ __device__ __forceinline__ float combine(float w, float x) {
   }
 }
 
-template <typename T, int VEC, int C, bool IS_MIN, bool HEADS>
+// out[m, f] = max/min over e in [rowptr[m], rowptr[m+1]) of
+// combine(w_e, src[col[e], f]) and arg[m, f] = the CSR id of the earliest
+// winning e (w_e = val[e], or val[e * heads + f / head_feat] with HEADS).
+// Lane l of a warp serves row (warp * 32 + l) / group and, in feature slice
+// blockIdx.y, the vectors v < NV at feature
+// (blockIdx.y * group * NV + v * group + l % group) * VEC.
+template <typename T, int VEC, int NV, int C, bool IS_MIN, bool HEADS>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     maxmin_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
                   const float* __restrict__ val, const T* __restrict__ src,
                   T* __restrict__ out, int* __restrict__ arg, int num_rows,
-                  int feat, int heads, int head_feat, int nnz) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.y;
-  if (row >= num_rows) return;  // uniform across the warp
+                  int feat, int heads, int head_feat, int nnz, int group) {
   const int lane = threadIdx.x;
-  const int f0 = (blockIdx.y * kWarp + lane) * VEC;
-  const bool active = f0 < feat;  // VEC divides feat: the whole vector fits
-  const int head = HEADS && active ? f0 / head_feat : 0;
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
-
-  float best[VEC];
-  int win[VEC];
+  const int li = lane & (group - 1);
+  const int row = (blockIdx.x * kWarpsPerBlock + threadIdx.y) *
+                      (kWarp / group) + lane / group;
+  const bool has_row = row < num_rows;
+  int f[NV], head[NV];
+  bool act[NV];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    best[k] = 0.f;
-    win[k] = nnz;
+  for (int v = 0; v < NV; ++v) {
+    f[v] = ((blockIdx.y * NV + v) * group + li) * VEC;
+    act[v] = has_row && f[v] < feat;  // VEC divides feat: the vector fits
+    head[v] = HEADS && act[v] ? f[v] / head_feat : 0;
   }
-  for (int base = start; base < end; base += kWarp) {
-    const int e = base + lane;
+  // a lane past the last row keeps taking part in the warp's shuffles
+  const int start = has_row ? rowptr[row] : 0;
+  const int end = has_row ? rowptr[row + 1] : 0;
+
+  float best[NV][VEC];
+  int win[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      best[v][k] = 0.f;
+      win[v][k] = nnz;
+    }
+  // every lane runs every trip (the warp's longest row decides), so the
+  // full-mask shuffles never see a lane that has left
+  for (int base = start; __any_sync(kFullMask, base < end); base += group) {
+    const int e = base + li;
     int src_row = 0;
     float w = 1.f;
     if (e < end) {
       src_row = col[e];
       if (C != kCopy && !HEADS) w = val[e];
     }
-    const int n = min(kWarp, end - base);
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const int r = __shfl_sync(kFullMask, src_row, j);
-      float wj = __shfl_sync(kFullMask, w, j);
-      if (active) {
-        if (C != kCopy && HEADS)
-          wj = val[static_cast<int64_t>(base + j) * heads + head];
-        const Packed<T, VEC> x = *reinterpret_cast<const Packed<T, VEC>*>(
-            src + static_cast<int64_t>(r) * feat + f0);
-        const bool first = base + j == start;
+    const int n = max(min(group, end - base), 0);  // this group's edges
+    const int n_warp = __reduce_max_sync(kFullMask, n);
+    for (int j = 0; j < n_warp; j += kAhead) {
+      int r[kAhead];
+      float wu[kAhead];
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          const float v = combine<C>(wj, to_float(x.v[k]));
-          if (first || (IS_MIN ? v < best[k] : v > best[k])) {
-            best[k] = v;
-            win[k] = base + j;
-          }
-        }
+      for (int u = 0; u < kAhead; ++u) {
+        r[u] = __shfl_sync(kFullMask, src_row, j + u, group);
+        wu[u] = __shfl_sync(kFullMask, w, j + u, group);
       }
+      // the gathers of kAhead edges in flight before the first compare
+      Packed<T, VEC> x[kAhead][NV];
+      float wh[kAhead][NV];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          if (j + u < n && act[v]) {
+            x[u][v] = *reinterpret_cast<const Packed<T, VEC>*>(
+                src + static_cast<int64_t>(r[u]) * feat + f[v]);
+            wh[u][v] = HEADS ? val[static_cast<int64_t>(base + j + u) *
+                                       heads + head[v]]
+                             : wu[u];
+          }
+      // compares in CSR edge order, updating on strict improvement only:
+      // a tie keeps the earliest edge
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          if (j + u < n && act[v]) {
+            const int eu = base + j + u;
+            const bool first = eu == start;
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) {
+              const float c = combine<C>(wh[u][v], to_float(x[u][v].v[k]));
+              if (first || (IS_MIN ? c < best[v][k] : c > best[v][k])) {
+                best[v][k] = c;
+                win[v][k] = eu;
+              }
+            }
+          }
     }
   }
-  if (!active) return;
-  Packed<T, VEC> y;
-  Packed<int, VEC> a;
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    y.v[k] = from_float<T>(isfinite(best[k]) ? best[k] : 0.f);
-    a.v[k] = win[k];
+  for (int v = 0; v < NV; ++v) {
+    if (!act[v]) continue;
+    Packed<T, VEC> y;
+    Packed<int, VEC> a;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      y.v[k] = from_float<T>(isfinite(best[v][k]) ? best[v][k] : 0.f);
+      a.v[k] = win[v][k];
+    }
+    // written once, evict-first: out and arg must not push the feature
+    // slice that later rows gather from out of L2
+    const int64_t o = static_cast<int64_t>(row) * feat + f[v];
+    store_streaming(out + o, y);
+    store_streaming(arg + o, a);
   }
-  const int64_t o = static_cast<int64_t>(row) * feat + f0;
-  *reinterpret_cast<Packed<T, VEC>*>(out + o) = y;
-  *reinterpret_cast<Packed<int, VEC>*>(arg + o) = a;
 }
 
 template <typename T, int VEC, bool WEIGHTED, bool HEADS>
@@ -302,65 +365,84 @@ dim3 row_grid(int rows, int feat, int vec) {
               (feat + slice - 1) / slice);
 }
 
-template <typename T, int C, bool IS_MIN, bool HEADS>
-int launch_forward(const int* rowptr, const int* col, const float* val,
-                   const void* x, void* out, int* arg, int num_rows, int feat,
-                   int heads, int nnz, cudaStream_t s) {
-  const int vec = pick_vec<T>(feat, feat / heads, x, out, arg);
-  const dim3 grid = row_grid(num_rows, feat, vec);
+// The forward's arguments, passed down the template dispatch.
+struct Fwd {
+  const int* rowptr;
+  const int* col;
+  const float* val;
+  const void* x;
+  void* out;
+  int* arg;
+  int num_rows, feat, heads, nnz, vec, group, nv;
+  cudaStream_t s;
+};
+
+// Feature slice blockIdx.y is the grid's slowest dimension: every row block
+// of slice s is dispatched before slice s + 1's, so the slice of X that
+// the rows gather from stays in L2 while they do.
+template <typename T, int VEC, int NV, int C, bool IS_MIN, bool HEADS>
+int launch_path(const Fwd& a) {
+  const int rows = kWarpsPerBlock * (kWarp / a.group);  // rows per block
+  const int slice = a.group * NV * VEC;
+  const dim3 grid((a.num_rows + rows - 1) / rows,
+                  (a.feat + slice - 1) / slice);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  with_vec<T>(vec, [&](auto v) {
-    maxmin_kernel<T, decltype(v)::value, C, IS_MIN, HEADS>
-        <<<grid, dim3(kWarp, kWarpsPerBlock), 0, s>>>(
-            rowptr, col, val, static_cast<const T*>(x), static_cast<T*>(out),
-            arg, num_rows, feat, heads, feat / heads, nnz);
-  });
+  maxmin_kernel<T, VEC, NV, C, IS_MIN, HEADS>
+      <<<grid, dim3(kWarp, kWarpsPerBlock), 0, a.s>>>(
+          a.rowptr, a.col, a.val, static_cast<const T*>(a.x),
+          static_cast<T*>(a.out), a.arg, a.num_rows, a.feat, a.heads,
+          a.feat / a.heads, a.nnz, a.group);
   return cudaGetLastError();
 }
 
+// Refuses a path the kernel cannot run: `vec` a power of two of at most 16
+// bytes dividing the head width, with x and out aligned to it and arg to
+// vec int32; `group` 4, 8, 16 or 32 lanes; `nv` 1 to kMaxVectors.
+template <typename T, int C, bool IS_MIN, bool HEADS>
+int launch_forward(const Fwd& a) {
+  const int bytes = a.vec * static_cast<int>(sizeof(T));
+  if (a.vec < 1 || (a.vec & (a.vec - 1)) || bytes > 16 ||
+      (a.feat / a.heads) % a.vec || !aligned(a.x, bytes) ||
+      !aligned(a.out, bytes) || !aligned(a.arg, a.vec * 4) ||
+      (a.group != 4 && a.group != 8 && a.group != 16 && a.group != 32) ||
+      a.nv < 1 || a.nv > kMaxVectors)
+    return cudaErrorInvalidValue;
+  int err = cudaErrorInvalidValue;
+  with_vec<T>(a.vec, [&](auto v) {
+    constexpr int kVec = decltype(v)::value;
+    err = a.nv == 1 ? launch_path<T, kVec, 1, C, IS_MIN, HEADS>(a)
+                    : launch_path<T, kVec, 2, C, IS_MIN, HEADS>(a);
+  });
+  return err;
+}
+
 template <typename T, bool IS_MIN, bool HEADS>
-int forward_compute(int compute, const int* rowptr, const int* col,
-                    const float* val, const void* x, void* out, int* arg,
-                    int num_rows, int feat, int heads, int nnz,
-                    cudaStream_t s) {
-#define DG_FWD(C)                                                         \
-  launch_forward<T, C, IS_MIN, HEADS>(rowptr, col, val, x, out, arg,      \
-                                      num_rows, feat, heads, nnz, s)
+int forward_compute(int compute, const Fwd& a) {
   switch (compute) {
     case kCopy:
-      return DG_FWD(kCopy);
+      // copy_u reads no values: the single-value kernel, whatever `heads`
+      if constexpr (!HEADS) return launch_forward<T, kCopy, IS_MIN, HEADS>(a);
+      return cudaErrorInvalidValue;
     case kAdd:
-      return DG_FWD(kAdd);
+      return launch_forward<T, kAdd, IS_MIN, HEADS>(a);
     case kSub:
-      return DG_FWD(kSub);
+      return launch_forward<T, kSub, IS_MIN, HEADS>(a);
     case kMul:
-      return DG_FWD(kMul);
+      return launch_forward<T, kMul, IS_MIN, HEADS>(a);
     case kDiv:
-      return DG_FWD(kDiv);
+      return launch_forward<T, kDiv, IS_MIN, HEADS>(a);
   }
-#undef DG_FWD
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-int forward(int compute, int is_min, const int* rowptr, const int* col,
-            const float* val, const void* x, void* out, int* arg,
-            int num_rows, int feat, int heads, int nnz, cudaStream_t s) {
-  const bool multi = heads > 1 && compute != kCopy;
-  if (is_min) {
-    return multi ? forward_compute<T, true, true>(compute, rowptr, col, val,
-                                                  x, out, arg, num_rows, feat,
-                                                  heads, nnz, s)
-                 : forward_compute<T, true, false>(compute, rowptr, col, val,
-                                                   x, out, arg, num_rows,
-                                                   feat, heads, nnz, s);
-  }
-  return multi ? forward_compute<T, false, true>(compute, rowptr, col, val, x,
-                                                 out, arg, num_rows, feat,
-                                                 heads, nnz, s)
-               : forward_compute<T, false, false>(compute, rowptr, col, val,
-                                                  x, out, arg, num_rows, feat,
-                                                  heads, nnz, s);
+int forward(int compute, int is_min, const Fwd& a) {
+  const bool multi = a.heads > 1 && compute != kCopy;
+  if (is_min)
+    return multi ? forward_compute<T, true, true>(compute, a)
+                 : forward_compute<T, true, false>(compute, a);
+  return multi ? forward_compute<T, false, true>(compute, a)
+               : forward_compute<T, false, false>(compute, a);
 }
 
 template <typename T, bool WEIGHTED, bool HEADS>
@@ -423,23 +505,26 @@ extern "C" {
 // out [M, F] in `dtype` (0 fp32, 1 bf16) and arg [M, F] int32 for CSR A
 // (rowptr [M+1], col [nnz] int32), X [N, F] in `dtype` and w [nnz, H] fp32
 // (ignored for compute 0, copy). compute: 0 copy, 1 add, 2 sub, 3 mul,
-// 4 div; is_min != 0 takes the minimum. Returns a cudaError_t.
+// 4 div; is_min != 0 takes the minimum. (vec, group, nv) is the path:
+// `vec` elements a load (dividing F / H; x and out aligned to it, arg to
+// vec int32), `group` lanes a row (4, 8, 16 or 32), `nv` vectors a lane
+// (1 or 2); a feature slice is group * nv * vec wide. Returns a
+// cudaError_t.
 int dg_spmm_maxmin(int dtype, int device, int compute, int is_min,
                    const int* rowptr, const int* col, const float* val,
                    const void* x, void* out, int* arg, int num_rows, int feat,
-                   int heads, int nnz, void* stream) {
+                   int heads, int nnz, int vec, int group, int nv,
+                   void* stream) {
   if (bad_shape(num_rows, feat, heads) || compute < kCopy || compute > kDiv)
     return cudaErrorInvalidValue;
   if (compute != kCopy && val == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return forward<float>(compute, is_min, rowptr, col, val, x, out, arg,
-                          num_rows, feat, heads, nnz, s);
-  if (dtype == kBFloat16)
-    return forward<__nv_bfloat16>(compute, is_min, rowptr, col, val, x, out,
-                                  arg, num_rows, feat, heads, nnz, s);
+  const Fwd a{rowptr,   col,  val,   x,     out, arg,
+              num_rows, feat, heads, nnz,   vec, group,
+              nv,       static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return forward<float>(compute, is_min, a);
+  if (dtype == kBFloat16) return forward<__nv_bfloat16>(compute, is_min, a);
   return cudaErrorInvalidValue;
 }
 

@@ -56,6 +56,15 @@ def check_values(name: str, values, nnz: int) -> None:
         raise TypeError(f"{name} must be float32 with one row per edge")
 
 
+def alignment(*tensors) -> int:
+    """The largest power of two up to 16 dividing every data pointer."""
+    a = 16
+    for t in tensors:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
 def stream(device: torch.device) -> int:
     """PyTorch's current stream on `device`, as the kernels take it."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -7,9 +7,11 @@ Counterparts of `dgsparse_tpu/kernels/pallas_spconv.py::fused_pair_matmul`
 and `::fused_pair_dw`. The kernels are `csrc/spconv.cu` (CUDA C++, sm_90a),
 built by `_build.py` and called through ctypes on PyTorch's current
 stream; the plain versions are `kernels/reference.py::spconv_pairs_plain`
-and `::spconv_dw_plain`. `spconv_pairs` multiplies on the tensor cores,
-fp32 as 3xTF32 (fp32-accurate), in one of two variants that the plan's
-density picks (`PairCSR.density`); `spconv_dw` runs on FFMA.
+and `::spconv_dw_plain`. Both multiply on the tensor cores, fp32 as
+3xTF32 (fp32-accurate); `spconv_pairs` in one of two variants that the
+plan's density picks (`PairCSR.density`), `spconv_dw` over chunks of one
+offset's pairs (`offset_pairs`), whose partials a second launch sums in
+chunk order.
 
 In place of the TPU's edge-tile plans and slot arrays, a rulebook's pairs
 are held twice, both built once in numpy (`pair_csr`, `offset_pairs`):
@@ -39,8 +41,8 @@ LAUNCHES = {"spconv_pairs": 0, "spconv_dw": 0}
 # plan's density is reckoned over blocks of this many rows
 ROW_BLOCK = 128
 # spconv_dw cuts each offset's pairs into chunks of at least this many
-# pairs, and of more where that keeps the chunks near DW_CHUNKS (about four
-# per SM of an H100)
+# pairs, and of more where that keeps the chunks near DW_CHUNKS (about two
+# waves of its CTAs, two an SM of an H100)
 DW_MIN_CHUNK = 256
 DW_CHUNKS = 512
 

@@ -109,15 +109,6 @@ def wide_path(feat: int, heads: int, itemsize: int, align: int = 16):
     return vec, 32, 1
 
 
-def _align(*tensors) -> int:
-    """The largest power of two up to 16 dividing every data pointer."""
-    a = 16
-    for t in tensors:
-        while t.data_ptr() % a:
-            a //= 2
-    return a
-
-
 # --- csr_spmm ----------------------------------------------------------------
 
 def csr_spmm_plain(rowptr, col, values, dense, reduce=ReduceOp.SUM,
@@ -169,7 +160,7 @@ def csr_spmm_cuda(rowptr, col, values, dense, reduce=ReduceOp.SUM,
                       device=dense.device)
     if path is None:
         path = spmm_path(feat, heads, dense.element_size(),
-                         _align(dense, out))
+                         _launch.alignment(dense, out))
     err = _lib().dg_csr_spmm(
         _launch.DTYPE_CODE[dense.dtype], dense.device.index or 0,
         rowptr.data_ptr(), col.data_ptr(),
@@ -215,7 +206,8 @@ def segment_sum_csr_cuda(rowptr, contrib) -> torch.Tensor:
                            device=contrib.device)
     out = torch.empty((num_rows, feat), dtype=contrib.dtype,
                       device=contrib.device)
-    path = spmm_path(feat, 1, contrib.element_size(), _align(contrib, out))
+    path = spmm_path(feat, 1, contrib.element_size(),
+                     _launch.alignment(contrib, out))
     err = _lib().dg_segment_sum_csr(
         _launch.DTYPE_CODE[contrib.dtype], contrib.device.index or 0,
         rowptr.data_ptr(), contrib.data_ptr(), out.data_ptr(), num_rows,

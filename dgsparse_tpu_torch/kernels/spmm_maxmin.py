@@ -20,6 +20,13 @@ The kernels are `csrc/spmm_maxmin.cu` (CUDA C++, sm_90a), built by
   elements the edge won, times dense[col[e]] in "dot" mode (MUL/DIV) or
   not ("sum" mode, ADD/SUB); the caller applies the rest of the partial.
 
+The forward's path, (vec, group, nv): `vec` elements a load, `group`
+lanes a row, `nv` vectors a lane, is chosen here by `maxmin_path`, a pure
+function of the width, the heads, the dtype and the pointers' alignment,
+so that the CPU tests can check it: a feature slice of `group * nv * vec`
+features, at most SLICE_BYTES of a row, and the grid's slowest dimension,
+so that one slice of X stays in L2 while every row gathers from it.
+
 Routing as in `spmm_csr.py`: the plain version (`kernels/reference.py`)
 for tensors on the CPU, the kernel (or an exception) for tensors on a
 CUDA device. `LAUNCHES` counts kernel launches per entry point.
@@ -32,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from dgsparse_tpu_torch.core.transform import expand_rowptr
-from dgsparse_tpu_torch.kernels import _launch, reference
+from dgsparse_tpu_torch.kernels import _launch, reference, spmm_csr
 from dgsparse_tpu_torch.ops.types import (ComputeOp, ReduceOp, as_compute,
                                           as_reduce)
 
@@ -56,7 +63,7 @@ def _lib():
     lib = _build.load("spmm_maxmin")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dg_spmm_maxmin.argtypes = [i, i, i, i, p, p, p, p, p, p, i, i, i, i,
-                                   p]
+                                   i, i, i, p]
     lib.dg_maxmin_d_dense.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, p]
     lib.dg_maxmin_d_values.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, p]
     for fn in (lib.dg_spmm_maxmin, lib.dg_maxmin_d_dense,
@@ -70,6 +77,58 @@ def _maxmin(reduce) -> ReduceOp:
     if reduce not in (ReduceOp.MAX, ReduceOp.MIN):
         raise ValueError(f"spmm_maxmin reduces by MAX or MIN, got {reduce}")
     return reduce
+
+
+# --- the forward's path -----------------------------------------------------
+
+# bytes of a row in one feature slice: a slice of X (arxiv: 169,343 rows x
+# 256 B = 43.4 MB) stays within an H100's 50 MB L2 while every row
+# gathers from it
+SLICE_BYTES = 256
+MAX_VECTORS = 2         # vectors a lane (kMaxVectors in csrc/spmm_maxmin.cu)
+
+
+def slices_cross_heads(slice_vecs: int, feat_vecs: int, heads: int) -> bool:
+    """Whether slices of `slice_vecs` vectors over a row of `feat_vecs`
+    split some head between two slices while holding part of another."""
+    head_vecs = feat_vecs // heads
+    return (heads > 1 and slice_vecs < feat_vecs
+            and slice_vecs % head_vecs != 0 and head_vecs % slice_vecs != 0)
+
+
+@functools.lru_cache(maxsize=None)
+def maxmin_path(feat: int, heads: int, itemsize: int, align: int = 16,
+                slice_bytes: int = SLICE_BYTES):
+    """(vec, group, nv) of the forward for a width `feat` of `heads` heads.
+    Over the loads of at most 16 bytes and `align` whose element count
+    divides the head width, the groups and the vectors a lane, with
+    slices of at most `slice_bytes` of a row (or one narrowest group):
+    slices that hold whole heads or lie inside one head where some do;
+    then the fewest slices (each re-reads the rows' col); the fewest
+    features a slice times slices (idle lanes); the widest group (fewer
+    rows a warp wait on its longest); the widest load. A group is at
+    least 8 lanes where the row has 8 vectors. On an H100 at arxiv F = 256
+    (fp32) one row a warp of 8-byte loads over 256-byte slices, (2, 32,
+    1), beat 16 lanes of 16 bytes, (4, 16, 1), and 8 lanes over 128-byte
+    slices, (4, 8, 1) (`chip_smoke.py` phase 7 times the slice widths)."""
+    best = None
+    vec = spmm_csr.widest_vec(feat, heads, itemsize, align)
+    while vec >= 1:
+        nvec = feat // vec
+        least = 8 if nvec >= 8 else 4
+        budget = max(slice_bytes // (vec * itemsize), least)
+        for group in spmm_csr.GROUPS:
+            for nv in range(1, MAX_VECTORS + 1):
+                sv = group * nv
+                if group < least or sv > budget:
+                    continue
+                slices = -(-nvec // sv)
+                key = (slices_cross_heads(sv, nvec, heads), slices,
+                       slices * sv * vec, -group, -vec)
+                if best is None or key < best[0]:
+                    best = (key, (vec, group, nv))
+        vec //= 2
+    return best[1]
 
 
 # --- spmm_maxmin (forward) ---------------------------------------------------
@@ -88,10 +147,11 @@ def spmm_maxmin_plain(rowptr, col, values, dense, reduce=ReduceOp.MAX,
 
 
 def spmm_maxmin_cuda(rowptr, col, values, dense, reduce=ReduceOp.MAX,
-                     compute=ComputeOp.MUL
+                     compute=ComputeOp.MUL, path=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel: (out, arg) as the module says. Raises unless every
-    tensor is on one CUDA device with the types it takes."""
+    """The kernel: (out, arg) as the module says, on `path` (default
+    `maxmin_path`). Raises unless every tensor is on one CUDA device with
+    the types it takes."""
     reduce = _maxmin(reduce)
     _launch.check_device(dense.device, rowptr=rowptr, col=col, values=values,
                          dense=dense)
@@ -109,12 +169,15 @@ def spmm_maxmin_cuda(rowptr, col, values, dense, reduce=ReduceOp.MAX,
     if num_rows == 0 or nnz == 0 or feat == 0:
         # a zero-size grid is an invalid launch: nothing to launch
         return out.zero_(), arg.fill_(nnz)
+    if path is None:
+        path = maxmin_path(feat, heads, dense.element_size(),
+                           _launch.alignment(dense, out))
     err = _lib().dg_spmm_maxmin(
         _launch.DTYPE_CODE[dense.dtype], dense.device.index or 0,
         0 if values is None else _COMPUTE_CODE[as_compute(compute)],
         int(reduce == ReduceOp.MIN), rowptr.data_ptr(), col.data_ptr(),
         None if values is None else values.data_ptr(), dense.data_ptr(),
-        out.data_ptr(), arg.data_ptr(), num_rows, feat, heads, nnz,
+        out.data_ptr(), arg.data_ptr(), num_rows, feat, heads, nnz, *path,
         _launch.stream(dense.device))
     _launch.raise_on(err, "spmm_maxmin")
     LAUNCHES["spmm_maxmin"] += 1

@@ -415,6 +415,62 @@ def test_spmm_maxmin_d_values_matches_plain(cuda, heads, feat, dot, dtype):
     assert_sum_close(out, ref, abs_sum, TOLS[dtype])
 
 
+def _skewed_maxmin_inputs(cuda, seed, feat, integer):
+    """A CSR whose degrees are lognormal (warps hold rows of very different
+    lengths), with empty rows, rows of more than 4 x 32 edges and, in row
+    0, one column repeated across several batches of 4 gathers; x
+    integer-valued (ties everywhere, inside a batch of 4 gathers and across
+    batches) or normal."""
+    rng = np.random.default_rng(seed)
+    m, n = 700, 500
+    deg = np.minimum(rng.lognormal(1.5, 1.3, m).astype(np.int64), 600)
+    deg[rng.choice(m, 40, replace=False)] = 0
+    deg[[0, 1, 33, 64]] = [37, 129, 257, 517]
+    rowptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col = rng.integers(0, n, rowptr[-1]).astype(np.int32)
+    col[rowptr[0]:rowptr[1]] = col[0]          # row 0: one column, all ties
+    x = (rng.integers(-2, 3, (n, feat)) if integer
+         else rng.standard_normal((n, feat)))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    return t(rowptr), t(col), t(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+@pytest.mark.parametrize("feat", [41, 96, 128, 256])
+def test_spmm_maxmin_skewed_rows_and_ties_match_plain(cuda, feat, reduce,
+                                                      dtype, integer):
+    from dgsparse_tpu_torch.kernels import spmm_maxmin
+
+    rowptr, col, x = _skewed_maxmin_inputs(cuda, feat, feat, integer)
+    x = x.to(getattr(torch, dtype))
+    out, arg = spmm_maxmin.spmm_maxmin_cuda(rowptr, col, None, x, reduce)
+    ref, ref_arg = spmm_maxmin.spmm_maxmin_plain(rowptr, col, None, x,
+                                                 reduce)
+    torch.cuda.synchronize()
+    assert torch.equal(arg, ref_arg) and torch.equal(out, ref)
+    assert bool((arg[0] == 0).all())           # row 0 ties: its first edge
+    empty = rowptr[1:] == rowptr[:-1]
+    assert bool((arg[empty] == col.numel()).all()) and not out[empty].any()
+
+
+@pytest.mark.parametrize("path", ["slice 128", "slice 256", "slice 512",
+                                  "wide"])
+@pytest.mark.parametrize("feat", [41, 256])
+def test_spmm_maxmin_every_slice_width_matches_plain(cuda, feat, path):
+    from dgsparse_tpu_torch.kernels import spmm_maxmin as M
+
+    rowptr, col, x = _skewed_maxmin_inputs(cuda, 5, feat, True)
+    p = (spmm_csr.wide_path(feat, 1, 4) if path == "wide"
+         else M.maxmin_path(feat, 1, 4, 16, int(path.split()[1])))
+    for reduce in ("max", "min"):
+        out, arg = M.spmm_maxmin_cuda(rowptr, col, None, x, reduce, path=p)
+        ref, ref_arg = M.spmm_maxmin_plain(rowptr, col, None, x, reduce)
+        torch.cuda.synchronize()
+        assert torch.equal(arg, ref_arg) and torch.equal(out, ref), p
+
+
 def test_spmm_maxmin_launch_counts_and_bad_inputs(cuda):
     from dgsparse_tpu_torch.kernels import spmm_maxmin
 
@@ -791,6 +847,58 @@ def test_spconv_dw_matches_plain(cuda, c_in, c_out, kind, dtype):
     assert torch.equal(out, again)
     if plan.separate_mid:
         assert not out[(plan.k_vol - 1) // 2].any()
+
+
+@pytest.mark.parametrize("min_chunk", [100, None])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c_in,c_out", [(64, 64), (8, 32), (7, 33)])
+def test_spconv_dw_ragged_chunks_match_plain(cuda, c_in, c_out, dtype,
+                                             min_chunk, monkeypatch):
+    # offsets of 1000, 37, 0 and 4129 pairs; chunks of 100 pairs (min_chunk
+    # 100) or the module's own, none a multiple of the 32-pair step
+    from dgsparse_tpu_torch.kernels import spconv
+
+    if min_chunk is not None:
+        monkeypatch.setattr(spconv, "DW_MIN_CHUNK", min_chunk)
+    rng = np.random.default_rng(c_in + c_out)
+    widx = np.repeat(np.arange(4), [1000, 37, 0, 4129])
+    n_in, n_out = 900, 1100
+    pairs = spconv.offset_pairs(rng.integers(0, n_in, len(widx)),
+                                rng.integers(0, n_out, len(widx)), widx, 4,
+                                device=cuda)
+    sizes = np.diff(pairs.bounds.cpu().numpy())
+    assert (sizes % 32).any()
+    x = _randn(cuda, 1, n_in, c_in, dtype=dtype)
+    g = _randn(cuda, 2, n_out, c_out, dtype=dtype)
+    out = spconv.spconv_dw_cuda(pairs, x, g)
+    ref = spconv.spconv_dw_plain(pairs, x, g)
+    abs_sum = spconv.spconv_dw_plain(pairs, x.float().abs(), g.float().abs())
+    again = spconv.spconv_dw_cuda(pairs, x, g)
+    torch.cuda.synchronize()
+    assert out.shape == (4, c_in, c_out) and not out[2].any()
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    assert torch.equal(out, again)      # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("nan_bits", [0x7FC00000, 0x7FFFFFFF])
+def test_tensor_core_spconv_kernels_keep_a_nan(cuda, nan_bits):
+    # a NaN in x reaches every sum it enters whatever its payload: the TF32
+    # split (csrc/common.cuh::tf32) must not round it into a zero
+    from dgsparse_tpu_torch.kernels import spconv
+
+    plan = _spconv_plan(cuda, "subm")
+    x = _randn(cuda, 5, plan.num_in, 64)
+    x.view(torch.int32)[3, 5] = nan_bits
+    assert torch.isnan(x[3, 5])
+    g = _randn(cuda, 6, plan.num_out, 64)
+    w = _randn(cuda, 7, plan.k_vol, 64, 64)
+    for out, ref in ((spconv.spconv_dw_cuda(plan.by_offset, x, g),
+                      spconv.spconv_dw_plain(plan.by_offset, x, g)),
+                     (spconv.spconv_pairs_cuda(plan.by_out, x, w),
+                      spconv.spconv_pairs_plain(plan.by_out, x, w))):
+        torch.cuda.synchronize()
+        assert torch.isnan(ref).any()
+        assert torch.equal(torch.isnan(out), torch.isnan(ref))
 
 
 @pytest.mark.parametrize("kind", ["subm", "strided"])

@@ -1,15 +1,18 @@
 """Why the tensor-core kernels take three TF32 passes for fp32.
 
-`csrc/spconv.cu` (spconv_pairs) and `csrc/spmm_cells.cu` (spmm_dense_cells,
-sddmm_cells) multiply fp32 operands on TF32 tensor cores as 3xTF32 (`csrc/common.cuh`):
-a = big + small with big = tf32(a) and small = tf32(a - big), rounded to
-nearest as `cvt.rna.tf32.f32` rounds, and a·b summed as small·big +
+`csrc/spconv.cu` (spconv_pairs, spconv_dw) and `csrc/spmm_cells.cu`
+(spmm_dense_cells, sddmm_cells) multiply fp32 operands on TF32 tensor
+cores as 3xTF32 (`csrc/common.cuh`):
+a = big + small with big = tf32(a), rounded to nearest as
+`cvt.rna.tf32.f32` rounds, and small = a - big, which the tensor core cuts
+to TF32 (it reads an operand's top 19 bits), and a·b summed as small·big +
 big·small + big·big in fp32. Here that arithmetic is emulated on the CPU
 with `utils.testing.tf32_round` (TF32 products are exact in fp32) and held
 to the port's fp32 rule, 1e-5 of the terms' absolute sum, against a
 float64 product, at the shapes of one spconv_pairs step (128 gathered rows
-of 64 channels times a 64 x 64 weight slice) and of an enc2 row block's 26
-offsets. One TF32 pass breaks the rule.
+of 64 channels times a 64 x 64 weight slice), of an enc2 row block's 26
+offsets, and of one spconv_dw chunk at enc2 (4,064 pairs of 64 x 64
+channels, summed 8 pairs a product). One TF32 pass breaks the rule.
 """
 
 import numpy as np
@@ -40,8 +43,12 @@ def _terms(offsets):
 
 
 def _split(a):
+    """(big, small) as the tensor core takes them: big rounded to TF32,
+    small = a - big with its low 13 bits dropped."""
     big = tf32_round(a)
-    return big, tf32_round(a - big)
+    small = (a - big).astype(np.float32).view(np.uint32) & np.uint32(
+        0xFFFFE000)
+    return big, small.view(np.float32)
 
 
 def _sum_products(a, b, passes):
@@ -89,6 +96,25 @@ def test_3xtf32_sddmm_block_keeps_the_fp32_rule(feat):
     b = d2.reshape(128, -1, 8).transpose(1, 2, 0)        # [steps, 8, 128]
     exact = d1.astype(np.float64) @ d2.T.astype(np.float64)
     abs_sum = np.abs(d1).astype(np.float64) @ np.abs(d2).T.astype(np.float64)
+    t = torch.from_numpy
+    assert_sum_close(t(_sum_products(a, b, 3)), t(exact), t(abs_sum), TOL)
+    with pytest.raises(AssertionError):
+        assert_sum_close(t(_sum_products(a, b, 1)), t(exact), t(abs_sum),
+                         TOL)
+
+
+def test_3xtf32_dw_chunk_keeps_the_fp32_rule_and_one_pass_does_not():
+    # x[in]ᵀ g[out] over one enc2 chunk of 4,064 pairs (kernels/spconv.py
+    # cuts enc2's 2,078,556 pairs into chunks of about this many): K = the
+    # pairs, 8 a product, in pair order into one fp32 accumulator, as
+    # dw_partial_kernel walks a chunk (A = xᵀ read k-major)
+    rng = np.random.default_rng(4064)
+    x = rng.standard_normal((4064, 64)).astype(np.float32)
+    g = rng.standard_normal((4064, 64)).astype(np.float32)
+    a = x.reshape(-1, 8, 64).transpose(0, 2, 1)          # [508, 64, 8]
+    b = g.reshape(-1, 8, 64)                             # [508, 8, 64]
+    exact = x.T.astype(np.float64) @ g.astype(np.float64)
+    abs_sum = np.abs(x).T.astype(np.float64) @ np.abs(g).astype(np.float64)
     t = torch.from_numpy
     assert_sum_close(t(_sum_products(a, b, 3)), t(exact), t(abs_sum), TOL)
     with pytest.raises(AssertionError):
