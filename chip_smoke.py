@@ -15,7 +15,9 @@ exits non-zero without a result line:
        41, 64, 128, 256} (empty rows), SUM and MEAN, with and without
        values;
      - sddmm_csr at H in {1, 4} heads and F per head in {1, 7, 16, 32, 64,
-       128}, SUM and MEAN;
+       128}, SUM and MEAN, on both mappings (`sddmm_path`'s group mapping
+       and one warp a row; `pick_sddmm` picks one), a second call bitwise
+       equal;
      - csr_spmm with 4 heads (values [nnz, 4]) at F per head in {1, 7, 16,
        64}, SUM and MEAN, against the plain multi-head SpMM;
      - csr_spmm over the CSC view (the backward's transpose) with 1 and 4
@@ -35,7 +37,9 @@ exits non-zero without a result line:
        elements tie, too;
      - d_dense (weights none, per edge, per head) and d_values ("dot" and
        "sum", 1 and 4 heads), both dtypes, at 1e-5 / 1e-2 scaled by the
-       terms' absolute sum.
+       terms' absolute sum; d_dense (winner masks, then columns) bitwise
+       equal to a second call, to the mapping `pick_d_dense` picks and to
+       the one-warp-a-column kernel.
      Then the hybrid tiers' kernels, spmm_dense_cells (forward and
      transpose), spmm_bell (SUM and MEAN) and sddmm_cells, against their
      plain versions, fp32 and bf16, on a small clustered graph where every
@@ -89,8 +93,11 @@ exits non-zero without a result line:
      for the MAX SpMM, its error recorded where CUDA refuses it, and
      beside it, labelled as two calls, x.index_select(0, col) followed by
      torch.segment_reduce(..., "max", offsets=rowptr), held to the
-     kernel's out on the non-empty rows; comparators only, never called by
-     the port; the multi-head and SDDMM ones held to the kernel at 1e-4),
+     kernel's out on the non-empty rows; for the MAX backward's d_dense,
+     labelled as two calls, torch.zeros(n + 1, F).scatter_add_(0,
+     col_ext[arg], g)[:n], held to the kernel at 1e-5 of the terms'
+     absolute sum; comparators only, never called by the port; the
+     multi-head and SDDMM ones held to the kernel at 1e-4),
      at the p2p shape and at the shapes
      of both main paths, beside the bound: the larger of the compulsory
      bytes (each input read once, each output written once) over
@@ -100,7 +107,13 @@ exits non-zero without a result line:
      mapping it had before its narrow-width path, and at F = 256 on the
      one-pass path (4, 32, 2); spmm_maxmin also on feature slices of 32,
      64 and 128 fp32 features, on 16 and 8 lanes of 16 bytes a row and on
-     the one-warp-a-row `wide_path` it had before; on the
+     the one-warp-a-row `wide_path` it had before; its d_dense and
+     sddmm_csr on the mapping their picker picks ("kernel") and on each
+     of their two mappings (winner masks or the group mapping, and the
+     ones they had before: one warp a CSC column, one warp a row);
+     sddmm_csr also over the Reddit-scale
+     storage's non-cell edges (the hybrid sddmm's CSR launch) at F = 64
+     and 41; on the
      Reddit-scale storage over the
      residue's sub-CSR and the non-cell edges' CSC (the hybrid route's two
      CSR launches) at F = 64 and 41. At Reddit scale (F = 64 and 41):
@@ -120,7 +133,9 @@ exits non-zero without a result line:
      each of gcn-arxiv, gat-arxiv and gin-max-arxiv after 2 warm-up
      steps, and of gcn-reddit and unet-60k, device time per step by
      kernel and the
-     device's busy share of the wall time.
+     device's busy share of the wall time; gin-max-arxiv's d_dense passes
+     (winner_mask_kernel, d_dense_cols_kernel) and gat-arxiv's
+     sddmm_group_kernel by name.
 Then one JSON line of per-kernel results, the card's name and power
 limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -129,6 +144,7 @@ Imports nothing of JAX.
 
 import contextlib
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -195,6 +211,10 @@ REDDIT_FEATS = (64, 41)
 # the max/min kernel phase: the compute ops (None: copy_u) and widths
 MAXMIN_COMPUTES = (None, "add", "sub", "mul", "div")
 MAXMIN_FEATS = {"p2p": (32,), "arxiv": (128, 256)}
+# kernels phase 8 reports by name: d_dense's two passes, the group SDDMM
+PROFILED_PASSES = {"gin-max-arxiv": ("winner_mask_kernel",
+                                     "d_dense_cols_kernel"),
+                   "gat-arxiv": ("sddmm_group_kernel",)}
 # the spconv kernels' (c_in, c_out): the UNet's convs and a ragged pair
 SPCONV_CHANNELS = ((8, 32), (32, 64), (64, 64), (7, 33))
 # the point clouds of the UNet configurations
@@ -317,9 +337,18 @@ def phase_kernels(torch, cuda):
                 for dtype in ("float32", "bfloat16"):
                     d1 = randn(m, heads * feat, dtype=dtype)
                     d2 = randn(n, heads * feat, dtype=dtype)
-                    for reduce in ("sum", "mean"):
+                    # both mappings, whichever pick_sddmm picks
+                    for path, reduce in itertools.product(
+                            (S.sddmm_path(feat, heads, d1.element_size()),
+                             S.WARP_PER_ROW), ("sum", "mean")):
                         out = S.sddmm_csr_cuda(rowptr, col, d1, d2, heads,
-                                               reduce)
+                                               reduce, path)
+                        if not torch.equal(out, S.sddmm_csr_cuda(
+                                rowptr, col, d1, d2, heads, reduce, path)):
+                            raise AssertionError(
+                                f"sddmm_csr {tag} H={heads} F={feat} "
+                                f"{reduce} {dtype} path {path}: a second "
+                                f"call differs")
                         ref = S.sddmm_csr_plain(rowptr, col, d1, d2, heads,
                                                 reduce)
                         abs_sum = S.sddmm_csr_plain(
@@ -331,7 +360,10 @@ def phase_kernels(torch, cuda):
                                                 out, ref, abs_sum,
                                                 TOL[dtype])))
                 log(f"[kernels] sddmm_csr {tag} H={heads} F={feat} "
-                    f"sum/mean fp32/bf16: max_abs_err {max(worst):.3e}")
+                    f"sum/mean fp32/bf16, group path "
+                    f"{S.sddmm_path(feat, heads, 4)} and warp_per_row "
+                    f"(picked {S.pick_sddmm(feat, heads, 4)}): max_abs_err "
+                    f"{max(worst):.3e}; a second call bitwise equal")
 
     def heads_cases(tag, rowptr, col, n):
         for feat in MH_FEATS:
@@ -483,7 +515,23 @@ def phase_maxmin_kernels(torch, cuda, gin_graphs):
                     w = (None if v is None
                          else v[st.csr2csc().long()].contiguous())
                     args = (st.colptr(), st.row(), st.csr2csc())
-                    out = M.spmm_maxmin_d_dense_cuda(*args, w, arg, g)
+                    rows = (st.rowptr(), st.csc_slot())
+                    out = M.spmm_maxmin_d_dense_cuda(
+                        *args, w, arg, g, *rows,
+                        path=M.d_dense_path(feat, heads, g.element_size()))
+                    # bitwise: a second call, the picked mapping and the
+                    # one-warp-a-column kernel (all add each element's
+                    # terms in CSC order)
+                    for path in (M.d_dense_path(feat, heads,
+                                                g.element_size()),
+                                 None, M.WARP_PER_COLUMN):
+                        again = M.spmm_maxmin_d_dense_cuda(
+                            *args, w, arg, g, *rows, path=path)
+                        if not torch.equal(out, again):
+                            raise AssertionError(
+                                f"spmm_maxmin_d_dense {tag} F={feat} "
+                                f"H={heads} {dtype}: the winner masks not "
+                                f"bitwise equal to the mapping {path}")
                     ref = M.spmm_maxmin_d_dense_plain(
                         *args, w, arg, g, csc_col=st.csc_col())
                     abs_sum = M.spmm_maxmin_d_dense_plain(
@@ -507,9 +555,13 @@ def phase_maxmin_kernels(torch, cuda, gin_graphs):
                                                       TOL[dtype]))
                 errs["spmm_maxmin_bwd"][dtype] = max(
                     errs["spmm_maxmin_bwd"][dtype], max(worst))
+                picked = M.pick_d_dense(feat, 1, 4, 16, nnz, m)
                 log(f"[maxmin] spmm_maxmin_d_dense (weights none, per edge, "
-                    f"4 heads) and spmm_maxmin_d_values (dot, sum) {tag} "
-                    f"F={feat} {dtype}: max_abs_err {max(worst):.3e}")
+                    f"4 heads; winner masks on path "
+                    f"{M.d_dense_path(feat, 1, 4)}, bitwise equal to a "
+                    f"second call and to the one-warp-a-column kernel; "
+                    f"picked {picked}) and spmm_maxmin_d_values (dot, sum) "
+                    f"{tag} F={feat} {dtype}: max_abs_err {max(worst):.3e}")
     return errs
 
 
@@ -1010,7 +1062,9 @@ def plain_kernels():
              (K, "csr_spmm_cuda", K.csr_spmm_plain),
              (S, "sddmm_csr_cuda", S.sddmm_csr_plain),
              (M, "spmm_maxmin_cuda", M.spmm_maxmin_plain),
-             (M, "spmm_maxmin_d_dense_cuda", M.spmm_maxmin_d_dense_plain),
+             # the kernel's CSR view (rowptr, slot) is not the plain's
+             (M, "spmm_maxmin_d_dense_cuda",
+              lambda *args: M.spmm_maxmin_d_dense_plain(*args[:6])),
              (M, "spmm_maxmin_d_values_cuda", M.spmm_maxmin_d_values_plain),
              (C, "spmm_dense_cells_cuda", C.spmm_dense_cells_plain),
              (C, "sddmm_cells_cuda", C.sddmm_cells_plain),
@@ -1183,6 +1237,14 @@ def phase_profile(torch, cuda, graphs, steps=3):
         for us, count, key in rows[:25]:
             log(f"[profile]   {us / steps:10.1f} us/step {count // steps:4d} "
                 f"calls/step  {key[:110]}")
+        # the redesigned kernels of the step, by name
+        for kernel in PROFILED_PASSES.get(config, ()):
+            hits = [r for r in rows if kernel in r[2]]
+            if not hits:
+                raise AssertionError(f"{config}: no {kernel} in the profile")
+            log(f"[profile]   {config} {kernel}: "
+                f"{sum(r[0] for r in hits) / steps:.1f} us/step in "
+                f"{sum(r[1] for r in hits) // steps} calls/step")
 
 
 def _time_turns(fns, **counts):
@@ -1321,7 +1383,8 @@ def phase_numbers(torch, cuda, runs, graphs):
             d2 = torch.randn(n, heads * feat, generator=gen, device=cuda)
             args = (st.rowptr(), st.col(), d1, d2, heads)
             fns = {"kernel": (S.sddmm_csr_cuda, args),
-                   "plain": (S.sddmm_csr_plain, args)}
+                   "plain": (S.sddmm_csr_plain, args),
+                   **_sddmm_mappings(S, feat, heads, args)}
             # one sampled_addmm over a CSR of ones; for H heads over H
             # copies of the structure (a batched CSR [H, M, N]) with d1 as
             # [H, M, F] and d2 as [H, F, N], views of the same inputs (a
@@ -1352,16 +1415,60 @@ def phase_numbers(torch, cuda, runs, graphs):
                 "torch.sparse.sampled_addmm (cuSPARSE)" if heads == 1 else
                 "torch.sparse.sampled_addmm over a batched CSR [H, M, N] "
                 "(cuSPARSE)")
-            results["sddmm_csr"][label] = ms
-            log(f"[numbers] sddmm_csr {label} ({m} rows, {nnz} nnz, fp32): "
-                + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
-                            for k in ("kernel", "plain", "library")
-                            if k in ms)
-                + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
-            f"{ms['bound_rate']})")
+            _log_sddmm(results, label, m, nnz, ms, S, feat, heads)
+    # the hybrid sddmm's CSR launch at Reddit scale: the non-cell edges'
+    # sub-CSR (~23 M edges), d2 [N, F] (60 MB at F = 64) past L2
+    st = graphs["reddit"][0].storage
+    nd = st.ell_plan().nd
+    m, n, nnz = st.num_rows, st.num_cols, nd.col.numel()
+    for feat in REDDIT_FEATS:
+        label = f"reddit non-cell edges F={feat}"
+        d1 = torch.randn(m, feat, generator=gen, device=cuda)
+        d2 = torch.randn(n, feat, generator=gen, device=cuda)
+        args = (nd.rowptr, nd.col, d1, d2)
+        a = torch.sparse_csr_tensor(nd.rowptr, nd.col,
+                                    torch.ones(nnz, device=cuda), size=(m, n))
+        lib = torch.sparse.sampled_addmm(a, d1, d2.T, beta=0.0)
+        max_err(lib.values(), S.sddmm_csr_cuda(*args).reshape(-1), 1e-4)
+        del lib
+        fns = {"kernel": (S.sddmm_csr_cuda, args),
+               "plain": (S.sddmm_csr_plain, args),
+               **_sddmm_mappings(S, feat, 1, args),
+               "library": (lambda a, v1, v2: torch.sparse.sampled_addmm(
+                   a, v1, v2, beta=0.0), (a, d1, d2.T))}
+        ms = _time_turns(fns, warmup=2, iters=10)
+        nbytes = 4 * ((m + 1) + nnz + (m + n) * feat + nnz)
+        ms.update(bound(nbytes, 2.0 * nnz * feat))
+        ms["library_call"] = "torch.sparse.sampled_addmm (cuSPARSE)"
+        _log_sddmm(results, label, m, nnz, ms, S, feat, 1)
     results.update(_maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p,
                                    col_p2p))
     return results
+
+
+def _sddmm_mappings(S, feat, heads, args):
+    """The two mappings of sddmm_csr, each forced, for phase 7: the group
+    mapping on `sddmm_path`, and one warp a row (the mapping before it)."""
+    return {"group": (functools.partial(
+                S.sddmm_csr_cuda, path=S.sddmm_path(feat, heads, 4)), args),
+            "old_mapping": (functools.partial(
+                S.sddmm_csr_cuda, path=S.WARP_PER_ROW), args)}
+
+
+def _log_sddmm(results, label, m, nnz, ms, S, feat, heads):
+    ms["paths"] = {"kernel": S.pick_sddmm(feat, heads, 4),
+                   "group": S.sddmm_path(feat, heads, 4),
+                   "old_mapping": S.WARP_PER_ROW}
+    results["sddmm_csr"][label] = ms
+    log(f"[numbers] sddmm_csr {label} ({m} rows, {nnz} nnz, fp32, picked "
+        f"{ms['paths']['kernel']}): "
+        + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
+                    for k in ("kernel", "group", "old_mapping", "plain",
+                              "library")
+                    if k in ms)
+        + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+        f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of the "
+        f"bound")
 
 
 def phase_sddmm_hybrid(torch, cuda, reddit):
@@ -1710,6 +1817,14 @@ def _gather_segment_max(x, col, offsets):
                                 offsets=offsets)
 
 
+def _scatter_winners(torch, col_ext, arg, g, n):
+    """MAX/MIN d_dense (no weights) in two PyTorch calls: each element of
+    g added into the row of its winning edge's column, col_ext [nnz + 1]
+    the CSR col with n for the sentinel arg = nnz of an empty row."""
+    return torch.zeros(n + 1, g.shape[1], device=g.device).scatter_add_(
+        0, col_ext[arg.long()], g)[:n]
+
+
 def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
     """spmm_maxmin and its d_dense at the GIN-max shapes (copy_u over the
     bare graph, as GIN aggregates) and at p2p F=32, beside their bounds,
@@ -1722,6 +1837,7 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
     it had before them."""
     from dgsparse_tpu_torch.kernels import spmm_csr as K
     from dgsparse_tpu_torch.kernels import spmm_maxmin as M
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
 
     results = {"spmm_maxmin": {}, "spmm_maxmin_bwd": {}}
     st = graphs["arxiv-gin"][0].storage
@@ -1795,19 +1911,48 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
         x = torch.randn(n, feat, generator=gen, device=cuda)
         _, arg = M.spmm_maxmin_cuda(stx.rowptr(), stx.col(), None, x)
         g = torch.randn(m, feat, generator=gen, device=cuda)
-        args = (stx.colptr(), stx.row(), stx.csr2csc(), None, arg, g)
-        ms = _time_turns({"kernel": (M.spmm_maxmin_d_dense_cuda, args),
-                          "plain": (M.spmm_maxmin_d_dense_plain, args)})
+        args = (stx.colptr(), stx.row(), stx.csr2csc(), None, arg, g,
+                stx.rowptr(), stx.csc_slot())
+        # two PyTorch calls, not one: each element's g added into the row
+        # of its winner's column (n: an empty row's sentinel), held to the
+        # kernel at 1e-5 of the terms' absolute sum (atomic order)
+        col_ext = torch.cat([stx.col(), stx.col().new_full((1,), n)]).long()
+        out = M.spmm_maxmin_d_dense_cuda(*args)
+        abs_sum = _scatter_winners(torch, col_ext, arg, g.abs(), n)
+        e = assert_sum_close(_scatter_winners(torch, col_ext, arg, g, n),
+                             out, abs_sum, TOL["float32"])
+        ms = _time_turns({
+            "kernel": (M.spmm_maxmin_d_dense_cuda, args),
+            "plain": (M.spmm_maxmin_d_dense_plain, args[:6]),
+            "masks": (functools.partial(
+                M.spmm_maxmin_d_dense_cuda,
+                path=M.d_dense_path(feat, 1, 4)), args),
+            "old_mapping": (functools.partial(
+                M.spmm_maxmin_d_dense_cuda, path=M.WARP_PER_COLUMN), args),
+            "library": (functools.partial(_scatter_winners, torch),
+                        (col_ext, arg, g, n))})
         # colptr, row and perm, g and arg, d_dense; a compare per edge and
         # feature, an add per won element
         nbytes = 4 * ((n + 1) + 2 * nnz + 2 * m * feat + n * feat)
         ms.update(bound(nbytes, 1.0 * nnz * feat + m * feat))
-        ms["library_call"] = None
+        ms["library_call"] = (
+            "two PyTorch calls, not one: torch.zeros(n + 1, F)"
+            ".scatter_add_(0, col_ext[arg.long()], g)[:n], col_ext = col "
+            "and the sentinel row n")
+        ms["paths"] = {"kernel": M.pick_d_dense(feat, 1, 4, 16, nnz, m),
+                       "masks": M.d_dense_path(feat, 1, 4),
+                       "old_mapping": M.WARP_PER_COLUMN}
         results["spmm_maxmin_bwd"][label] = ms
         log(f"[numbers] spmm_maxmin_d_dense {label} ({n} columns, {nnz} "
-            f"nnz, fp32): kernel {ms['kernel'] * 1e3:.2f} us, plain "
-            f"{ms['plain'] * 1e3:.2f} us, bound {ms['bound'] * 1e3:.2f} us "
-            f"({ms['bound_by']}, {ms['bound_rate']})")
+            f"nnz, fp32, picked {ms['paths']['kernel']}): kernel "
+            f"{ms['kernel'] * 1e3:.2f} us, winner masks "
+            f"{ms['masks'] * 1e3:.2f} us, old mapping (one warp a column) "
+            f"{ms['old_mapping'] * 1e3:.2f} us, plain "
+            f"{ms['plain'] * 1e3:.2f} us, two calls (gather + scatter_add_) "
+            f"{ms['library'] * 1e3:.2f} us, max_abs_err {e:.3e}; bound "
+            f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+            f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of the "
+            f"bound")
     m, n, nnz, feat = st.num_rows, st.num_cols, st.nnz, 256
     x = torch.randn(n, feat, generator=gen, device=cuda)
     v = torch.rand(nnz, 1, generator=gen, device=cuda) + 0.5

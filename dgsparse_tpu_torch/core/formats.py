@@ -77,7 +77,8 @@ class Storage:
     """CSR arrays plus the CSC view, all built at construction.
 
     Tensors: rowptr, col, values (or None), colptr, row_csc, csr2csc perm,
-    coo_row, csc_col. Sizes: num_rows, num_cols, nnz.
+    coo_row, csc_col, and csc_slot (the perm's inverse) on first use.
+    Sizes: num_rows, num_cols, nnz.
 
     With `build_plans` (the default), a graph of nnz >= 4096 and average
     degree >= 16 also gets a `HybridPlan` when at least 30 % of its edges
@@ -150,6 +151,7 @@ class Storage:
         self._colptr = _index_tensor(colptr, device)
         self._row_csc = _index_tensor(row_csc, device)
         self._csr2csc = _index_tensor(perm, device)
+        self._csc_slot = None           # csr2csc's inverse, on first use
         self._coo_row = _index_tensor(T.expand_rowptr_np(rowptr_np), device)
         # per-edge col ids in CSC order: the transpose's segment ids
         self._csc_col = _index_tensor(T.expand_rowptr_np(colptr), device)
@@ -232,6 +234,14 @@ class Storage:
     def csr2csc(self) -> torch.Tensor:
         """Permutation p with values_csc = values[p]."""
         return self._csr2csc
+
+    def csc_slot(self) -> torch.Tensor:
+        """The CSC slot of each CSR edge, the inverse of `csr2csc`: built
+        on first use and kept (the max/min backward writes its winner
+        masks in CSC order)."""
+        if self._csc_slot is None:
+            self._csc_slot = T.invert_permutation(self._csr2csc)
+        return self._csc_slot
 
     def coo_row(self) -> torch.Tensor:
         """Per-edge row ids in CSR order."""
@@ -361,12 +371,10 @@ class SparseTensor:
         vals = None
         if self.has_value and src.values() is not None:
             vals = src.values()[perm.long()]
-        inv = torch.empty_like(perm)
-        inv[perm.long()] = torch.arange(src.nnz, dtype=perm.dtype,
-                                        device=perm.device)
         st = src._replace(
             rowptr=src.colptr(), col=src.row(), values=vals,
-            colptr=src.rowptr(), row_csc=src.col(), csr2csc=inv,
+            colptr=src.rowptr(), row_csc=src.col(),
+            csr2csc=T.invert_permutation(perm), csc_slot=perm,
             # the transpose's edge-order arrays are the original's CSC twins
             coo_row=src.csc_col(), csc_col=src.coo_row(),
             num_rows=src.num_cols, num_cols=src.num_rows,

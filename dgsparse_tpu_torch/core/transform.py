@@ -44,6 +44,14 @@ def csr2csc(
     return colptr, row_csc, values_csc, perm
 
 
+def invert_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[i]] = i, in perm's dtype and on its device."""
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                                    device=perm.device)
+    return inv
+
+
 def coo2csr(
     row: torch.Tensor,
     col: torch.Tensor,

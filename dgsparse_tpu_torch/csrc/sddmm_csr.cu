@@ -11,21 +11,38 @@
 //
 // What bounds it: each (edge, head) gathers a random F-element row segment
 // of d2 and does 2*F flops on it, so the kernel is bound by those gathers
-// (from HBM, or L2 when d2 fits its 50 MB), never by FLOPs, and with rows
-// of a few edges, by how many gathers each warp keeps in flight. The
-// design follows the reference's sddmmCSR*Scale (SURVEY.md 2.4-2.5):
-//   - one warp per row. Each head of an edge gets a group of LPH lanes (a
-//     power of two, LPH * K >= F) and each lane K elements of it, strided
-//     by LPH so a group's loads are contiguous; the heads of an edge sit
-//     side by side (up to 32 lanes), and the warp takes 32 / (lanes per
-//     edge) edges of the row at a time. A narrow head (F = 7: 2 lanes of
-//     4) leaves no lanes idle, and every lane has K loads in flight;
-//   - per head, the row's d1 segment sits in registers (K elements a lane,
-//     chunk by chunk when F > 256), loaded once per row;
-//   - the row's col is read 32 at a time, coalesced, and broadcast to the
-//     groups by __shfl_sync;
-//   - each group sums its dot with xor shuffles and one lane writes the
-//     output once: no atomics, no zero-fill, deterministic.
+// (from HBM, or L2 when d2 fits its 50 MB), never by FLOPs: scattered
+// pieces of 16 to 256 bytes, so by L2's sector rate more than by bytes
+// (arxiv rows have ~7 edges). The design (`sddmm_group_kernel`) is csr_spmm's group mapping
+// (csrc/spmm_csr.cu) with the edges of a row spread over lanes:
+//   - Q lanes a head, each lane K vectors of VEC elements of it (lane q
+//     vectors q, q + Q, ...: a head's loads are contiguous across its
+//     lanes), up to 16 bytes a load and about 32 bytes a lane an edge;
+//     HP heads of an edge side by side, so P = Q * HP lanes an edge; a
+//     group of G lanes a row takes G / P of its edges a pass, and a warp
+//     32 / G rows. At GAT's widths: H=4 F=16 fp32, two 16-byte loads a
+//     lane, 2 lanes a head, 8 an edge, 4 edges of a row a pass; H=1 F=7,
+//     an edge a lane (7 scalar loads), 8 lanes a row, 4 rows a warp;
+//   - a lane's K gathers are in flight before its FMAs, one edge at a
+//     time (two edges' gathers in flight, or more bytes a lane, were
+//     slower on an H100: the gathers are bound by L2's sector rate, and
+//     more in flight only costs registers);
+//   - per head, the row's d1 segment sits in registers, loaded once per
+//     row (chunk by chunk when the head is wider than Q * K vectors);
+//   - neighbouring lanes hold neighbouring edges, so a group's outputs of
+//     [nnz, H] are written together, each once: no atomics, no zero-fill,
+//     deterministic.
+// The path (VEC, K, Q, HP, G) is a pure function of F, H, the dtype and
+// the pointers' alignment (`kernels/sddmm_csr.py::sddmm_path`, checked on
+// the CPU), passed in; the launcher only refuses a path the kernel cannot
+// run. `sddmm_csr_kernel`, the mapping before it, runs where the group
+// mapping would load scalars (`pick_sddmm`; path "warp_per_row"), where
+// it is faster (the reference's sddmmCSR*Scale, SURVEY.md 2.4-2.5): one
+// warp a row, LPH
+// lanes a head (LPH * K >= F) with K scalar elements each, strided by LPH,
+// the heads of an edge side by side and 32 / (lanes an edge) edges of the
+// row at a time, the row's col read 32 at a time and broadcast by
+// __shfl_sync, each dot summed by xor shuffles and written by one lane.
 // Rows map to gridDim.x; empty rows write nothing (they own no edges).
 
 #include "common.cuh"
@@ -109,6 +126,93 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   }
 }
 
+// out[e, h] for the rows of this warp's groups. Lane l serves row
+// (warp * 32 + l) / group; within its group, edge slot (l % group) / P of
+// each pass, head h0 + (l % P) / Q and vectors q + k * Q (q = l % Q) of
+// that head, VEC elements each; CHUNKED when a head is wider than Q * K
+// vectors, which then come chunk by chunk.
+template <typename T, int VEC, int K, bool CHUNKED>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+    sddmm_group_kernel(const int* __restrict__ rowptr,
+                       const int* __restrict__ col, const T* __restrict__ d1,
+                       const T* __restrict__ d2, float* __restrict__ out,
+                       int num_rows, int heads, int feat, int q_lanes,
+                       int heads_per_pass, int group, int mean) {
+  using V = Packed<T, VEC>;
+  const int lane = threadIdx.x;
+  const int li = lane & (group - 1);
+  const int row = (blockIdx.x * kWarpsPerBlock + threadIdx.y) *
+                      (kWarp / group) + lane / group;
+  const bool has_row = row < num_rows;
+  const int per_edge = q_lanes * heads_per_pass;  // P
+  const int in_pass = group / per_edge;           // edges a pass
+  const int slot = li / per_edge;
+  const int hp = li % per_edge / q_lanes;
+  const int q = li % q_lanes;
+  const int hf = heads * feat;
+  const int head_vecs = feat / VEC;
+  const int chunks = CHUNKED ? (head_vecs + q_lanes * K - 1) / (q_lanes * K)
+                             : 1;
+  // a lane past the last row keeps taking part in the warp's shuffles
+  const int start = has_row ? rowptr[row] : 0;
+  const int end = has_row ? rowptr[row + 1] : 0;
+  const T* d1_row = d1 + static_cast<int64_t>(has_row ? row : 0) * hf;
+
+  for (int h0 = 0; h0 < heads; h0 += heads_per_pass) {  // uniform
+    const int h = h0 + hp;
+    const bool head_ok = has_row && h < heads;
+    float a[K][VEC];
+    auto load_d1 = [&](int ch) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int v = (ch * K + k) * q_lanes + q;
+        V x;
+        if (head_ok && v < head_vecs)
+          x = *reinterpret_cast<const V*>(d1_row + h * feat + v * VEC);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          a[k][i] = head_ok && v < head_vecs ? to_float(x.v[i]) : 0.f;
+      }
+    };
+    if (!CHUNKED) load_d1(0);  // the row's d1 segment, once
+    // every lane runs every pass (the warp's longest row decides), so the
+    // full-mask shuffles never see a lane that has left
+    for (int base = start; __any_sync(kFullMask, base < end);
+         base += in_pass) {
+      const int e = base + slot;
+      const bool valid = head_ok && e < end;
+      const int c = valid ? col[e] : 0;
+      float acc = 0.f;
+      for (int ch = 0; ch < chunks; ++ch) {
+        if (CHUNKED) load_d1(ch);
+        // the lane's K gathers in flight before the first FMA
+        V x[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int v = (ch * K + k) * q_lanes + q;
+          if (valid && v < head_vecs)
+            x[k] = *reinterpret_cast<const V*>(
+                d2 + static_cast<int64_t>(c) * hf + h * feat + v * VEC);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int v = (ch * K + k) * q_lanes + q;
+          if (valid && v < head_vecs) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+              acc += a[k][i] * to_float(x[k].v[i]);
+          }
+        }
+      }
+      for (int off = q_lanes / 2; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(kFullMask, acc, off);
+      if (valid && q == 0)
+        out[static_cast<int64_t>(e) * heads + h] =
+            mean ? acc / static_cast<float>(end - start) : acc;
+    }
+  }
+}
+
 template <typename T, int K, int LPH>
 void launch_k(dim3 grid, dim3 block, cudaStream_t s, const int* rowptr,
               const int* col, const void* d1, const void* d2, float* out,
@@ -157,14 +261,110 @@ int launch(int device, const int* rowptr, const int* col, const void* d1,
   return cudaGetLastError();
 }
 
+// The group kernel's arguments, passed down the template dispatch.
+struct Group {
+  const int* rowptr;
+  const int* col;
+  const void* d1;
+  const void* d2;
+  float* out;
+  int num_rows, heads, feat, mean, q, heads_per_pass, group;
+  cudaStream_t s;
+};
+
+template <typename T, int VEC, int K>
+int launch_group(const Group& a) {
+  const int rows = kWarpsPerBlock * (kWarp / a.group);  // rows a block
+  const dim3 grid((a.num_rows + rows - 1) / rows);
+  const dim3 block(kWarp, kWarpsPerBlock);
+  const auto* d1 = static_cast<const T*>(a.d1);
+  const auto* d2 = static_cast<const T*>(a.d2);
+  if (a.feat / VEC > a.q * K)
+    sddmm_group_kernel<T, VEC, K, true><<<grid, block, 0, a.s>>>(
+        a.rowptr, a.col, d1, d2, a.out, a.num_rows, a.heads, a.feat, a.q,
+        a.heads_per_pass, a.group, a.mean);
+  else
+    sddmm_group_kernel<T, VEC, K, false><<<grid, block, 0, a.s>>>(
+        a.rowptr, a.col, d1, d2, a.out, a.num_rows, a.heads, a.feat, a.q,
+        a.heads_per_pass, a.group, a.mean);
+  return cudaGetLastError();
+}
+
+// K vectors a lane, at most 16 elements of T a lane.
+template <typename T, int VEC>
+int group_k(int k, const Group& a) {
+  switch (k) {
+    case 1:
+      return launch_group<T, VEC, 1>(a);
+    case 2:
+      if constexpr (2 * VEC <= 16) return launch_group<T, VEC, 2>(a);
+      break;
+    case 4:
+      if constexpr (4 * VEC <= 16) return launch_group<T, VEC, 4>(a);
+      break;
+    case 8:
+      if constexpr (8 * VEC <= 16) return launch_group<T, VEC, 8>(a);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool pow2(int x) { return x >= 1 && (x & (x - 1)) == 0; }
+
+// Refuses a path the group kernel cannot run: `vec` a power of two of at
+// most 16 bytes dividing F, d1 and d2 aligned to it; `k` 1, 2, 4 or 8 with
+// k * vec <= 16; q, heads_per_pass and group powers of two with
+// q * heads_per_pass <= group <= 32.
+template <typename T>
+int group_path(int vec, int k, const Group& a) {
+  const int bytes = vec * static_cast<int>(sizeof(T));
+  if (!pow2(vec) || bytes > 16 || a.feat % vec || !aligned(a.d1, bytes) ||
+      !aligned(a.d2, bytes) || !pow2(k) || k > 8 || k * vec > 16 ||
+      !pow2(a.q) || !pow2(a.heads_per_pass) || !pow2(a.group) ||
+      a.group > kWarp || a.q * a.heads_per_pass > a.group)
+    return cudaErrorInvalidValue;
+  switch (vec) {
+    case 8:
+      if constexpr (sizeof(T) == 2) return group_k<T, 8>(k, a);
+      return cudaErrorInvalidValue;
+    case 4:
+      return group_k<T, 4>(k, a);
+    case 2:
+      return group_k<T, 2>(k, a);
+    default:
+      return group_k<T, 1>(k, a);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // out[nnz, H] (fp32) = per-edge, per-head dots of d1 [M, H*F] rows and
 // d2 [N, H*F] rows over CSR A (rowptr [M+1], col [nnz] int32), d1 and d2
-// in `dtype` (0 fp32, 1 bf16); mean != 0 divides by max(deg, 1). Returns a
-// cudaError_t.
+// in `dtype` (0 fp32, 1 bf16); mean != 0 divides by max(deg, 1). On the
+// path (vec, k, q, heads_per_pass, group): `vec` elements a load, `k`
+// vectors a lane, `q` lanes a head, `heads_per_pass` heads of an edge side
+// by side, `group` lanes a row. Returns a cudaError_t.
+int dg_sddmm_csr_group(int dtype, int device, const int* rowptr,
+                       const int* col, const void* d1, const void* d2,
+                       float* out, int num_rows, int heads, int feat,
+                       int mean, int vec, int k, int q, int heads_per_pass,
+                       int group, void* stream) {
+  if (num_rows <= 0 || heads <= 0 || feat <= 0 ||
+      static_cast<int64_t>(heads) * feat > INT32_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Group a{rowptr, col,  d1,   d2, out, num_rows, heads, feat, mean,
+                q,      heads_per_pass, group,
+                static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return group_path<float>(vec, k, a);
+  if (dtype == kBFloat16) return group_path<__nv_bfloat16>(vec, k, a);
+  return cudaErrorInvalidValue;
+}
+
+// The same on the one-warp-a-row mapping (no path). Returns a cudaError_t.
 int dg_sddmm_csr(int dtype, int device, const int* rowptr, const int* col,
                  const void* d1, const void* d2, float* out, int num_rows,
                  int heads, int feat, int mean, void* stream) {

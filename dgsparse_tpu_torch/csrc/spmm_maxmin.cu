@@ -52,11 +52,45 @@
 //     they do not push the slice out;
 //   - the running extremum and its edge id stay in registers; each output
 //     written once, no atomics; an empty row gives 0 and arg = nnz.
-// d_dense is one warp per CSC column: per edge of the column it gathers the
-// row's arg slice (VEC int32 per lane) and only where an element won
-// through this edge also the g slice; no atomics, and sentinel winners
-// (nnz) never match an edge id. It reads each row's arg once per edge of
-// the row, about nnz * F * 4 bytes where the bound counts M * F * 4.
+// d_dense is bound by the bytes it must move (arg and g read once, d_dense
+// written once), but a column-side walk reads a row's arg once per edge of
+// the row (nnz * F * 4 bytes, 1.1 GB at arxiv F = 256 where the bound
+// counts 173 MB). So it runs in two passes (`dg_maxmin_d_dense_masked`):
+//   - the winner-mask pass, one warp a CSR row: the row's arg is read once,
+//     8 words of 32 features at a time with the streaming hint, its loads
+//     issued before the row's bounds arrive. For each chunk of 32 of the
+//     row's edges and each word, lane j needs the lanes (features) whose
+//     winner is the chunk's edge j: the ballots of "has a place in the
+//     chunk" and of each bit of the place (3 for a chunk of up to 8 edges)
+//     give it with a few AND-NOTs, whatever the degree.
+//     Lane j then writes edge j's words, zero where it won nothing, at its
+//     CSC slot (`slot`), the sw words of one column-pass slice in one
+//     store: masks [ceil(F / 32 / sw), nnz, sw] uint32 in CSC order, every
+//     word written once by the one warp that owns its row: no atomics. The
+//     sentinel nnz (an empty row's) and ids outside the chunk have no
+//     place. The launcher zero-fills the masks first, not for the result
+//     but so that their lines sit in L2 when the scattered stores arrive
+//     (stores of part of a sector that is not in L2 cost a fetch from HBM).
+//     `__match_any_sync` in place of the ballots, and one word a store,
+//     were slower on an H100;
+//   - the column pass, the forward's group mapping over the CSC view: a
+//     group of G lanes a column (32 / G columns a warp), each lane NV
+//     vectors of VEC features, the feature slice the grid's slowest
+//     dimension so the slice of g being gathered stays in L2. Per edge a
+//     lane reads its word of the mask (a slice's sw words of consecutive
+//     slots are contiguous) and gathers g only where the edge won one of
+//     its features, then adds, one edge at a time (2 or 4 edges' gathers in
+//     flight were slower on an H100: the gathers are bound by L2's rate
+//     for scattered sectors, not by latency); the adds run in CSC order:
+//     each element's terms are added
+//     in the order, and with the operations, of the one-warp-a-column
+//     mapping below, so the two are bitwise equal.
+// d_dense_kernel, one warp per CSC column, runs where the masks do not pay
+// (`kernels/spmm_maxmin.py::pick_d_dense`: short rows, an arg that fits in
+// L2, or masks that do not): per edge of the column it gathers the row's
+// arg slice (VEC int32 per lane) and only where an element won through
+// this edge also the g slice; no atomics, and sentinel winners (nnz) never
+// match an edge id.
 // d_values is one warp per CSR row: the row's arg and g sit in registers (8
 // elements a lane, 256 features a pass), each edge's masked sum is reduced
 // by xor shuffles only when some lane won through it, and X is read only at
@@ -75,7 +109,9 @@ namespace {
 constexpr int kRowK = 8;  // elements a lane holds in d_values: 256 a pass
 constexpr int kAhead = 4;  // edges whose gathers are issued before their
                            // compares (forward)
-constexpr int kMaxVectors = 2;  // vectors a lane (forward)
+constexpr int kMaxVectors = 2;  // vectors a lane (forward, column pass)
+constexpr int kMaskWords = 8;   // words of a row's arg a mask-pass warp
+                                // holds: 256 features
 
 enum Compute : int { kCopy = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4 };
 
@@ -260,6 +296,185 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   for (int k = 0; k < VEC; ++k) y.v[k] = from_float<T>(acc[k]);
   *reinterpret_cast<Packed<T, VEC>*>(out + static_cast<int64_t>(c) * feat +
                                      f0) = y;
+}
+
+// The lanes whose place j in a chunk of n of a row's edges is this lane's
+// index: from the ballots of "has a place" (j < n) and of each of the bits
+// a place below n has, each kept where this lane's own bit is set and
+// inverted where it is clear.
+__device__ __forceinline__ unsigned placed_at_lane(unsigned j, int n,
+                                                   int lane) {
+  const bool ok = j < static_cast<unsigned>(n);
+  const int bits = kWarp - __clz(max(n - 1, 1));
+  unsigned m = __ballot_sync(kFullMask, ok);
+  for (int b = 0; b < bits; ++b) {
+    const unsigned set = __ballot_sync(kFullMask, ok && ((j >> b) & 1u));
+    m &= (lane >> b) & 1 ? set : ~set;
+  }
+  return m;
+}
+
+// The winner masks: word w of CSC slot k, bit b = [arg[row, 32 w + b] ==
+// the CSR edge at k], at mask[((w / sw) * nnz + k) * sw + w % sw] (sw
+// words a column-pass slice, stored together), for every edge of every
+// non-empty row and every word w < ceil(feat / 32); the words of a last,
+// partial group of sw are written as 0. One warp a row; lane l holds
+// feature 32 w + l of kMaskWords words at a time.
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+    winner_mask_kernel(const int* __restrict__ rowptr,
+                       const int* __restrict__ slot,
+                       const int* __restrict__ arg,
+                       unsigned* __restrict__ mask, int num_rows, int feat,
+                       int nnz, int sw) {
+  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.y;
+  if (row >= num_rows) return;  // uniform across the warp
+  const int lane = threadIdx.x;
+  const int words = (feat + kWarp - 1) / kWarp;
+  const int* arg_row = arg + static_cast<int64_t>(row) * feat;
+  // the row's arg, read once with the streaming hint, kMaskWords loads in
+  // flight a lane; the first ones while the row's bounds arrive
+  int a[kMaskWords];
+#pragma unroll
+  for (int i = 0; i < kMaskWords; ++i) {
+    const int f = i * kWarp + lane;
+    a[i] = i < words && f < feat ? __ldcs(arg_row + f) : -1;
+  }
+  const int start = rowptr[row];
+  const int end = rowptr[row + 1];
+  if (start == end) return;  // an empty row owns no edge
+  for (int w0 = 0; w0 < words; w0 += kMaskWords) {
+    if (w0 > 0) {
+#pragma unroll
+      for (int i = 0; i < kMaskWords; ++i) {
+        const int f = (w0 + i) * kWarp + lane;
+        a[i] = w0 + i < words && f < feat ? __ldcs(arg_row + f) : -1;
+      }
+    }
+    for (int c0 = start; c0 < end; c0 += kWarp) {
+      const int e = c0 + lane;
+      const int n = min(kWarp, end - c0);  // edges of this chunk
+      const int64_t k = e < end ? slot[e] : 0;
+      // -1 (no feature), the sentinel nnz and other chunks' edges have no
+      // place in [0, n)
+      unsigned mine[kMaskWords];
+#pragma unroll
+      for (int i = 0; i < kMaskWords; ++i) {
+        mine[i] = 0u;
+        if (w0 + i >= words) continue;  // uniform across the warp
+        mine[i] = placed_at_lane(static_cast<unsigned>(a[i] - c0), n, lane);
+      }
+      if (e >= end) continue;
+      // lane j writes edge c0 + j's words, the sw of a slice in one store
+      if (sw == 1) {
+#pragma unroll
+        for (int i = 0; i < kMaskWords; ++i)
+          if (w0 + i < words)
+            mask[static_cast<int64_t>(w0 + i) * nnz + k] = mine[i];
+      } else if (sw == 2) {
+#pragma unroll
+        for (int i = 0; i < kMaskWords; i += 2)
+          if (w0 + i < words)
+            *reinterpret_cast<uint2*>(
+                mask + (static_cast<int64_t>((w0 + i) / 2) * nnz + k) * 2) =
+                make_uint2(mine[i], mine[i + 1]);
+      } else {  // sw == 4
+#pragma unroll
+        for (int i = 0; i < kMaskWords; i += 4)
+          if (w0 + i < words)
+            *reinterpret_cast<uint4*>(
+                mask + (static_cast<int64_t>((w0 + i) / 4) * nnz + k) * 4) =
+                make_uint4(mine[i], mine[i + 1], mine[i + 2], mine[i + 3]);
+      }
+    }
+  }
+}
+
+// d[c, f] for the features of slice blockIdx.y: the sum over the CSC
+// column c's edges k (in CSC order) that won (row_csc[k], f), by the masks,
+// of w(k, f) * g[row_csc[k], f]. Lane l of a warp serves column
+// (warp * 32 + l) / group and the vectors v < NV at feature
+// (blockIdx.y * group * NV + v * group + l % group) * VEC, as the forward;
+// the slice's words of the mask, sw of them, sit together a slot.
+template <typename T, int VEC, int NV, bool WEIGHTED, bool HEADS>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+    d_dense_cols_kernel(const int* __restrict__ colptr,
+                        const int* __restrict__ row_csc,
+                        const float* __restrict__ w_csc,
+                        const unsigned* __restrict__ mask,
+                        const T* __restrict__ g, T* __restrict__ out,
+                        int num_cols, int feat, int heads, int head_feat,
+                        int nnz, int group, int sw) {
+  static_assert(kWarp % VEC == 0, "a vector lies in one mask word");
+  const int lane = threadIdx.x;
+  const int li = lane & (group - 1);
+  const int c = (blockIdx.x * kWarpsPerBlock + threadIdx.y) *
+                    (kWarp / group) + lane / group;
+  const bool has_col = c < num_cols;
+  int f[NV], head[NV];
+  bool act[NV];
+  const unsigned* word[NV];  // this vector's mask word of slot 0
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    f[v] = ((blockIdx.y * NV + v) * group + li) * VEC;
+    act[v] = has_col && f[v] < feat;  // VEC divides feat: the vector fits
+    head[v] = HEADS && act[v] ? f[v] / head_feat : 0;
+    const int w = f[v] / kWarp;
+    word[v] = mask + static_cast<int64_t>(w / sw) * nnz * sw + w % sw;
+  }
+  // a lane past the last column keeps taking part in the warp's shuffles
+  const int start = has_col ? colptr[c] : 0;
+  const int end = has_col ? colptr[c + 1] : 0;
+  constexpr unsigned kBits = (1u << VEC) - 1u;
+
+  float acc[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[v][q] = 0.f;
+  // every lane runs every trip (the warp's longest column decides), so the
+  // full-mask shuffles never see a lane that has left
+  for (int base = start; __any_sync(kFullMask, base < end); base += group) {
+    int r_mine = 0;
+    float w_mine = 1.f;
+    if (base + li < end) {
+      r_mine = row_csc[base + li];
+      if (WEIGHTED && !HEADS) w_mine = w_csc[base + li];
+    }
+    const int n = max(min(group, end - base), 0);  // this group's edges
+    const int n_warp = __reduce_max_sync(kFullMask, n);
+    // one edge at a time: its mask words, then the gathers of g where it
+    // won, then the adds, in CSC order as the one-warp-a-column mapping
+    for (int j = 0; j < n_warp; ++j) {
+      const int r = __shfl_sync(kFullMask, r_mine, j, group);
+      const float wj = __shfl_sync(kFullMask, w_mine, j, group);
+      const int64_t k = base + j;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const unsigned won =
+            j < n && act[v] ? (__ldg(word[v] + k * sw) >> (f[v] % kWarp)) &
+                                  kBits
+                            : 0u;
+        if (!won) continue;
+        const Packed<T, VEC> x = *reinterpret_cast<const Packed<T, VEC>*>(
+            g + static_cast<int64_t>(r) * feat + f[v]);
+        const float wh =
+            WEIGHTED && HEADS ? w_csc[k * heads + head[v]] : wj;
+#pragma unroll
+        for (int q = 0; q < VEC; ++q)
+          if ((won >> q) & 1u) acc[v][q] += wh * to_float(x.v[q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    if (!act[v]) continue;
+    Packed<T, VEC> y;
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) y.v[q] = from_float<T>(acc[v][q]);
+    // written once, evict-first: d_dense must not push the slice of g
+    // that later columns gather from out of L2
+    store_streaming(out + static_cast<int64_t>(c) * feat + f[v], y);
+  }
 }
 
 template <typename T, bool DOT>
@@ -477,6 +692,86 @@ int d_dense(const int* colptr, const int* row_csc, const int* perm,
                                         out, num_cols, feat, heads, s);
 }
 
+// The masked d_dense's arguments, passed down the template dispatch.
+struct Masked {
+  const int* rowptr;
+  const int* slot;
+  const int* arg;
+  unsigned* mask;
+  const int* colptr;
+  const int* row_csc;
+  const float* w_csc;
+  const void* g;
+  void* out;
+  int num_rows, num_cols, nnz, feat, heads, vec, group, nv;
+  cudaStream_t s;
+};
+
+// Mask words a column-pass slice reads, stored together a slot: the
+// slice's width over 32, or 1 for a slice narrower than a word.
+int slice_words(const Masked& a) {
+  return max(1, a.group * a.nv * a.vec / kWarp);
+}
+
+// The column pass on the path (VEC, NV, group), the feature slice the
+// grid's slowest dimension, as the forward's `launch_path`.
+template <typename T, int VEC, int NV, bool WEIGHTED, bool HEADS>
+int launch_cols(const Masked& a) {
+  const int cols = kWarpsPerBlock * (kWarp / a.group);  // columns a block
+  const int slice = a.group * NV * VEC;
+  const dim3 grid((a.num_cols + cols - 1) / cols,
+                  (a.feat + slice - 1) / slice);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  d_dense_cols_kernel<T, VEC, NV, WEIGHTED, HEADS>
+      <<<grid, dim3(kWarp, kWarpsPerBlock), 0, a.s>>>(
+          a.colptr, a.row_csc, a.w_csc, a.mask, static_cast<const T*>(a.g),
+          static_cast<T*>(a.out), a.num_cols, a.feat, a.heads,
+          a.feat / a.heads, a.nnz, a.group, slice_words(a));
+  return cudaGetLastError();
+}
+
+template <typename T, bool WEIGHTED, bool HEADS>
+int masked_weights(const Masked& a) {
+  int err = cudaErrorInvalidValue;
+  with_vec<T>(a.vec, [&](auto v) {
+    constexpr int kVec = decltype(v)::value;
+    err = a.nv == 1 ? launch_cols<T, kVec, 1, WEIGHTED, HEADS>(a)
+                    : launch_cols<T, kVec, 2, WEIGHTED, HEADS>(a);
+  });
+  return err;
+}
+
+// The mask pass, then the column pass. Refuses a path the column pass
+// cannot run, as `launch_forward` does, or whose slice spans more than 4
+// mask words (128 features).
+template <typename T>
+int d_dense_masked(const Masked& a) {
+  const int bytes = a.vec * static_cast<int>(sizeof(T));
+  if (a.vec < 1 || (a.vec & (a.vec - 1)) || bytes > 16 ||
+      (a.feat / a.heads) % a.vec || !aligned(a.g, bytes) ||
+      !aligned(a.out, bytes) ||
+      (a.group != 4 && a.group != 8 && a.group != 16 && a.group != 32) ||
+      a.nv < 1 || a.nv > kMaxVectors || slice_words(a) > 4)
+    return cudaErrorInvalidValue;
+  // every word is written below; zeroing the masks first puts their lines
+  // in L2, so the pass's scattered stores of part of a sector do not each
+  // fetch it from HBM
+  const int sw = slice_words(a);
+  const int groups = (a.feat + kWarp * sw - 1) / (kWarp * sw);
+  const cudaError_t zero = cudaMemsetAsync(
+      a.mask, 0, sizeof(unsigned) * static_cast<size_t>(a.nnz) * sw * groups,
+      a.s);
+  if (zero != cudaSuccess) return zero;
+  winner_mask_kernel<<<(a.num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                       dim3(kWarp, kWarpsPerBlock), 0, a.s>>>(
+      a.rowptr, a.slot, a.arg, a.mask, a.num_rows, a.feat, a.nnz, sw);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.w_csc == nullptr) return masked_weights<T, false, false>(a);
+  if (a.heads > 1) return masked_weights<T, true, true>(a);
+  return masked_weights<T, true, false>(a);
+}
+
 template <typename T>
 int d_values(int dot, const int* rowptr, const int* col, const int* arg,
              const void* g, const void* x, float* out, int num_rows,
@@ -546,6 +841,34 @@ int dg_maxmin_d_dense(int dtype, int device, const int* colptr,
   if (dtype == kBFloat16)
     return d_dense<__nv_bfloat16>(colptr, row_csc, perm, w_csc, g, arg, out,
                                   num_cols, feat, heads, s);
+  return cudaErrorInvalidValue;
+}
+
+// The same d_dense in two passes: the winner masks (`mask`, scratch the
+// caller allocates, [ceil(F / 32 / sw), nnz, sw] uint32 with sw =
+// max(1, group * nv * vec / 32) <= 4; every word is written) from arg over
+// the CSR rows (rowptr [M+1]; slot [nnz]: the CSC slot of each CSR edge,
+// the inverse of perm), then the columns on the path (vec, group, nv):
+// `vec` elements a load (dividing F / H; g and out aligned to it), `group`
+// lanes a column (4, 8, 16 or 32), `nv` vectors a lane (1 or 2). Returns a
+// cudaError_t.
+int dg_maxmin_d_dense_masked(int dtype, int device, const int* rowptr,
+                             const int* slot, const int* arg, unsigned* mask,
+                             const int* colptr, const int* row_csc,
+                             const float* w_csc, const void* g, void* out,
+                             int num_rows, int num_cols, int nnz, int feat,
+                             int heads, int vec, int group, int nv,
+                             void* stream) {
+  if (bad_shape(num_rows, feat, heads) || num_cols <= 0 || nnz <= 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Masked a{rowptr,   slot,     arg, mask,  colptr, row_csc,
+                 w_csc,    g,        out, num_rows, num_cols, nnz,
+                 feat,     heads,    vec, group, nv,
+                 static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return d_dense_masked<float>(a);
+  if (dtype == kBFloat16) return d_dense_masked<__nv_bfloat16>(a);
   return cudaErrorInvalidValue;
 }
 

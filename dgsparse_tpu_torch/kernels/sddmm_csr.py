@@ -8,6 +8,13 @@ out[e, h] = dot(d1[row_e, h], d2[col_e, h]) over F features per head, for
 d1 [M, H*F] and d2 [N, H*F], float32 [nnz, H] in CSR edge order; MEAN
 divides by max(deg, 1).
 
+The kernel has two mappings: a group of lanes a row with the row's edges
+spread over lanes, on a path (vec, k, q, heads_per_pass, group) chosen by
+`sddmm_path`, and one warp a row (WARP_PER_ROW). `pick_sddmm` chooses
+between them; both are pure functions of the head width, the heads, the
+dtype and the pointers' alignment, so that the CPU tests can check that
+a path covers every (edge, head, feature) once.
+
 Routing as in `spmm_csr.py`: the plain version for CPU tensors, the kernel
 (or an exception) for CUDA tensors. `LAUNCHES` counts kernel launches.
 """
@@ -19,7 +26,7 @@ from typing import Optional
 import torch
 
 from dgsparse_tpu_torch.core.transform import expand_rowptr
-from dgsparse_tpu_torch.kernels import _launch, reference
+from dgsparse_tpu_torch.kernels import _launch, reference, spmm_csr
 from dgsparse_tpu_torch.ops.types import ReduceOp, as_reduce
 
 LAUNCHES = {"sddmm_csr": 0}
@@ -37,8 +44,63 @@ def _lib():
     lib = _build.load("sddmm_csr")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dg_sddmm_csr.argtypes = [i, i, p, p, p, p, p, i, i, i, i, p]
-    lib.dg_sddmm_csr.restype = i
+    lib.dg_sddmm_csr_group.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i,
+                                       i, i, i, p]
+    lib.dg_sddmm_csr.restype = lib.dg_sddmm_csr_group.restype = i
     return lib
+
+
+# --- the path ----------------------------------------------------------------
+
+LANE_BYTES = 32         # bytes of a head a lane gathers an edge
+KS = (1, 2, 4, 8)       # vectors a lane (the kernel's K)
+ROW_EDGES = 8           # edges of a row a group takes at once
+# `path` of sddmm_csr_cuda for the one-warp-a-row mapping
+WARP_PER_ROW = "warp_per_row"
+
+
+@functools.lru_cache(maxsize=None)
+def sddmm_path(feat: int, heads: int, itemsize: int, align: int = 16):
+    """(vec, k, q, heads_per_pass, group) for `heads` heads of `feat`
+    features each: the widest load (at most 16 bytes, `align` bytes the
+    pointers allow) whose element count divides the head; the fewest lanes
+    a head q (a power of two, at most 32) whose vectors, at most
+    LANE_BYTES a lane (half that for loads narrower than 16 bytes on a
+    head wider than LANE_BYTES), cover the head, then the fewest vectors
+    a lane k that do (a wider head runs in chunks); as many heads of an
+    edge side by side as fit a warp (a power of two, so q * heads_per_pass
+    lanes an edge); and a group of lanes a row that takes ROW_EDGES of its
+    edges a pass, or fewer where that would pass a warp. (On an H100 at
+    arxiv's GAT widths, 32 bytes a lane ran faster than 16 or 64.)"""
+    vec = spmm_csr.widest_vec(feat * heads, heads, itemsize, align)
+    head_vecs = feat // vec
+    lane_bytes = LANE_BYTES
+    if vec * itemsize < 16 and feat * itemsize > LANE_BYTES:
+        lane_bytes //= 2        # narrow loads: more lanes a head
+    k_most = max(k for k in KS if k * vec * itemsize <= lane_bytes)
+    q = 1
+    while q < 32 and q * k_most < head_vecs:
+        q *= 2
+    k = next((k for k in KS if k <= k_most and q * k >= head_vecs), k_most)
+    per_pass = 1
+    while per_pass < heads and 2 * per_pass * q <= 32:
+        per_pass *= 2
+    group = min(32, ROW_EDGES * q * per_pass)
+    return vec, k, q, per_pass, group
+
+
+def pick_sddmm(feat: int, heads: int, itemsize: int, align: int = 16):
+    """The mapping for `heads` heads of `feat` features: `sddmm_path`'s
+    group mapping where it loads vectors of two or more elements, and
+    WARP_PER_ROW where it would load scalars (an odd head width, or
+    pointers so aligned). On an H100 (`utils/path_sweep.py`) the group
+    mapping lost to one warp a row at 25 of the 27 shapes where it loads
+    scalars, by 4-95 % (the one-warp kernel's lane layout is fixed at
+    compile time and it reads a row's col 32 edges at a time), and won
+    at a head of 7 on rows of ~7 edges (by 6 %) and at bf16 F = 41 on
+    rows of ~98 (by 8 %); with vector loads it won at 23 of 24."""
+    path = sddmm_path(feat, heads, itemsize, align)
+    return WARP_PER_ROW if path[0] == 1 else path
 
 
 def _check_shapes(rowptr, col, d1, d2, heads: int) -> None:
@@ -70,9 +132,11 @@ def sddmm_csr_plain(rowptr, col, d1, d2, heads: int = 1,
 
 
 def sddmm_csr_cuda(rowptr, col, d1, d2, heads: int = 1,
-                   reduce=ReduceOp.SUM) -> torch.Tensor:
-    """The kernel: float32 [nnz, heads] per-edge, per-head dots. Raises
-    unless every tensor is on one CUDA device with the types it takes."""
+                   reduce=ReduceOp.SUM, path=None) -> torch.Tensor:
+    """The kernel: float32 [nnz, heads] per-edge, per-head dots, on `path`
+    (`pick_sddmm`'s by default): a path of `sddmm_path` for the group
+    mapping, or WARP_PER_ROW. Raises unless every tensor is on one CUDA
+    device with the types it takes."""
     reduce = as_reduce(reduce)
     if reduce not in (ReduceOp.SUM, ReduceOp.MEAN):
         raise NotImplementedError(f"sddmm_csr handles SUM/MEAN, got {reduce}")
@@ -91,11 +155,18 @@ def sddmm_csr_cuda(rowptr, col, d1, d2, heads: int = 1,
         return torch.zeros((nnz, heads), dtype=torch.float32,
                            device=d1.device)
     out = torch.empty((nnz, heads), dtype=torch.float32, device=d1.device)
-    err = _lib().dg_sddmm_csr(
-        _launch.DTYPE_CODE[d1.dtype], d1.device.index or 0,
-        rowptr.data_ptr(), col.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-        out.data_ptr(), num_rows, heads, feat,
-        int(reduce == ReduceOp.MEAN), _launch.stream(d1.device))
+    args = (_launch.DTYPE_CODE[d1.dtype], d1.device.index or 0,
+            rowptr.data_ptr(), col.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+            out.data_ptr(), num_rows, heads, feat,
+            int(reduce == ReduceOp.MEAN))
+    if path is None:
+        path = pick_sddmm(feat, heads, d1.element_size(),
+                          _launch.alignment(d1, d2))
+    if path == WARP_PER_ROW:
+        err = _lib().dg_sddmm_csr(*args, _launch.stream(d1.device))
+    else:
+        err = _lib().dg_sddmm_csr_group(*args, *path,
+                                        _launch.stream(d1.device))
     _launch.raise_on(err, "sddmm_csr")
     LAUNCHES["sddmm_csr"] += 1
     return out

@@ -16,6 +16,10 @@ The kernels are `csrc/spmm_maxmin.cu` (CUDA C++, sm_90a), built by
 - `spmm_maxmin_d_dense`: d_dense [N, F] over the CSC view, each element's
   gradient sent to the column of its winning edge, scaled by the per-edge
   partial of compute in the feature (weights in CSC order; None for 1).
+  On graphs of long enough rows the kernel first turns arg into winner
+  masks, `mask_words(F)` uint32 words an edge in CSC order (scratch it
+  allocates), reading each row's arg once, then sums each column's won
+  elements from the masks on `d_dense_path`.
 - `spmm_maxmin_d_values`: per edge and head, the sum of g over the
   elements the edge won, times dense[col[e]] in "dot" mode (MUL/DIV) or
   not ("sum" mode, ADD/SUB); the caller applies the rest of the partial.
@@ -26,6 +30,10 @@ function of the width, the heads, the dtype and the pointers' alignment,
 so that the CPU tests can check it: a feature slice of `group * nv * vec`
 features, at most SLICE_BYTES of a row, and the grid's slowest dimension,
 so that one slice of X stays in L2 while every row gathers from it.
+d_dense's column pass walks the columns on the same kind of path, chosen
+by `d_dense_path`, so that one slice of g stays in L2 while every column
+gathers from it; `pick_d_dense` runs it where the rows are long enough
+for the masks to pay, and one warp a column elsewhere.
 
 Routing as in `spmm_csr.py`: the plain version (`kernels/reference.py`)
 for tensors on the CPU, the kernel (or an exception) for tensors on a
@@ -65,9 +73,11 @@ def _lib():
     lib.dg_spmm_maxmin.argtypes = [i, i, i, i, p, p, p, p, p, p, i, i, i, i,
                                    i, i, i, p]
     lib.dg_maxmin_d_dense.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, p]
+    lib.dg_maxmin_d_dense_masked.argtypes = [i, i, p, p, p, p, p, p, p, p,
+                                             p, i, i, i, i, i, i, i, i, p]
     lib.dg_maxmin_d_values.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, p]
     for fn in (lib.dg_spmm_maxmin, lib.dg_maxmin_d_dense,
-               lib.dg_maxmin_d_values):
+               lib.dg_maxmin_d_dense_masked, lib.dg_maxmin_d_values):
         fn.restype = i
     return lib
 
@@ -86,6 +96,11 @@ def _maxmin(reduce) -> ReduceOp:
 # gathers from it
 SLICE_BYTES = 256
 MAX_VECTORS = 2         # vectors a lane (kMaxVectors in csrc/spmm_maxmin.cu)
+MASK_BITS = 32          # features a winner-mask word of d_dense covers
+# `path` of spmm_maxmin_d_dense_cuda for the one-warp-a-column kernel
+WARP_PER_COLUMN = "warp_per_column"
+MASK_MIN_DEGREE = 4     # edges a row on average for the winner masks
+L2_BYTES = 50 * 2 ** 20  # an H100's L2
 
 
 def slices_cross_heads(slice_vecs: int, feat_vecs: int, heads: int) -> bool:
@@ -129,6 +144,47 @@ def maxmin_path(feat: int, heads: int, itemsize: int, align: int = 16,
                     best = (key, (vec, group, nv))
         vec //= 2
     return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def d_dense_path(feat: int, heads: int, itemsize: int, align: int = 16):
+    """(vec, group, nv) of d_dense's column pass: the widest load, one
+    vector a lane, and the narrowest group that spans the row or a slice
+    of at most SLICE_BYTES; past 32 lanes, a second vector a lane. (On
+    an H100 at arxiv F = 256, 16-byte loads over 64-feature slices ran
+    the columns faster than the forward's 8-byte path.)"""
+    vec = spmm_csr.widest_vec(feat, heads, itemsize, align)
+    want = min(feat // vec, max(SLICE_BYTES // (vec * itemsize), 4))
+    group = next((g for g in sorted(spmm_csr.GROUPS) if g >= want), None)
+    if group is None:
+        return vec, 32, min(MAX_VECTORS, -(-want // 32))
+    return vec, group, 1
+
+
+def pick_d_dense(feat: int, heads: int, itemsize: int, align: int,
+                 nnz: int, num_rows: int):
+    """The mapping of d_dense for `nnz` edges over `num_rows` CSR rows:
+    the winner masks and `d_dense_path` where they pay, else
+    WARP_PER_COLUMN, which re-reads a row's arg [F] int32 for every edge
+    of the row. The masks pay where the rows average MASK_MIN_DEGREE
+    edges or more (re-reads to save), arg outgrows L2 by half again (the
+    re-reads miss it) and the masks fit in it (their scattered stores
+    stay there). Over 62 shapes on an H100 (`utils/path_sweep.py`:
+    62,586-400,000 rows, 1.1-11 edges a row, F = 32-256) this picked the
+    slower mapping at 12, by at most 13 %: mostly F = 32 and 64 on rows
+    of 7 or more edges, where the masks won by 3-13 %."""
+    if (nnz < MASK_MIN_DEGREE * num_rows
+            or 2 * 4 * num_rows * feat <= 3 * L2_BYTES
+            or 4 * nnz * mask_words(feat) > L2_BYTES):
+        return WARP_PER_COLUMN
+    return d_dense_path(feat, heads, itemsize, align)
+
+
+def slice_words(path) -> int:
+    """Mask words a column-pass slice of `path` reads, stored together a
+    CSC slot (`slice_words` in csrc/spmm_maxmin.cu)."""
+    vec, group, nv = path
+    return max(1, group * nv * vec // MASK_BITS)
 
 
 # --- spmm_maxmin (forward) ---------------------------------------------------
@@ -210,44 +266,74 @@ def spmm_maxmin_d_dense_plain(colptr, row_csc, perm, weights_csc, arg, g,
     return out.to(g.dtype)
 
 
-def spmm_maxmin_d_dense_cuda(colptr, row_csc, perm, weights_csc, arg,
-                             g) -> torch.Tensor:
-    """The kernel: d_dense [N, F] in g's dtype, one warp per CSC column,
-    no atomics."""
+def mask_words(feat: int) -> int:
+    """Winner-mask words an edge: one uint32 per 32 features."""
+    return -(-feat // MASK_BITS)
+
+
+def spmm_maxmin_d_dense_cuda(colptr, row_csc, perm, weights_csc, arg, g,
+                             rowptr, slot, path=None) -> torch.Tensor:
+    """The kernel: d_dense [N, F] in g's dtype, no atomics, on `path`,
+    `pick_d_dense`'s by default: a (vec, group, nv) of `d_dense_path` runs
+    the winner-mask pass over the CSR rows (`rowptr`; `slot`, the CSC slot
+    of each CSR edge, `Storage.csc_slot()`), then the column pass on it;
+    WARP_PER_COLUMN runs one warp a column, which re-reads a row's arg for
+    every edge of the row. Counts one launch a call."""
     _launch.check_device(g.device, colptr=colptr, row_csc=row_csc, perm=perm,
-                         weights_csc=weights_csc, arg=arg, g=g)
+                         weights_csc=weights_csc, arg=arg, g=g,
+                         rowptr=rowptr, slot=slot)
     _launch.check_dense("g", g)
-    for name, t in (("colptr", colptr), ("row_csc", row_csc), ("perm", perm)):
+    for name, t in (("colptr", colptr), ("row_csc", row_csc), ("perm", perm),
+                    ("rowptr", rowptr), ("slot", slot)):
         _launch.check_index(name, t)
     if arg.dtype != torch.int32 or arg.shape != g.shape:
         raise TypeError(f"arg must be int32 of g's shape {tuple(g.shape)}")
-    num_cols, nnz, feat = colptr.shape[0] - 1, row_csc.shape[0], g.shape[1]
+    num_rows, feat = g.shape
+    num_cols, nnz = colptr.shape[0] - 1, row_csc.shape[0]
     heads = _launch.heads_of(weights_csc, feat)
     _launch.check_values("weights_csc", weights_csc, nnz)
+    for name, t, n in (("rowptr", rowptr, num_rows + 1), ("slot", slot, nnz),
+                       ("perm", perm, nnz)):
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} entries, expected {n}")
     if num_cols == 0 or nnz == 0 or feat == 0:
         return torch.zeros((num_cols, feat), dtype=g.dtype, device=g.device)
     out = torch.empty((num_cols, feat), dtype=g.dtype, device=g.device)
-    err = _lib().dg_maxmin_d_dense(
-        _launch.DTYPE_CODE[g.dtype], g.device.index or 0, colptr.data_ptr(),
-        row_csc.data_ptr(), perm.data_ptr(),
-        None if weights_csc is None else weights_csc.data_ptr(),
-        g.data_ptr(), arg.data_ptr(), out.data_ptr(), num_cols, feat, heads,
-        _launch.stream(g.device))
+    w = None if weights_csc is None else weights_csc.data_ptr()
+    dtype, device = _launch.DTYPE_CODE[g.dtype], g.device.index or 0
+    if path is None:
+        path = pick_d_dense(feat, heads, g.element_size(),
+                            _launch.alignment(g, out), nnz, num_rows)
+    if path == WARP_PER_COLUMN:
+        err = _lib().dg_maxmin_d_dense(
+            dtype, device, colptr.data_ptr(), row_csc.data_ptr(),
+            perm.data_ptr(), w, g.data_ptr(), arg.data_ptr(), out.data_ptr(),
+            num_cols, feat, heads, _launch.stream(g.device))
+    else:
+        sw = slice_words(path)
+        mask = torch.empty((-(-mask_words(feat) // sw), nnz, sw),
+                           dtype=torch.int32, device=g.device)
+        err = _lib().dg_maxmin_d_dense_masked(
+            dtype, device, rowptr.data_ptr(), slot.data_ptr(),
+            arg.data_ptr(), mask.data_ptr(), colptr.data_ptr(),
+            row_csc.data_ptr(), w, g.data_ptr(), out.data_ptr(), num_rows,
+            num_cols, nnz, feat, heads, *path, _launch.stream(g.device))
     _launch.raise_on(err, "spmm_maxmin_d_dense")
     LAUNCHES["spmm_maxmin_d_dense"] += 1
     return out
 
 
-def spmm_maxmin_d_dense(colptr, row_csc, perm, weights_csc, arg, g,
-                        csc_col: Optional[torch.Tensor] = None
+def spmm_maxmin_d_dense(colptr, row_csc, perm, weights_csc, arg, g, rowptr,
+                        slot, csc_col: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """The MAX/MIN backward's d_dense: the plain version on the CPU, the
-    kernel on CUDA."""
+    """The MAX/MIN backward's d_dense: the plain version on the CPU (which
+    takes `csc_col`), the kernel on CUDA (which takes `rowptr` and
+    `slot`)."""
     if g.device.type == "cpu":
         return spmm_maxmin_d_dense_plain(colptr, row_csc, perm, weights_csc,
                                          arg, g, csc_col)
     return spmm_maxmin_d_dense_cuda(colptr, row_csc, perm, weights_csc, arg,
-                                    g)
+                                    g, rowptr, slot)
 
 
 # --- spmm_maxmin_d_values ----------------------------------------------------

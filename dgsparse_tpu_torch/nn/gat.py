@@ -1,9 +1,13 @@
 """GAT layer and 2-layer model: per-edge attention scores, edge_softmax,
 then the value-weighted multi-head SpMM.
 
-Counterpart of `dgsparse_tpu/nn/gat.py`, edge-space branch only (its
-slot-space `gat_attention` branch runs on hybrid-planned graphs of 2^21 or
-more edges, and hybrid plans are not ported). Layout as there: node
+Counterpart of `dgsparse_tpu/nn/gat.py`, edge-space branch only: its
+slot-space `gat_attention` branch, which the JAX package runs on
+hybrid-planned graphs of 2^21 or more edges, needs the slot-space
+attention (`dgsparse_tpu/ops/slot.py`, `ops/attention.py`), which is not
+ported. The hybrid plan itself is (`core/planner.py`, `ops/hybrid.py`:
+the SUM/MEAN SpMM and `sddmm` take its tiers), but this layer runs the
+edge-space branch on every graph. Layout as there: node
 features [N, H, F] with heads outer (`h.reshape(N, H, F)`), attention
 vectors `a_dst`/`a_src` [H, F]. The attention weights are the SpMM's edge
 values, so a training step runs both gradients of the multi-head SpMM:

@@ -146,7 +146,8 @@ class _SpMMMaxMin(torch.autograd.Function):
                 w = 1.0 / values
             d_dense = spmm_maxmin_d_dense(
                 st.colptr(), st.row(), st.csr2csc(),
-                transpose_values(w, st), arg, g, csc_col=st.csc_col())
+                transpose_values(w, st), arg, g, st.rowptr(), st.csc_slot(),
+                csc_col=st.csc_col())
             d_dense = d_dense.reshape(n, h, f).to(dense.dtype)
         if ctx.needs_input_grad[0]:
             dot = compute in (ComputeOp.MUL, ComputeOp.DIV)

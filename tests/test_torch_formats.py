@@ -212,3 +212,19 @@ def test_to_moves_every_tensor():
     assert moved.sparse_sizes() == p.sparse_sizes() and moved.has_value
     for name in _ARRAYS + ("values",):
         assert getattr(moved.storage, name)().device.type == "meta", name
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_csc_slot_inverts_csr2csc(transposed):
+    # the max/min backward writes its winner masks at csc_slot[e], the CSC
+    # slot of CSR edge e; a transpose's slots are the original's CSR ids
+    rowptr, col, _ = random_csr(40, 30, avg_degree=4.0, seed=3)
+    p = pt.SparseTensor.from_csr(rowptr, col, sparse_sizes=(40, 30))
+    st = (p.t() if transposed else p).storage
+    perm, slot = st.csr2csc().long(), st.csc_slot().long()
+    nnz = torch.arange(st.nnz)
+    assert st.csc_slot().dtype == torch.int32
+    assert torch.equal(perm[slot], nnz) and torch.equal(slot[perm], nnz)
+    # CSR edge e sits at its CSC slot: same row, same column
+    assert torch.equal(st.row().long()[slot], st.coo_row().long())
+    assert torch.equal(st.csc_col().long()[slot], st.col().long())

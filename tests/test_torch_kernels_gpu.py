@@ -265,6 +265,8 @@ def test_sddmm_kernel_refuses_bad_inputs(cuda):
         sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2, heads=3)
     with pytest.raises(ValueError):
         sddmm_csr.sddmm_csr_cuda(rowptr, col.cpu(), d1, d2)
+    with pytest.raises(RuntimeError):            # 64 lanes a row
+        sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2, path=(4, 2, 1, 1, 64))
     with pytest.raises(ValueError):
         spmm_csr.csr_spmm_cuda(rowptr, col, torch.ones(col.numel(), 3,
                                                        device=cuda),
@@ -380,7 +382,8 @@ def test_spmm_maxmin_d_dense_matches_plain(cuda, weights, dtype):
     g = torch.randn(3000, 64, device=cuda).to(getattr(torch, dtype))
     w = None if values is None else values[st.csr2csc().long()].contiguous()
     out = spmm_maxmin.spmm_maxmin_d_dense_cuda(st.colptr(), st.row(),
-                                               st.csr2csc(), w, arg, g)
+                                               st.csr2csc(), w, arg, g,
+                                               st.rowptr(), st.csc_slot())
     ref = spmm_maxmin.spmm_maxmin_d_dense_plain(st.colptr(), st.row(),
                                                 st.csr2csc(), w, arg, g)
     abs_sum = spmm_maxmin.spmm_maxmin_d_dense_plain(
@@ -471,6 +474,82 @@ def test_spmm_maxmin_every_slice_width_matches_plain(cuda, feat, path):
         assert torch.equal(arg, ref_arg) and torch.equal(out, ref), p
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feat,weights", [
+    (f, w) for f in (7, 41, 64, 256, 300) for w in (None, "one", "heads")
+    if w != "heads" or f % 4 == 0])
+def test_spmm_maxmin_d_dense_skewed_rows_and_ties_match_plain(cuda, feat,
+                                                              weights,
+                                                              dtype):
+    """d_dense on lognormal degrees, empty rows, rows of 129-517 edges
+    and a column repeated in a row, with integer features so most winners
+    tie onto the earliest edge: the mapping `pick_d_dense` picks against
+    the plain version and bitwise equal to a second call, to the two-pass
+    kernel (winner masks, then columns) and to the one-warp-a-column
+    kernel (both add each element's terms in CSC order)."""
+    from dgsparse_tpu_torch.kernels import spmm_maxmin as M
+
+    heads = 4 if weights == "heads" else 1
+    rowptr, col, x = _skewed_maxmin_inputs(cuda, feat + 3, feat, True)
+    m, n, nnz = rowptr.numel() - 1, x.shape[0], col.numel()
+    st = pt.SparseTensor.from_csr(rowptr.cpu(), col.cpu(),
+                                  sparse_sizes=(m, n), device=cuda).storage
+    gen = torch.Generator(device=cuda).manual_seed(feat)
+    values = None
+    if weights is not None:
+        values = torch.rand(nnz, heads, generator=gen, device=cuda) + 0.5
+    dt = getattr(torch, dtype)
+    _, arg = M.spmm_maxmin_cuda(rowptr, col, values, x.to(dt))
+    g = torch.randn(m, feat, generator=gen, device=cuda).to(dt)
+    w = None if values is None else values[st.csr2csc().long()].contiguous()
+    csc = (st.colptr(), st.row(), st.csr2csc(), w, arg, g)
+    rows = (st.rowptr(), st.csc_slot())
+    out = M.spmm_maxmin_d_dense_cuda(*csc, *rows)
+    again = M.spmm_maxmin_d_dense_cuda(*csc, *rows)
+    masks = M.spmm_maxmin_d_dense_cuda(
+        *csc, *rows, path=M.d_dense_path(feat, heads, g.element_size()))
+    column = M.spmm_maxmin_d_dense_cuda(*csc, *rows, path=M.WARP_PER_COLUMN)
+    ref = M.spmm_maxmin_d_dense_plain(*csc)
+    abs_sum = M.spmm_maxmin_d_dense_plain(
+        *csc[:3], None if w is None else w.abs(), arg, g.float().abs())
+    torch.cuda.synchronize()
+    assert out.dtype == g.dtype and out.shape == (n, feat)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    assert torch.equal(out, again) and torch.equal(out, masks)
+    assert torch.equal(out, column)
+
+
+@pytest.mark.parametrize("path", ["picked", "group", "warp_per_row"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("feat", [1, 7, 16, 64, 259, 300])
+def test_sddmm_csr_skewed_rows_match_plain(cuda, feat, heads, reduce, dtype,
+                                           path):
+    """sddmm_csr on lognormal degrees, empty rows and rows of 37-517
+    edges (several trips of a group, more than 32 and 128 edges), on the
+    mapping `pick_sddmm` picks, on the group mapping's `sddmm_path` (259:
+    an odd head in two chunks) and on one warp a row: against the plain
+    version, and a second call bitwise equal."""
+    rowptr, col, _ = _skewed_maxmin_inputs(cuda, feat + heads, 1, False)
+    m, n = rowptr.numel() - 1, 500
+    gen = torch.Generator(device=cuda).manual_seed(feat)
+    dt = getattr(torch, dtype)
+    d1 = torch.randn(m, heads * feat, generator=gen, device=cuda).to(dt)
+    d2 = torch.randn(n, heads * feat, generator=gen, device=cuda).to(dt)
+    p = {"picked": None, "warp_per_row": sddmm_csr.WARP_PER_ROW,
+         "group": sddmm_csr.sddmm_path(feat, heads, d1.element_size())}[path]
+    out = sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2, heads, reduce, p)
+    again = sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2, heads, reduce, p)
+    ref = sddmm_csr.sddmm_csr_plain(rowptr, col, d1, d2, heads, reduce)
+    abs_sum = sddmm_csr.sddmm_csr_plain(rowptr, col, d1.float().abs(),
+                                        d2.float().abs(), heads, reduce)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (col.numel(), heads)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    assert torch.equal(out, again)
+
+
 def test_spmm_maxmin_launch_counts_and_bad_inputs(cuda):
     from dgsparse_tpu_torch.kernels import spmm_maxmin
 
@@ -491,6 +570,26 @@ def test_spmm_maxmin_launch_counts_and_bad_inputs(cuda):
         spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x.t())
     with pytest.raises(ValueError):
         spmm_maxmin.spmm_maxmin_cuda(rowptr, col, values, x, "sum")
+    # d_dense: one launch counted a call on the picked mapping and on the
+    # winner masks' (two CUDA launches: masks, then columns)
+    st = pt.SparseTensor.from_csr(rowptr.cpu(), col.cpu(),
+                                  sparse_sizes=(3000, 2500),
+                                  device=cuda).storage
+    _, arg = spmm_maxmin.spmm_maxmin(rowptr, col, values, x)
+    g = torch.randn(3000, 8, device=cuda)
+    csc = (st.colptr(), st.row(), st.csr2csc(), None, arg, g)
+    spmm_maxmin.spmm_maxmin_d_dense(*csc, st.rowptr(), st.csc_slot())
+    assert spmm_maxmin.LAUNCHES["spmm_maxmin_d_dense"] == 1
+    spmm_maxmin.spmm_maxmin_d_dense_cuda(
+        *csc, st.rowptr(), st.csc_slot(),
+        path=spmm_maxmin.d_dense_path(8, 1, 4))
+    assert spmm_maxmin.LAUNCHES["spmm_maxmin_d_dense"] == 2
+    with pytest.raises(ValueError):             # rowptr of the CSC view
+        spmm_maxmin.spmm_maxmin_d_dense_cuda(*csc, st.colptr(),
+                                             st.csc_slot())
+    with pytest.raises(RuntimeError):           # 64 lanes a column
+        spmm_maxmin.spmm_maxmin_d_dense_cuda(*csc, st.rowptr(),
+                                             st.csc_slot(), path=(1, 64, 1))
 
 
 def test_gin_matches_frozen_jax_fixture(cuda):

@@ -185,7 +185,8 @@ def test_grads_match_jax(reduce, feat, has_value):
     w = None if v is None else torch.from_numpy(np.abs(v))[
         st.csr2csc().long()]
     abs_dx = K.spmm_maxmin_d_dense(st.colptr(), st.row(), st.csr2csc(), w,
-                                   arg, torch.from_numpy(np.abs(ct)))
+                                   arg, torch.from_numpy(np.abs(ct)),
+                                   st.rowptr(), st.csc_slot())
     for alg in ALGS:
         gv, gx = _jax_grads(j, has_value, v, x, ct, reduce, alg)
         assert_sum_close(xt.grad, torch.from_numpy(gx), abs_dx, 1e-5)
@@ -321,7 +322,7 @@ def test_kernel_entries_refuse_cpu_tensors():
         K.spmm_maxmin_cuda(rp, cl, v, x)
     with pytest.raises(ValueError, match="CUDA"):
         K.spmm_maxmin_d_dense_cuda(st.colptr(), st.row(), st.csr2csc(),
-                                   None, arg, x)
+                                   None, arg, x, st.rowptr(), st.csc_slot())
     with pytest.raises(ValueError, match="CUDA"):
         K.spmm_maxmin_d_values_cuda(rp, cl, arg, x, x)
     with pytest.raises(ValueError, match="MAX or MIN"):
@@ -343,7 +344,7 @@ def test_plain_backward_pieces_match_a_dense_oracle(compute):
     d_dense = K.spmm_maxmin_d_dense(
         st.colptr(), st.row(), st.csr2csc(),
         None if w is None else torch.from_numpy(w)[st.csr2csc().long()],
-        arg, gt)
+        arg, gt, st.rowptr(), st.csc_slot())
     dot = K.spmm_maxmin_d_values(rp, cl, arg, gt, xt)[:, 0]
     total = K.spmm_maxmin_d_values(rp, cl, arg, gt, None)[:, 0]
     ref_dd, ref_dot, ref_total = np.zeros((25, 3)), np.zeros(len(col)), \

@@ -179,7 +179,8 @@ def test_backward_raises():
     arg = torch.zeros(20, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         spmm_maxmin.spmm_maxmin_d_dense_cuda(st.colptr(), st.row(),
-                                             st.csr2csc(), None, arg, g)
+                                             st.csr2csc(), None, arg, g,
+                                             st.rowptr(), st.csc_slot())
     with pytest.raises(ValueError, match="CUDA"):
         spmm_maxmin.spmm_maxmin_d_values_cuda(st.rowptr(), st.col(), arg, g,
                                               None)
