@@ -41,10 +41,13 @@ exits non-zero without a result line:
        equal to a second call, to the mapping `pick_d_dense` picks and to
        the one-warp-a-column kernel.
      Then the hybrid tiers' kernels, spmm_dense_cells (forward and
-     transpose), spmm_bell (SUM and MEAN) and sddmm_cells, against their
-     plain versions, fp32 and bf16, on a small clustered graph where every
-     tier is non-empty and one row block has no dense cell (F in {1, 41,
-     64, 130}) and on the Reddit-scale storage (F = 64 and 41).
+     transpose), spmm_bell (SUM and MEAN, into fresh zeros and added into
+     a given out) and sddmm_cells, against their plain versions, fp32 and
+     bf16, on a small clustered graph where every tier is non-empty and one
+     row block has no dense cell (F in {1, 41, 64, 130}) and on the
+     Reddit-scale storage (F = 64 and 41); spmm_bell also bitwise equal to
+     its first kernel (path="tile"), to a second call and, into out, to
+     out + its standalone result, rows without BELL edges untouched.
      Then the spconv kernels: spconv_pairs forward (pairs by output, W)
      and dX (pairs by input, Wᵀ) and spconv_dw, against their plain
      versions on a two-batch cloud's submanifold, strided and inverse
@@ -120,8 +123,14 @@ exits non-zero without a result line:
      spmm_dense_cells forward and
      transpose, spmm_bell and sddmm_cells beside their plain versions and
      torch.bmm over the gathered blocks (cuSPARSE over the BELL edges for
-     spmm_bell), and the whole hybrid SpMM against csr_spmm and cuSPARSE
-     over the full CSR. On the 60,000-voxel cloud (bench_spconv's SubM at
+     spmm_bell); spmm_bell standalone and added into a given out, beside
+     its first kernel (path="tile", into out with `out +=`) and, into out,
+     torch.addmm(out, BELL CSR, x), its bound counting the distinct B rows
+     its edges reference, 8 bytes a real slot, the row runs and the output
+     (all of it standalone, the BELL rows read and written into out); the
+     whole hybrid SpMM against its old composition (BELL into a fresh
+     output, then `out +=`; bitwise equal), csr_spmm and cuSPARSE over the
+     full CSR. On the 60,000-voxel cloud (bench_spconv's SubM at
      32->32 and 64->64, and the four convs of "unet-60k"): spconv_pairs
      forward and dX and spconv_dw beside their plain versions and the
      dense cuDNN call over the densified grid (conv3d, conv_transpose3d
@@ -134,8 +143,10 @@ exits non-zero without a result line:
      steps, and of gcn-reddit and unet-60k, device time per step by
      kernel and the
      device's busy share of the wall time; gin-max-arxiv's d_dense passes
-     (winner_mask_kernel, d_dense_cols_kernel) and gat-arxiv's
-     sddmm_group_kernel by name.
+     (winner_mask_kernel, d_dense_cols_kernel), gat-arxiv's
+     sddmm_group_kernel and gcn-reddit's bell_rows_kernel and
+     bell_long_kernel by name, and
+     gcn-reddit's elementwise float adds (the tier sums among them).
 Then one JSON line of per-kernel results, the card's name and power
 limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -211,10 +222,12 @@ REDDIT_FEATS = (64, 41)
 # the max/min kernel phase: the compute ops (None: copy_u) and widths
 MAXMIN_COMPUTES = (None, "add", "sub", "mul", "div")
 MAXMIN_FEATS = {"p2p": (32,), "arxiv": (128, 256)}
-# kernels phase 8 reports by name: d_dense's two passes, the group SDDMM
+# kernels phase 8 reports by name: d_dense's two passes, the group SDDMM,
+# the BELL kernels of short and long rows
 PROFILED_PASSES = {"gin-max-arxiv": ("winner_mask_kernel",
                                      "d_dense_cols_kernel"),
-                   "gat-arxiv": ("sddmm_group_kernel",)}
+                   "gat-arxiv": ("sddmm_group_kernel",),
+                   "gcn-reddit": ("bell_rows_kernel", "bell_long_kernel")}
 # the spconv kernels' (c_in, c_out): the UNet's convs and a ragged pair
 SPCONV_CHANNELS = ((8, 32), (32, 64), (64, 64), (7, 33))
 # the point clouds of the UNet configurations
@@ -607,13 +620,17 @@ def phase_hybrid_kernels(torch, cuda, reddit):
     against their plain versions: on a small clustered graph where every
     tier is non-empty and one row block has no dense cell, at F in
     HYBRID_FEATS, and on the Reddit-scale storage at F = 64 and 41; float32
-    at 1e-5 and bfloat16 at 1e-2, scaled by the terms' absolute sum."""
+    at 1e-5 and bfloat16 at 1e-2, scaled by the terms' absolute sum.
+    spmm_bell in both modes (fresh, and added into a given out), also
+    bitwise against its first kernel (path="tile")."""
     import numpy as np
 
     from dgsparse_tpu_torch import SparseTensor
+    from dgsparse_tpu_torch.core.planner import build_bell_plan
     from dgsparse_tpu_torch.kernels import spmm_bell as B
     from dgsparse_tpu_torch.kernels import spmm_cells as C
-    from dgsparse_tpu_torch.utils.testing import assert_sum_close, hybrid_csr
+    from dgsparse_tpu_torch.utils.testing import (assert_sum_close, block_csr,
+                                                  hybrid_csr)
 
     errs = {k: {"float32": 0.0, "bfloat16": 0.0}
             for k in ("spmm_dense_cells", "spmm_bell", "sddmm_cells")}
@@ -627,6 +644,39 @@ def phase_hybrid_kernels(torch, cuda, reddit):
         torch.cuda.synchronize()
         e = assert_sum_close(out, ref, abs_sum, TOL[dtype])
         errs[kernel][dtype] = max(errs[kernel][dtype], e)
+        return e
+
+    def bell_case(plan, vals, x, reduce, deg, dtype):
+        # both modes: into fresh zeros, and added into a given out (the
+        # hybrid SpMM's); each against the plain version, bitwise against
+        # the first port's kernel (path="tile") and a second call; in place,
+        # bitwise out + the standalone result, rows without BELL edges
+        # untouched
+        args = (plan, vals, x, reduce, deg)
+        out = B.spmm_bell_cuda(*args)
+        abs_sum = B.spmm_bell_plain(plan, vals.abs(), x.float().abs(),
+                                    reduce, deg)
+        e = check("spmm_bell", dtype, out, B.spmm_bell_plain(*args), abs_sum)
+        o = randn(plan.num_rows, x.shape[1])
+        into = [o.clone() for _ in range(3)]
+        B.spmm_bell_cuda(*args, out=into[0])
+        B.spmm_bell_cuda(*args, out=into[1])
+        B.spmm_bell_cuda(*args, out=into[2], path="tile")
+        e = max(e, check("spmm_bell", dtype, into[0],
+                         B.spmm_bell_plain(*args, out=o.clone()), abs_sum))
+        off = torch.ones(plan.num_rows, dtype=torch.bool, device=cuda)
+        off[plan.rows.long()] = False
+        for what, a, b in (
+                ("the tile path", out, B.spmm_bell_cuda(*args, path="tile")),
+                ("a second call", out, B.spmm_bell_cuda(*args)),
+                ("the tile path, into out", into[0], into[2]),
+                ("a second call, into out", into[0], into[1]),
+                ("out + standalone", into[0], o + out),
+                ("out off the BELL rows", into[0][off], o[off])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"spmm_bell {reduce} {dtype} F="
+                                     f"{x.shape[1]}: not bitwise equal to "
+                                     f"{what}")
         return e
 
     def cases(tag, st, feats):
@@ -647,13 +697,8 @@ def phase_hybrid_kernels(torch, cuda, reddit):
                         "spmm_dense_cells", dtype, out, ref, abs_sum))
                 x = randn(hp.num_cols, feat, dtype=dtype)
                 for reduce in ("sum", "mean"):
-                    args = (hp.bell, tiers["bell"], x, reduce, deg)
-                    out = B.spmm_bell_cuda(*args)
-                    ref = B.spmm_bell_plain(*args)
-                    abs_sum = B.spmm_bell_plain(hp.bell, tiers["bell"].abs(),
-                                                x.float().abs(), reduce, deg)
-                    worst["spmm_bell"].append(check("spmm_bell", dtype, out,
-                                                    ref, abs_sum))
+                    worst["spmm_bell"].append(bell_case(
+                        hp.bell, tiers["bell"], x, reduce, deg, dtype))
                 d1 = randn(hp.num_rows, feat, dtype=dtype)
                 d2 = randn(hp.num_cols, feat, dtype=dtype)
                 out = C.sddmm_cells_cuda(plan, d1, d2)
@@ -664,8 +709,10 @@ def phase_hybrid_kernels(torch, cuda, reddit):
                                                   ref, abs_sum))
             log(f"[hybrid] {tag} F={feat} fp32/bf16: spmm_dense_cells "
                 f"forward and transpose max_abs_err "
-                f"{max(worst['spmm_dense_cells']):.3e}, spmm_bell sum/mean "
-                f"{max(worst['spmm_bell']):.3e}, sddmm_cells "
+                f"{max(worst['spmm_dense_cells']):.3e}, spmm_bell sum/mean, "
+                f"fresh and into out {max(worst['spmm_bell']):.3e} (bitwise "
+                f"equal to path='tile', to a second call and to out + the "
+                f"standalone result), sddmm_cells "
                 f"{max(worst['sddmm_cells']):.3e}")
 
     rowptr, col, vals = hybrid_csr()
@@ -681,6 +728,25 @@ def phase_hybrid_kernels(torch, cuda, reddit):
         f"{_hybrid_stats(small)}; row blocks without a cell "
         f"{sorted(no_cell)}")
     cases("small", small, HYBRID_FEATS)
+    # a BELL plan with long rows (a warp each), runs spanning tiles
+    rowptr, col, vals, n = block_csr(heavy=True)
+    heavy = build_bell_plan(rowptr, col, n, device=cuda)
+    ep = heavy.eperm
+    slot_vals = torch.from_numpy(
+        np.where(ep >= 0, vals[np.maximum(ep, 0)], 0).astype(np.float32)
+    ).to(cuda)
+    deg = torch.from_numpy(np.diff(rowptr)).to(cuda)
+    worst = []
+    for feat in HYBRID_FEATS:
+        for dtype in ("float32", "bfloat16"):
+            x = randn(n, feat, dtype=dtype)
+            for reduce in ("sum", "mean"):
+                worst.append(bell_case(heavy, slot_vals, x, reduce, deg,
+                                       dtype))
+    log(f"[hybrid] spmm_bell on a BELL plan with {heavy.num_long_rows} long "
+        f"rows of {heavy.num_bell_rows}, F in {HYBRID_FEATS}, fp32/bf16, "
+        f"sum/mean, fresh and into out: max_abs_err {max(worst):.3e}, "
+        f"bitwise as above")
     st = reddit.storage
     log(f"[hybrid] reddit: {st.num_rows} nodes, {_hybrid_stats(st)}; the "
         f"storage holds {_device_bytes(st)} B on the card, of which the "
@@ -1068,6 +1134,7 @@ def plain_kernels():
              (M, "spmm_maxmin_d_values_cuda", M.spmm_maxmin_d_values_plain),
              (C, "spmm_dense_cells_cuda", C.spmm_dense_cells_plain),
              (C, "sddmm_cells_cuda", C.sddmm_cells_plain),
+             # out= as the router passes it: added into in place
              (B, "spmm_bell_cuda", B.spmm_bell_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1237,6 +1304,12 @@ def phase_profile(torch, cuda, graphs, steps=3):
         for us, count, key in rows[:25]:
             log(f"[profile]   {us / steps:10.1f} us/step {count // steps:4d} "
                 f"calls/step  {key[:110]}")
+        if config == "gcn-reddit":
+            # the float adds (`+=`, `add_`): the tier sums among them
+            adds = [r for r in rows if "CUDAFunctor_add" in r[2]]
+            log(f"[profile]   {config} elementwise float adds: "
+                f"{sum(r[0] for r in adds) / steps:.1f} us/step in "
+                f"{sum(r[1] for r in adds) // steps} calls/step")
         # the redesigned kernels of the step, by name
         for kernel in PROFILED_PASSES.get(config, ()):
             hits = [r for r in rows if kernel in r[2]]
@@ -1504,9 +1577,33 @@ def phase_sddmm_hybrid(torch, cuda, reddit):
     return launches
 
 
-def _window_bytes(ids, block, feat, itemsize):
-    """Bytes of the distinct 128-row blocks `ids` of a [*, F] table."""
-    return len(set(ids.tolist())) * block * feat * itemsize
+def _bell_reads(plan):
+    """(distinct B rows the BELL edges reference, bytes of the real slots'
+    columns and values and of the row-run arrays): what any BELL SpMM
+    must read besides out."""
+    import numpy as np
+
+    real = np.nonzero(plan.eperm >= 0)[0]
+    cw = plan.tile_cw.cpu().numpy().astype(np.int64)
+    cols = cw[real // plan.edge_tile] * plan.col_window + \
+        plan.lcol.cpu().numpy()[real]
+    runs = sum(getattr(plan, k).numel()
+               for k in ("rows", "run_ptr", "run_slot", "run_len"))
+    return len(np.unique(cols)), 8 * len(real) + 4 * runs
+
+
+def _old_hybrid(torch, st, tiers, x):
+    """The hybrid SpMM (SUM) as it was composed before BELL added in
+    place: the first BELL kernel into a fresh output, then `out +=`."""
+    from dgsparse_tpu_torch.kernels import spmm_bell as B
+    from dgsparse_tpu_torch.kernels import spmm_cells as C
+    from dgsparse_tpu_torch.kernels import spmm_csr as K
+
+    hp = st.ell_plan()
+    out = K.csr_spmm_cuda(hp.res.rowptr, hp.res.col, tiers["res"], x).float()
+    out += C.spmm_dense_cells_cuda(hp.cells, tiers["cells"], x)
+    out += B.spmm_bell_cuda(hp.bell, tiers["bell"], x, path="tile")
+    return out
 
 
 def phase_hybrid_numbers(torch, cuda, reddit):
@@ -1514,14 +1611,20 @@ def phase_hybrid_numbers(torch, cuda, reddit):
     storage at F = 64 and 41 of spmm_dense_cells (forward and transpose),
     spmm_bell and sddmm_cells beside their plain versions, one PyTorch call
     each (torch.bmm over the gathered cell and window blocks, TF32 off;
-    cuSPARSE over the BELL tier's sub-CSR) and their bounds; then the whole
-    hybrid SpMM against csr_spmm and cuSPARSE over the full CSR."""
+    cuSPARSE over the BELL tier's sub-CSR) and their bounds; spmm_bell
+    standalone and added into a given out (the hybrid SpMM's mode), each
+    beside its first kernel (path="tile"; into out, with `out +=`), and
+    into out beside torch.addmm(out, BELL CSR, x); then the whole hybrid
+    SpMM, beside its old composition (BELL into a fresh output, then
+    `out +=`), csr_spmm and cuSPARSE over the full CSR."""
     import numpy as np
 
+    from dgsparse_tpu_torch.core.planner import LONG_ROW_SLOTS
     from dgsparse_tpu_torch.kernels import spmm_bell as B
     from dgsparse_tpu_torch.kernels import spmm_cells as C
     from dgsparse_tpu_torch.kernels import spmm_csr as K
     from dgsparse_tpu_torch.ops.hybrid import spmm_hybrid
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
 
     st = reddit.storage
     hp, tiers = st.ell_plan(), st.tier_values()
@@ -1548,6 +1651,8 @@ def phase_hybrid_numbers(torch, cuda, reddit):
             f"bound")
 
     # the BELL tier as a CSR of its own edges, for cuSPARSE
+    run_len = hp.bell.run_len.cpu().numpy()
+    row_slots = np.add.reduceat(run_len, hp.bell.run_ptr.cpu().numpy()[:-1])
     ep = hp.bell.eperm
     ids = np.sort(ep[ep >= 0])
     b_rowptr = torch.from_numpy(np.searchsorted(
@@ -1574,17 +1679,60 @@ def phase_hybrid_numbers(torch, cuda, reddit):
                    f"reddit {'transpose' if transpose else 'forward'} "
                    f"F={feat}", ms, "torch.bmm(cells, gathered window "
                    "blocks [ncells, 128, F]), TF32 off")
+        # spmm_bell (i) standalone: the row-run kernel with its zeros, the
+        # first kernel (path="tile", every row written), plain, cuSPARSE
         args = (hp.bell, tiers["bell"], x)
-        ms = _time_turns({"kernel": (B.spmm_bell_cuda, args),
-                          "plain": (B.spmm_bell_plain, args),
-                          "library": (torch.matmul, (bell_csr, x))})
-        ms.update(bound(
-            _window_bytes(hp.bell.tile_cw.cpu().numpy()[
-                :int(hp.bell.tile_ptr[-1])], 128, feat, 4)
-            + 12 * hp.bell.padded_edges + 4 * m * feat,
-            2.0 * hp.bell.nnz * feat))
+        b_rows, b_meta = _bell_reads(hp.bell)
+        bell_ops = 2.0 * hp.bell.nnz * feat
+        ms = _time_turns({
+            "kernel": (B.spmm_bell_cuda, args),
+            "old_mapping": (functools.partial(B.spmm_bell_cuda, path="tile"),
+                            args),
+            "plain": (B.spmm_bell_plain, args),
+            "library": (torch.matmul, (bell_csr, x))})
+        ms.update(bound(4 * b_rows * feat + b_meta + 4 * m * feat, bell_ops))
+        ms["distinct_b_rows"] = b_rows
         report("spmm_bell", f"reddit F={feat}", ms,
                "torch.matmul(sparse_csr of the BELL edges, dense) (cuSPARSE)")
+        log(f"[numbers] spmm_bell reddit F={feat} standalone: first kernel "
+            f"(path='tile') {ms['old_mapping'] * 1e3:.2f} us; {b_rows} "
+            f"distinct B rows, {hp.bell.num_bell_rows} BELL rows of which "
+            f"{hp.bell.num_long_rows} long; slots a row: median "
+            f"{np.median(row_slots):.0f}, 99th percentile "
+            f"{np.percentile(row_slots, 99):.0f}, max {row_slots.max()}, "
+            f"{row_slots[row_slots >= LONG_ROW_SLOTS].sum()} of "
+            f"{row_slots.sum()} in the long rows")
+        # (ii) added into a given out, as the hybrid SpMM runs it: the
+        # row-run kernel in place, the old pair (first kernel, out +=),
+        # plain, and torch.addmm(out, BELL CSR, x) as the one PyTorch call
+        o = torch.randn(m, feat, generator=gen, device=cuda)
+        fns = {
+            "kernel": (functools.partial(B.spmm_bell_cuda, out=o), args),
+            "old_mapping": (functools.partial(B.spmm_bell_cuda, out=o,
+                                              path="tile"), args),
+            "plain": (functools.partial(B.spmm_bell_plain, out=o), args)}
+        call = "torch.addmm(out, sparse_csr of the BELL edges, dense)"
+        try:
+            lib = torch.addmm(o, bell_csr, x)
+            fns["library"] = (torch.addmm, (o, bell_csr, x))
+        except RuntimeError as err:
+            lib = o + torch.matmul(bell_csr, x)
+            fns["two_calls"] = (lambda o_, a_, x_: o_ + torch.matmul(a_, x_),
+                                (o, bell_csr, x))
+            call = (f"torch.addmm raises on CUDA ({str(err)[:80]}); two "
+                    "calls, not one: out + torch.matmul(BELL CSR, dense)")
+        ref = B.spmm_bell_cuda(*args, out=o.clone())
+        abs_sum = B.spmm_bell_plain(hp.bell, tiers["bell"].abs(), x.abs(),
+                                    out=o.abs())
+        assert_sum_close(lib, ref, abs_sum, TOL["float32"])
+        ms = _time_turns(fns)
+        ms.update(bound(4 * b_rows * feat + b_meta
+                        + 2 * 4 * hp.bell.num_bell_rows * feat, bell_ops))
+        report("spmm_bell", f"reddit F={feat} into out", ms, call)
+        log(f"[numbers] spmm_bell reddit F={feat} into out: old pair "
+            f"(path='tile', out +=) {ms['old_mapping'] * 1e3:.2f} us"
+            + (f", two calls {ms['two_calls'] * 1e3:.2f} us"
+               if "two_calls" in ms else ""))
         d1 = torch.randn(m, feat, generator=gen, device=cuda)
         d2 = torch.randn(n, feat, generator=gen, device=cuda)
         args = (plan, d1, d2)
@@ -1603,8 +1751,13 @@ def phase_hybrid_numbers(torch, cuda, reddit):
         # the whole SpMM: the three tiers, the CSR kernel, cuSPARSE
         full = torch.sparse_csr_tensor(st.rowptr(), st.col(), st.values(),
                                        size=(m, n))
+        if not torch.equal(spmm_hybrid(st, tiers, x),
+                           _old_hybrid(torch, st, tiers, x)):
+            raise AssertionError("the hybrid SpMM is not bitwise equal to "
+                                 "its old composition")
         ms = _time_turns({
             "hybrid": (spmm_hybrid, (st, tiers, x)),
+            "old_route": (_old_hybrid, (torch, st, tiers, x)),
             "csr_spmm": (K.csr_spmm_cuda, (st.rowptr(), st.col(),
                                            st.values(), x)),
             "library": (torch.matmul, (full, x))})
@@ -1614,7 +1767,9 @@ def phase_hybrid_numbers(torch, cuda, reddit):
         ms["library_call"] = "torch.matmul(sparse_csr, dense) (cuSPARSE)"
         results["hybrid_spmm"][f"reddit F={feat}"] = ms
         log(f"[numbers] whole SpMM reddit F={feat} (fp32, {st.nnz} nnz): "
-            f"hybrid tiers {ms['hybrid'] * 1e3:.2f} us, csr_spmm "
+            f"hybrid tiers {ms['hybrid'] * 1e3:.2f} us (old route, BELL "
+            f"into a fresh output and out +=, {ms['old_route'] * 1e3:.2f} "
+            f"us; bitwise equal), csr_spmm "
             f"{ms['csr_spmm'] * 1e3:.2f} us, cuSPARSE "
             f"{ms['library'] * 1e3:.2f} us, CSR bound "
             f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
@@ -2078,7 +2233,8 @@ def run(torch, cuda) -> int:
         _kernel_entry(
             "spmm_bell", "dgsparse_tpu_torch/csrc/spmm_bell.cu",
             "dgsparse_tpu/kernels/pallas_spmm.py:844", paths("spmm_bell"),
-            errs["spmm_bell"], times["spmm_bell"], "reddit F=64", card),
+            errs["spmm_bell"], times["spmm_bell"], "reddit F=64 into out",
+            card),
         _kernel_entry(
             "sddmm_cells", "dgsparse_tpu_torch/csrc/spmm_cells.cu",
             "dgsparse_tpu/kernels/pallas_sddmm.py:125", paths("sddmm_cells"),

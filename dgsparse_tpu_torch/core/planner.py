@@ -179,7 +179,16 @@ class BellPlan(_OnDevice):
     row block's run of tiles. Tiles are sorted by (rb, cw) and, within a
     cell, keep CSR edge order, so `lrow` does not decrease inside a tile;
     row blocks without edges get one all-padding tile each, appended last
-    (outside every `tile_ptr` run)."""
+    (outside every `tile_ptr` run).
+
+    The row runs, for the kernel's one pass over the rows that have edges
+    (device, int32): within a tile a row's slots are one run of
+    consecutive slots. `rows` [R] are the rows with edges: those of fewer
+    than LONG_ROW_SLOTS slots, ascending, then the `num_long_rows` others,
+    ascending; `run_ptr` [R + 1] each row's runs, in tile order;
+    `run_slot` / `run_len` [number of runs] a run's first slot (its tile
+    is `run_slot // edge_tile`) and its length. Padding slots are in no
+    run."""
 
     lcol: torch.Tensor
     lrow: torch.Tensor
@@ -187,6 +196,11 @@ class BellPlan(_OnDevice):
     tile_rb: torch.Tensor
     tile_cw: torch.Tensor
     tile_ptr: torch.Tensor
+    rows: torch.Tensor
+    run_ptr: torch.Tensor
+    run_slot: torch.Tensor
+    run_len: torch.Tensor
+    num_long_rows: int
     num_tiles: int
     edge_tile: int
     row_block: int
@@ -201,8 +215,44 @@ class BellPlan(_OnDevice):
     def padded_edges(self) -> int:
         return self.num_tiles * self.edge_tile
 
+    @property
+    def num_bell_rows(self) -> int:
+        return self.rows.shape[0]
+
     def pad_ratio(self) -> float:
         return self.padded_edges / max(self.nnz, 1)
+
+
+# a BELL row of at least this many slots is "long": the kernel gives it a
+# warp of its own with more gathers in flight (`csrc/spmm_bell.cu`)
+LONG_ROW_SLOTS = 64
+
+
+def _row_runs(slot: np.ndarray, row: np.ndarray, edge_tile: int):
+    """(rows, run_ptr, run_slot, run_len, number of long rows) of BellPlan
+    from the real slots `slot` (ascending) and their rows: a run is a
+    maximal stretch of one row's consecutive slots in one tile; each row's
+    runs in tile order; the rows of fewer than LONG_ROW_SLOTS slots first,
+    then the long ones, each part ascending."""
+    if len(slot) == 0:
+        z = np.zeros(0, np.int64)
+        return z, np.zeros(1, np.int64), z, z, 0
+    tile = slot // edge_tile
+    start = np.ones(len(slot), bool)
+    start[1:] = (tile[1:] != tile[:-1]) | (row[1:] != row[:-1])
+    first = np.nonzero(start)[0]
+    run_len = np.diff(np.append(first, len(slot)))
+    run_row = row[first]
+    rows, counts = np.unique(run_row, return_counts=True)
+    row_slots = np.bincount(np.searchsorted(rows, run_row), run_len)
+    long = row_slots >= LONG_ROW_SLOTS
+    # by (long, row), stable: each row's runs stay in tile order
+    order = np.lexsort((run_row, long[np.searchsorted(rows, run_row)]))
+    row_order = np.argsort(long, kind="stable")
+    run_ptr = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum(counts[row_order], out=run_ptr[1:])
+    return (rows[row_order], run_ptr, slot[first][order], run_len[order],
+            int(long.sum()))
 
 
 def build_bell_plan(rowptr: np.ndarray, col: np.ndarray, num_cols: int,
@@ -249,6 +299,7 @@ def build_bell_plan(rowptr: np.ndarray, col: np.ndarray, num_cols: int,
         lcol[slot] = lc_all
         lrow[slot] = lr_all
         eperm[slot] = order.astype(np.int32)
+        runs = _row_runs(slot, coo_row[order], edge_tile)
         tile_rb = np.repeat(cell_rb, n_tiles_c)
         tile_cw = np.repeat(cell_cw, n_tiles_c)
         blk_deg = np.zeros(num_rb, np.int64)
@@ -259,6 +310,7 @@ def build_bell_plan(rowptr: np.ndarray, col: np.ndarray, num_cols: int,
         eperm = np.zeros(0, np.int32)
         tile_rb = tile_cw = np.zeros(0, np.int32)
         empty_rb = np.arange(num_rb, dtype=np.int32)
+        runs = _row_runs(np.zeros(0, np.int64), None, edge_tile)
     tile_ptr = _counts_ptr(tile_rb, num_rb)
     if len(empty_rb):
         pad_n = len(empty_rb) * edge_tile
@@ -268,10 +320,17 @@ def build_bell_plan(rowptr: np.ndarray, col: np.ndarray, num_cols: int,
         tile_rb = np.concatenate([tile_rb, empty_rb])
         tile_cw = np.concatenate([tile_cw,
                                   np.zeros(len(empty_rb), np.int32)])
+    if len(lcol) >= 2 ** 31:
+        raise ValueError(f"{len(lcol)} BELL slots: int32 slot ids take "
+                         "fewer than 2^31")
+    rows, run_ptr, run_slot, run_len, num_long = runs
     return BellPlan(
         lcol=_dev(lcol, device), lrow=_dev(lrow, device), eperm=eperm,
         tile_rb=_dev(tile_rb, device), tile_cw=_dev(tile_cw, device),
-        tile_ptr=_dev(tile_ptr, device), num_tiles=len(tile_rb),
+        tile_ptr=_dev(tile_ptr, device), rows=_dev(rows, device),
+        run_ptr=_dev(run_ptr, device), run_slot=_dev(run_slot, device),
+        run_len=_dev(run_len, device), num_long_rows=num_long,
+        num_tiles=len(tile_rb),
         edge_tile=edge_tile, row_block=row_block, col_window=col_window,
         num_row_blocks=num_rb, num_col_windows=num_cw, num_rows=m,
         num_cols=num_cols, nnz=nnz)

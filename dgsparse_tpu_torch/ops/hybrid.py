@@ -12,6 +12,13 @@ Counterparts of `spmm_hybrid` and `spmm_hybrid_t`
 The cells run `kernels/spmm_cells.py`, BELL `kernels/spmm_bell.py`, and the
 residue, the non-cell transpose and the non-cell SDDMM the CSR kernels
 (`csr_spmm`, `sddmm_csr`). Tier sums are float32.
+
+The forward's BELL tier adds into the tier sum in place (`spmm_bell(...,
+out=out)`: only the rows with BELL edges are read and written), where the
+JAX function adds a fresh [M, F] output. The sum is the forward's own
+tensor, made here and not yet returned (inside the autograd Function's
+forward, `ops/spmm.py`), so nothing else sees the update; the order of
+the additions, residue then cells then BELL, is unchanged.
 """
 
 import torch
@@ -37,7 +44,7 @@ def spmm_hybrid(st: Storage, tiers: dict, dense: torch.Tensor,
     if hp.cells is not None:
         out += spmm_dense_cells(hp.cells, tiers["cells"], dense)
     if hp.bell is not None:
-        out += spmm_bell(hp.bell, tiers["bell"], dense)
+        spmm_bell(hp.bell, tiers["bell"], dense, out=out)
     if reduce == ReduceOp.MEAN:
         deg = st.rowptr()[1:] - st.rowptr()[:-1]
         out /= torch.clamp(deg, min=1).float()[:, None]

@@ -107,6 +107,30 @@ def hybrid_csr(m: int = 1500, n: int = 1500, deg: float = 40,
     return rowptr.astype(np.int32), col, vals
 
 
+def block_csr(m: int = 700, n: int = 600, seed: int = 0, heavy: bool = False
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """(rowptr, col, vals, n): rows in row blocks 0, 2 and 4 with ~150
+    edges per (block, 128-column window) cell, rows of blocks 1, 3 and 5
+    empty (so a BELL plan's all-padding tiles), rows 0, 17, 34, ... empty,
+    duplicates kept, columns unsorted within a row (a self-loop appended
+    last). With `heavy`, rows 5, 260 and 600 hold 300, 90 and 70 edges:
+    the BELL kernel's long rows, with runs that span tiles. The BELL
+    tests' graph (`tests/test_torch_bell.py`)."""
+    rng = np.random.default_rng(seed)
+    degs = np.where((np.arange(m) // 128) % 2 == 0,
+                    rng.poisson(6, m), 0).astype(np.int64)
+    degs[::17] = 0
+    if heavy:
+        degs[[5, 260, 600]] = [300, 90, 70]
+    cols = [np.append(np.sort(rng.integers(0, n, d)), r % n)
+            if d else np.zeros(0, np.int64) for r, d in enumerate(degs)]
+    col = np.concatenate(cols).astype(np.int32)
+    rowptr = np.zeros(m + 1, np.int64)
+    rowptr[1:] = np.cumsum([len(c) for c in cols])
+    vals = rng.standard_normal(len(col)).astype(np.float32)
+    return rowptr.astype(np.int32), col, vals, n
+
+
 def random_cloud(num_points: int = 200, shape=(13, 11, 9), batch: int = 2,
                  seed: int = 0) -> np.ndarray:
     """Seeded coords [n, 4] int32 (batch, x, y, z) of distinct voxels drawn

@@ -660,26 +660,68 @@ def test_spmm_dense_cells_matches_plain(cuda, feat, transpose, dtype):
     assert torch.equal(out, again)             # no atomics: repeatable
 
 
+def _heavy_bell(cuda):
+    """A BELL plan whose long rows (LONG_ROW_SLOTS slots or more) take the
+    kernel's warp-a-row path: (plan, slot values, degrees)."""
+    from dgsparse_tpu_torch.core import planner
+    from dgsparse_tpu_torch.utils.testing import block_csr
+
+    rowptr, col, vals, n = block_csr(heavy=True)
+    plan = planner.build_bell_plan(rowptr, col, n, device=cuda)
+    ep = plan.eperm
+    slot_vals = np.where(ep >= 0, vals[np.maximum(ep, 0)], 0)
+    return (plan, torch.from_numpy(slot_vals.astype(np.float32)).to(cuda),
+            torch.from_numpy(np.diff(rowptr)).to(cuda))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("feat", [1, 41, 64, 130])
-def test_spmm_bell_matches_plain(cuda, feat, reduce, dtype):
+@pytest.mark.parametrize("mode", ["fresh", "into_out"])
+@pytest.mark.parametrize("graph", ["hybrid", "long_rows"])
+def test_spmm_bell_matches_plain(cuda, graph, mode, feat, reduce, dtype):
+    # the row-run kernels, into fresh zeros or added into a given out,
+    # against the plain version and bitwise against the first port's
+    # kernel (path="tile"), which adds in the same order
     from dgsparse_tpu_torch.kernels import spmm_bell
 
-    st = _hybrid(cuda).storage
-    plan, vals = st.ell_plan().bell, st.tier_values()["bell"]
-    deg = st.rowptr()[1:] - st.rowptr()[:-1]
+    if graph == "hybrid":
+        st = _hybrid(cuda).storage
+        plan, vals = st.ell_plan().bell, st.tier_values()["bell"]
+        deg = st.rowptr()[1:] - st.rowptr()[:-1]
+        assert plan.num_long_rows == 0
+    else:
+        plan, vals, deg = _heavy_bell(cuda)
+        assert plan.num_long_rows == 3
+    m, n = plan.num_rows, plan.num_cols
     g = torch.Generator(device=cuda).manual_seed(feat)
-    x = torch.randn(1500, feat, generator=g, device=cuda).to(
+    x = torch.randn(n, feat, generator=g, device=cuda).to(
         getattr(torch, dtype))
-    out = spmm_bell.spmm_bell_cuda(plan, vals, x, reduce, deg)
-    ref = spmm_bell.spmm_bell_plain(plan, vals, x, reduce, deg)
+    o = (torch.randn(m, feat, generator=g, device=cuda)
+         if mode == "into_out" else None)
+
+    def run(fn, **kw):
+        if o is None:
+            return fn(plan, vals, x, reduce, deg, **kw)
+        dst = o.clone()
+        assert fn(plan, vals, x, reduce, deg, out=dst, **kw) is dst
+        return dst
+
+    out = run(spmm_bell.spmm_bell_cuda)
+    ref = run(spmm_bell.spmm_bell_plain)
     abs_sum = spmm_bell.spmm_bell_plain(plan, vals.abs(), x.float().abs(),
                                         reduce, deg)
     torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (m, feat)
     assert_sum_close(out, ref, abs_sum, TOLS[dtype])
-    again = spmm_bell.spmm_bell_cuda(plan, vals, x, reduce, deg)
-    assert torch.equal(out, again)             # no atomics: repeatable
+    assert torch.equal(out, run(spmm_bell.spmm_bell_cuda, path="tile"))
+    assert torch.equal(out, run(spmm_bell.spmm_bell_cuda))  # repeatable
+    if o is not None:
+        standalone = spmm_bell.spmm_bell_cuda(plan, vals, x, reduce, deg)
+        assert torch.equal(out, o + standalone)
+        off = torch.ones(m, dtype=torch.bool, device=cuda)
+        off[plan.rows.long()] = False
+        assert off.any() and torch.equal(out[off], o[off])   # bits kept
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -832,7 +874,8 @@ def test_plan_sorted_on_the_card_equals_the_host_plan(cuda):
              (hp.nd_t.ids, cp.nd_t.ids)]
     for name in ("cell_rb", "cell_cw", "t_order", "fwd_ptr", "t_ptr"):
         pairs.append((getattr(hp.cells, name), getattr(cp.cells, name)))
-    for name in ("lcol", "lrow", "tile_ptr"):
+    for name in ("lcol", "lrow", "tile_ptr", "rows", "run_ptr", "run_slot",
+                 "run_len"):
         pairs.append((getattr(hp.bell, name), getattr(cp.bell, name)))
     pairs += [(hp.nd_t.col, cp.nd_t.col), (hp.edge_src, cp.edge_src)]
     for a, b in pairs:
@@ -861,6 +904,14 @@ def test_hybrid_kernels_refuse_bad_inputs(cuda):
         spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"][:5], x)
     with pytest.raises(ValueError):
         spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x.cpu())
+    for bad in (torch.zeros(1500, 8, dtype=torch.bfloat16, device=cuda),
+                torch.zeros(1500, 9, device=cuda),
+                torch.zeros(1500, 8),
+                torch.zeros(8, 1500, device=cuda).t()):
+        with pytest.raises(ValueError, match="out"):
+            spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x, out=bad)
+    with pytest.raises(ValueError, match="path"):
+        spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x, path="warp")
 
 
 # --- spconv: spconv_pairs and spconv_dw --------------------------------------
