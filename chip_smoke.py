@@ -64,22 +64,33 @@ exits non-zero without a result line:
      against the JAX package's PALLAS_ROW_TILE run (hybrid_small.npz): the
      forward and 2 Adam steps, with exact launches; the point-cloud UNet
      against unet_small.npz: the forward and 3 Adam steps, as the GIN.
+     Then the slot-space attention on small graphs (`phase_attention`):
+     gat_attention through the kernels against their plain versions and
+     the frozen JAX forward and edge-space gradients
+     (attention_small.npz), a GATConv on the slot route against the
+     frozen JAX GATConv, the public slot chain against the edge-order
+     chain, and hybrid values changed in place and by an optimizer step,
+     the hybrid route against the CSR route.
   5. main path 1, serving: 5 forward requests each of the GCN at the Cora
      shape, at the arxiv scale and at the Reddit scale (232,965 nodes,
-     ~114.8 M edges, 602 -> 64 -> 41, on its hybrid plan), and of the
-     3-layer GIN-max on Cora and arxiv, and of the point-cloud UNet on its
-     20,000- and 60,000-voxel clouds (`entry.SERVE_CONFIGS`), eval mode
-     under inference_mode, through the kernels (per forward: GCN 2
-     csr_spmm, the Reddit GCN 2 spmm_dense_cells, 2 spmm_bell and 2
-     csr_spmm for the residue, GIN 2 spmm_maxmin, UNet 4 spconv_pairs,
-     nothing else), checked
+     ~114.8 M edges, 602 -> 64 -> 41, on its hybrid plan), of the 4-head
+     GAT on the same Reddit-scale graph (602 -> 16 x 4 -> 41, the slot
+     route), of the 3-layer GIN-max on Cora and arxiv, and of the
+     point-cloud UNet on its 20,000- and 60,000-voxel clouds
+     (`entry.SERVE_CONFIGS`), eval mode under inference_mode, through the
+     kernels (per forward: GCN 2 csr_spmm, the Reddit GCN 2
+     spmm_dense_cells, 2 spmm_bell and 2 csr_spmm for the residue, the
+     Reddit GAT 5 of each (one gat_attention a head), GIN 2 spmm_maxmin,
+     UNet 4 spconv_pairs, nothing else), checked
      finite and against the same model with the plain versions at 1e-4.
   6. main path 2, training: 5 Adam steps each of gcn-cora, gat-cora,
-     gcn-arxiv, gat-arxiv, gin-max-cora, gin-max-arxiv, gcn-reddit, unet
-     and unet-60k (`entry.TRAIN_CONFIGS`) through the kernels, with exact
-     launches per step (GCN: csr_spmm 4; GAT: csr_spmm 4, sddmm_csr 2;
-     GIN-max: spmm_maxmin 2, its d_dense 1, its d_values 0; the Reddit
-     GCN: spmm_dense_cells 4, spmm_bell 2, csr_spmm 4; UNet: spconv_pairs
+     gcn-arxiv, gat-arxiv, gin-max-cora, gin-max-arxiv, gcn-reddit,
+     gat-reddit, unet and unet-60k (`entry.TRAIN_CONFIGS`) through the
+     kernels, with exact launches per step (GCN: csr_spmm 4; GAT:
+     csr_spmm 4, sddmm_csr 2; GIN-max: spmm_maxmin 2, its d_dense 1, its
+     d_values 0; the Reddit GCN: spmm_dense_cells 4, spmm_bell 2,
+     csr_spmm 4; the Reddit GAT: per head spmm_dense_cells 4, csr_spmm 4,
+     spmm_bell 2, sddmm_cells 1, sddmm_csr 1; UNet: spconv_pairs
      7, spconv_dw 4), finite losses (falling over the 5 steps for GCN,
      GAT and UNet), per-step latency (host clock
      around synchronize) and max_memory_allocated. Before that run, the
@@ -136,16 +147,20 @@ exits non-zero without a result line:
      dense cuDNN call over the densified grid (conv3d, conv_transpose3d
      for the inverse conv, torch.nn.grad.conv3d_input / conv3d_weight for
      dX / dW; TF32 off), each held to the kernel at 1e-4 at the active
-     sites.
+     sites. At Reddit scale (`phase_attention_numbers`): a GATConv on
+     the slot route against the same layer forced onto the edge route,
+     then gat_attention against the edge route, forward and with the
+     backward, one head at F = 16 and 41, four heads against GATConv's
+     edge branch, and the slot chain against the edge-order chain.
   8. profile: the time of the per-edge gather of an [N, 4] fp32 table,
      contiguous and column-major; torch.profiler over 3 training steps
      each of gcn-arxiv, gat-arxiv and gin-max-arxiv after 2 warm-up
-     steps, and of gcn-reddit and unet-60k, device time per step by
-     kernel and the
+     steps, and of gcn-reddit, gat-reddit and unet-60k, device time per
+     step by kernel and the
      device's busy share of the wall time; gin-max-arxiv's d_dense passes
      (winner_mask_kernel, d_dense_cols_kernel), gat-arxiv's
-     sddmm_group_kernel and gcn-reddit's bell_rows_kernel and
-     bell_long_kernel by name, and
+     sddmm_group_kernel, gcn-reddit's bell_rows_kernel and
+     bell_long_kernel and gat-reddit's cell and SDDMM kernels by name, and
      gcn-reddit's elementwise float adds (the tier sums among them).
 Then one JSON line of per-kernel results, the card's name and power
 limit, and as the last line
@@ -170,6 +185,7 @@ TRAIN_FIXTURE = os.path.join(FIXTURES, "train_small.npz")
 GIN_FIXTURE = os.path.join(FIXTURES, "gin_small.npz")
 HYBRID_FIXTURE = os.path.join(FIXTURES, "hybrid_small.npz")
 UNET_FIXTURE = os.path.join(FIXTURES, "unet_small.npz")
+ATTENTION_FIXTURE = os.path.join(FIXTURES, "attention_small.npz")
 # bench.py:57-61 — the p2p-Gnutella31 shape; the .mtx is not in the repo
 P2P_NODES, P2P_EDGES = 62586, 147892
 FEATS = (1, 7, 32, 40, 41, 64, 128, 256)
@@ -202,8 +218,18 @@ _NONE = dict.fromkeys(KERNEL_NAMES, 0)
 # forward and the cells and non-cell CSC (CSR kernel) tiers in d_dense; the
 # point-cloud UNet runs its 4 convs forward, dX of the 3 whose input is not
 # data, and dW of all 4
+# one slot-space gat_attention, forward and backward: the forward's tiers
+# (cells, BELL, residue); d_x's transpose (cells, non-cell CSC); dsig's
+# sddmm_cells and sddmm_csr; d_s_row's tiers and d_s_col's transpose
+ATTENTION_LAUNCHES = {"csr_spmm": 4, "spmm_dense_cells": 4, "spmm_bell": 2,
+                      "sddmm_cells": 1, "sddmm_csr": 1}
+# a GAT on a hybrid storage of 2^21 or more edges ("gat-hybrid") runs one
+# gat_attention a head: 4 in its first layer, 1 in its second
+GAT_HEADS = 5
 STEP_LAUNCHES = {"gcn": {**_NONE, "csr_spmm": 4},
                  "gat": {**_NONE, "csr_spmm": 4, "sddmm_csr": 2},
+                 "gat-hybrid": {**_NONE, **{k: GAT_HEADS * v for k, v in
+                                            ATTENTION_LAUNCHES.items()}},
                  "gin": {**_NONE, "spmm_maxmin": 2,
                          "spmm_maxmin_d_dense": 1},
                  "gcn-hybrid": {**_NONE, "spmm_dense_cells": 4,
@@ -214,6 +240,9 @@ FORWARD_LAUNCHES = {"gcn": {**_NONE, "csr_spmm": 2},
                     "gin": {**_NONE, "spmm_maxmin": 2},
                     "gcn-hybrid": {**_NONE, "spmm_dense_cells": 2,
                                    "spmm_bell": 2, "csr_spmm": 2},
+                    "gat-hybrid": {**_NONE, "spmm_dense_cells": GAT_HEADS,
+                                   "spmm_bell": GAT_HEADS,
+                                   "csr_spmm": GAT_HEADS},
                     "unet": {**_NONE, "spconv_pairs": 4}}
 # the hybrid kernels' widths: every tier of a small clustered graph, and the
 # Reddit-scale GCN's two layers
@@ -227,7 +256,9 @@ MAXMIN_FEATS = {"p2p": (32,), "arxiv": (128, 256)}
 PROFILED_PASSES = {"gin-max-arxiv": ("winner_mask_kernel",
                                      "d_dense_cols_kernel"),
                    "gat-arxiv": ("sddmm_group_kernel",),
-                   "gcn-reddit": ("bell_rows_kernel", "bell_long_kernel")}
+                   "gcn-reddit": ("bell_rows_kernel", "bell_long_kernel"),
+                   "gat-reddit": ("dense_cells_kernel", "sddmm_cells_kernel",
+                                  "sddmm_group_kernel")}
 # the spconv kernels' (c_in, c_out): the UNet's convs and a ragged pair
 SPCONV_CHANNELS = ((8, 32), (32, 64), (64, 64), (7, 33))
 # the point clouds of the UNet configurations
@@ -955,6 +986,160 @@ def phase_fixture(torch, cuda):
         f"{ {k: v for k, v in counts.items() if v} }")
 
 
+def _slot_chain(torch, sp, d1, d2, x):
+    """sddmm_slots -> LeakyReLU -> edge_softmax_slots -> spmm_slots."""
+    import dgsparse_tpu_torch as pt
+    from torch.nn import functional as F
+
+    sv = pt.sddmm_slots(sp, d1, d2).map(lambda t: F.leaky_relu(t, 0.2))
+    return pt.spmm_slots(sp, pt.edge_softmax_slots(sp, sv), x)
+
+
+def _edge_chain(torch, sp, d1, d2, x):
+    """The same chain in CSR edge order: sddmm, edge_softmax, spmm."""
+    import dgsparse_tpu_torch as pt
+    from torch.nn import functional as F
+
+    z = F.leaky_relu(pt.sddmm(sp, d1, d2), 0.2)
+    return pt.spmm(sp.set_values(pt.edge_softmax(sp, z)), x)
+
+
+def _grad_close(torch, got, ref, rtol, scale):
+    """Max |got - ref| over tensors; raises unless each is within rtol and
+    an atol of `scale` times its reference's largest value."""
+    err = 0.0
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=rtol,
+                                   atol=scale * b.abs().max().item())
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def phase_attention(torch, cuda):
+    """The slot-space attention on small graphs (attention_small.npz's,
+    `utils.testing.hybrid_csr` with duplicate edges and empty rows):
+    gat_attention through the kernels against the same call on their plain
+    versions (forward at 1e-4; gradients of s_row, s_col and x at rtol
+    1e-4, atol 1e-5 of each one's largest value) with the launches of one
+    call, and against the JAX package's frozen forward (2e-4) and
+    edge-space gradients (2e-3); a GATConv forced onto the slot route
+    against the frozen JAX GATConv (1e-4); the public slot chain against
+    the edge-order chain (forward 1e-4, gradients 2e-3); and hybrid values
+    changed in place and by an optimizer step, the hybrid route against
+    the CSR route within assert_sum_close's 1e-5."""
+    import numpy as np
+
+    import dgsparse_tpu_torch as pt
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.nn import gat as G
+    from dgsparse_tpu_torch.utils.testing import (assert_sum_close,
+                                                  fixture_gatconv, hybrid_csr)
+
+    with np.load(ATTENTION_FIXTURE) as f:
+        fx = dict(f)
+    n = fx["x"].shape[0]
+    sp = pt.SparseTensor.from_csr(fx["rowptr"], fx["col"], None,
+                                  sparse_sizes=(n, n), device=cuda)
+    if sp.storage.ell_plan() is None:
+        raise AssertionError("the attention fixture's graph has no hybrid "
+                             "plan")
+    inputs = [torch.from_numpy(fx[k]).to(cuda).requires_grad_()
+              for k in ("s_row", "s_col", "x")]
+    ct = torch.from_numpy(fx["ct"]).to(cuda)
+
+    def attend():
+        out = pt.gat_attention(sp, *inputs)
+        return out.detach(), torch.autograd.grad(out, inputs, ct)
+
+    with plain_kernels():
+        ref, ref_grads = attend()
+    reset_launch_counts()
+    out, grads = attend()
+    counts = _counts()
+    if counts != {**_NONE, **ATTENTION_LAUNCHES}:
+        raise AssertionError(f"gat_attention: launches {counts}")
+    e_plain = max_err(out, ref, 1e-4)
+    g_plain = _grad_close(torch, grads, ref_grads, 1e-4, 1e-5)
+    e_jax = max_err(out, torch.from_numpy(fx["attn/out"]).to(cuda), 2e-4)
+    g_jax = max(
+        max_err(g, torch.from_numpy(fx[f"attn/grads/{k}"]).to(cuda), 2e-3)
+        for g, k in zip(grads, ("s_row", "s_col", "x")))
+    log(f"[attention] gat_attention on {n} nodes, "
+        f"{_hybrid_stats(sp.storage)}, F={fx['x'].shape[1]}: vs the plain "
+        f"versions forward max_abs_err {e_plain:.3e}, gradients "
+        f"{g_plain:.3e}; vs the JAX package's forward {e_jax:.3e} and "
+        f"edge-space gradients {g_jax:.3e}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+    conv, xg = fixture_gatconv(fx, cuda)
+    saved = G.GAT_SLOT_MIN_NNZ
+    G.GAT_SLOT_MIN_NNZ = sp.nnz
+    try:
+        reset_launch_counts()
+        with torch.inference_mode():
+            gout = conv(xg, sp)
+        counts = _counts()
+    finally:
+        G.GAT_SLOT_MIN_NNZ = saved
+    heads = int(fx["gat/dims"][2])
+    if counts["sddmm_cells"] or counts["spmm_dense_cells"] != heads:
+        raise AssertionError(f"GATConv on the slot route: launches {counts}")
+    e = max_err(gout, torch.from_numpy(fx["gat/out"]).to(cuda), 1e-4)
+    log(f"[attention] GATConv {fx['gat/dims'].tolist()} (in, out, heads) on "
+        f"the slot route vs the JAX package's: max_abs_err {e:.3e}")
+
+    rowptr, col, vals = hybrid_csr()
+    m = len(rowptr) - 1
+    hsp = pt.SparseTensor.from_csr(rowptr, col, None, sparse_sizes=(m, m),
+                                   device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = [torch.randn(m, 16, generator=gen, device=cuda).requires_grad_()
+            for _ in range(3)]
+    cot = torch.randn(m, 16, generator=gen, device=cuda)
+    chains = []
+    for chain in (_slot_chain, _edge_chain):
+        o = chain(torch, hsp, *args)
+        chains.append((o.detach(), torch.autograd.grad(o, args, cot)))
+    e = max_err(chains[0][0], chains[1][0], 1e-4)
+    g = max(max_err(a, b, 2e-3) for a, b in zip(chains[0][1], chains[1][1]))
+    log(f"[attention] slot chain (sddmm_slots, LeakyReLU, edge_softmax_slots,"
+        f" spmm_slots) vs the edge-order chain on {m} nodes, "
+        f"{_hybrid_stats(hsp.storage)}, F=16: forward max_abs_err {e:.3e}, "
+        f"gradients {g:.3e}")
+
+    # the tier values follow in-place changes of the values (ROADMAP C1)
+    for change in ("mul_", "sgd step"):
+        src = torch.from_numpy(vals.copy()).to(cuda)
+        if change == "sgd step":
+            src = torch.nn.Parameter(src)
+        p = pt.SparseTensor.from_csr(rowptr, col, src, sparse_sizes=(m, m),
+                                     device=cuda)
+        x = torch.randn(m, 8, generator=gen, device=cuda).requires_grad_()
+        cot = torch.randn(m, 8, generator=gen, device=cuda)
+        pt.spmm(p, x)
+        if change == "sgd step":
+            opt = torch.optim.SGD([src], lr=0.5)
+            (pt.spmm(p, x) * cot).sum().backward()
+            opt.step()
+        else:
+            src.mul_(2)
+        routes = []
+        for algorithm in (pt.Algorithm.AUTO, pt.Algorithm.XLA_SEGMENT):
+            o = pt.spmm(p, x, algorithm=algorithm)
+            routes.append((o.detach(), torch.autograd.grad(o, x, cot)[0]))
+        abs_p = p.set_values(src.detach().abs())
+        abs_out = pt.spmm(abs_p, x.detach().abs(),
+                          algorithm=pt.Algorithm.XLA_SEGMENT)
+        abs_dx = pt.spmm(abs_p.t(), cot.abs())
+        torch.cuda.synchronize()
+        e = max(assert_sum_close(routes[0][0], routes[1][0], abs_out,
+                                 TOL["float32"]),
+                assert_sum_close(routes[0][1], routes[1][1], abs_dx,
+                                 TOL["float32"]))
+        log(f"[attention] hybrid values after {change}: the hybrid route vs "
+            f"the CSR route, forward and d_dense, max_abs_err {e:.3e}")
+
+
 def _describe(model):
     """The model's class and its widths, input to output."""
     from torch import nn
@@ -1062,11 +1247,15 @@ def _graph_key(tc):
 
 def _launch_kind(tc, adj):
     """The key of a configuration's launches: its model's, or for a GCN on
-    a graph with a hybrid plan "gcn-hybrid"."""
+    a graph with a hybrid plan "gcn-hybrid", for a GAT on one of at least
+    `nn.gat.GAT_SLOT_MIN_NNZ` edges (its slot-space branch) "gat-hybrid"."""
+    from dgsparse_tpu_torch.nn import gat
+
     if tc.model == "unet":
         return "unet"
-    return (f"{tc.model}-hybrid" if adj.storage.ell_plan() is not None
-            else tc.model)
+    hybrid = adj.storage.ell_plan() is not None and (
+        tc.model != "gat" or adj.nnz >= gat.GAT_SLOT_MIN_NNZ)
+    return f"{tc.model}-hybrid" if hybrid else tc.model
 
 
 def build_graphs(torch, cuda):
@@ -1248,7 +1437,35 @@ def phase_training(torch, cuda, graphs):
             f"plain versions: logits max_abs_err {fwd_err:.3e}, gradients "
             f"max_abs_err {grad_err:.3e}")
         step_ms[config] = latencies
+        if _launch_kind(tc, adj) == "gat-hybrid":
+            model, _, (_, x, _), _ = prepared[config]
+            log(f"[training] {config}: largest max(s_col) - min(s_col) of a "
+                f"head after {STEPS} steps (the slot route's shift is loose "
+                f"by it): {_score_range(torch, model, x, adj):.4f}")
     return launches, step_ms
+
+
+def _score_range(torch, model, x, adj):
+    """The largest range max(s_col) - min(s_col) of a GAT head's
+    source-side scores in the forward of `model` on (x, adj)."""
+    from dgsparse_tpu_torch.nn.gat import GATConv
+
+    ranges = []
+
+    def hook(conv, args, _):
+        h = conv.proj(args[0]).reshape(args[0].shape[0], conv.num_heads, -1)
+        ss = torch.einsum("nhf,hf->nh", h, conv.a_src)
+        ranges.append((ss.amax(0) - ss.amin(0)).max().item())
+
+    handles = [c.register_forward_hook(hook) for c in model.modules()
+               if isinstance(c, GATConv)]
+    try:
+        with torch.no_grad():
+            model(x, adj)
+    finally:
+        for h in handles:
+            h.remove()
+    return max(ranges)
 
 
 def phase_profile(torch, cuda, graphs, steps=3):
@@ -1274,7 +1491,7 @@ def phase_profile(torch, cuda, graphs, steps=3):
             f"{st.nnz} edges, {label}: {us:.1f} us")
 
     for config in ("gcn-arxiv", "gat-arxiv", "gin-max-arxiv", "gcn-reddit",
-                   "unet-60k"):
+                   "gat-reddit", "unet-60k"):
         data = graphs[_graph_key(TRAIN_CONFIGS[config])]
         model, opt, (adj, x, y) = build_trainer(config, seed=0, device=cuda,
                                                 data=data)
@@ -1777,6 +1994,122 @@ def phase_hybrid_numbers(torch, cuda, reddit):
     return results
 
 
+def _fwd_bwd(torch, fn, ct, *inputs):
+    """fn(*inputs), then its gradients for the cotangent ct."""
+    out = fn(*inputs)
+    return torch.autograd.grad(out, inputs, ct)
+
+
+def phase_attention_numbers(torch, cuda, reddit):
+    """At Reddit scale (gat-reddit's graph): one GATConv (602 -> 4 x 16) on
+    the slot route against the same layer forced onto the edge route,
+    forward (rtol = atol = 1e-4) and its parameters' gradients (rtol 1e-3,
+    atol 1e-4 of each one's largest value), with the slot route's
+    launches; then CUDA-event times (fp32, best of two turns of 3 calls
+    after 1) of gat_attention against the edge route, forward and forward
+    plus backward: per head at H=4 F=16 (`_edge_space_attention`, the JAX
+    package's edge route) and H=1 F=41, the four heads of a layer (4
+    gat_attention calls against GATConv's edge branch: logits in CSR edge
+    order, edge_softmax, spmm_multihead), and the slot chain against the
+    edge-order chain at F=16."""
+    from torch.nn import functional as F
+
+    from dgsparse_tpu_torch.core.transform import gather_rows
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.nn import gat as G
+    from dgsparse_tpu_torch.ops.attention import (_edge_space_attention,
+                                                  gat_attention)
+    from dgsparse_tpu_torch.ops.edge_softmax import edge_softmax
+    from dgsparse_tpu_torch.ops.spmm_mh import spmm_multihead
+
+    adj, x, _ = reddit
+    st = adj.storage
+    m, n = st.num_rows, st.num_cols
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    conv = G.GATConv(x.shape[1], 16, 4,
+                     generator=torch.Generator().manual_seed(0)).to(cuda)
+    ct = torch.randn(m, 64, generator=gen, device=cuda)
+
+    def layer():
+        conv.zero_grad(set_to_none=True)
+        out = conv(x, adj)
+        out.backward(ct)
+        return out.detach(), [p.grad.clone() for p in conv.parameters()]
+
+    reset_launch_counts()
+    slot_out, slot_grads = layer()
+    counts = _counts()
+    expected = {**_NONE, **{k: 4 * v for k, v in ATTENTION_LAUNCHES.items()}}
+    if counts != expected:
+        raise AssertionError(f"GATConv at Reddit scale: launches {counts}, "
+                             f"expected {expected}")
+    saved = G.GAT_SLOT_MIN_NNZ
+    G.GAT_SLOT_MIN_NNZ = 1 << 62
+    try:
+        edge_out, edge_grads = layer()
+    finally:
+        G.GAT_SLOT_MIN_NNZ = saved
+    e = max_err(slot_out, edge_out, 1e-4)
+    g = _grad_close(torch, slot_grads, edge_grads, 1e-3, 1e-4)
+    log(f"[attention] reddit GATConv {x.shape[1]}->4x16, slot route vs edge "
+        f"route: forward max_abs_err {e:.3e}, gradients of proj, a_dst and "
+        f"a_src max_abs_err {g:.3e}; slot route launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del slot_grads, edge_grads, conv
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    def edge_heads(sd, ss, h):
+        z = gather_rows(sd, st.coo_row()) + gather_rows(ss, st.col())
+        alpha = edge_softmax(adj, F.leaky_relu(z, 0.2))
+        return spmm_multihead(adj, alpha, h, "sum")
+
+    def slot_heads(sd, ss, h):
+        return torch.stack([gat_attention(
+            adj, sd[:, i].contiguous(), ss[:, i].contiguous(),
+            h[:, i].contiguous()) for i in range(h.shape[1])], 1)
+
+    def edge_one(s_row, s_col, h):
+        return _edge_space_attention(adj, s_row, s_col, h, 0.2)
+
+    def slot_one(s_row, s_col, h):
+        return gat_attention(adj, s_row, s_col, h)
+
+    def chain(fn):
+        return lambda d1, d2, h: fn(torch, adj, d1, d2, h)
+
+    cases = []
+    for feat in (16, 41):
+        inp = [randn(m).requires_grad_(), randn(n).requires_grad_(),
+               randn(n, feat).requires_grad_()]
+        cases.append((f"one head F={feat}", slot_one, edge_one,
+                      "_edge_space_attention", inp, randn(m, feat)))
+    inp = [randn(m, 4).requires_grad_(), randn(n, 4).requires_grad_(),
+           randn(n, 4, 16).requires_grad_()]
+    cases.append(("four heads F=16", slot_heads, edge_heads,
+                  "GATConv's edge branch (edge_softmax, spmm_multihead)", inp,
+                  randn(m, 4, 16)))
+    inp = [randn(m, 16).requires_grad_(), randn(n, 16).requires_grad_(),
+           randn(n, 16).requires_grad_()]
+    cases.append(("slot chain F=16", chain(_slot_chain), chain(_edge_chain),
+                  "the edge-order chain (sddmm, edge_softmax, spmm)", inp,
+                  randn(m, 16)))
+    for label, slot, edge, edge_name, inp, cot in cases:
+        with torch.no_grad():
+            max_err(slot(*inp), edge(*inp), 1e-4)
+        fns = {"slot": (slot, inp), "edge": (edge, inp),
+               "slot_fwd_bwd": (functools.partial(_fwd_bwd, torch, slot, cot),
+                                inp),
+               "edge_fwd_bwd": (functools.partial(_fwd_bwd, torch, edge, cot),
+                                inp)}
+        ms = _time_turns(fns, warmup=1, iters=3)
+        log(f"[numbers] gat_attention reddit {label} ({st.nnz} edges, fp32): "
+            f"forward slot route {ms['slot']:.3f} ms, edge route "
+            f"({edge_name}) {ms['edge']:.3f} ms; forward and backward slot "
+            f"{ms['slot_fwd_bwd']:.3f} ms, edge {ms['edge_fwd_bwd']:.3f} ms")
+
+
 def _grid(torch, feats, coords, shape):
     """feats [n, C] at the voxels `coords` (batch 0) of a dense
     [1, C, X, Y, Z] float32 grid, zero elsewhere."""
@@ -2166,11 +2499,13 @@ def run(torch, cuda) -> int:
         errs.update(phase_spconv_kernels(
             torch, cuda, unet_plans(graphs["unet-60k"][0])["enc2"]))
         phase_fixture(torch, cuda)
+        phase_attention(torch, cuda)
         runs, serving = phase_slice(torch, cuda, graphs)
         training, _ = phase_training(torch, cuda, graphs)
         sddmm_path = phase_sddmm_hybrid(torch, cuda, graphs["reddit"][0])
         times = phase_numbers(torch, cuda, runs, graphs)
         times.update(phase_hybrid_numbers(torch, cuda, graphs["reddit"][0]))
+        phase_attention_numbers(torch, cuda, graphs["reddit"])
         times.update(phase_spconv_numbers(torch, cuda, graphs["unet-60k"]))
         phase_profile(torch, cuda, graphs)
         if "jax" in sys.modules:
@@ -2188,6 +2523,7 @@ def run(torch, cuda) -> int:
                 ("spmm_bell", "serving", serving),
                 ("spmm_bell", "training", training),
                 ("sddmm_cells", "sddmm", sddmm_path),
+                ("sddmm_cells", "training", training),
                 ("spconv_pairs", "serving", serving),
                 ("spconv_pairs", "training", training),
                 ("spconv_dw", "training", training)):
@@ -2238,8 +2574,7 @@ def run(torch, cuda) -> int:
         _kernel_entry(
             "sddmm_cells", "dgsparse_tpu_torch/csrc/spmm_cells.cu",
             "dgsparse_tpu/kernels/pallas_sddmm.py:125", paths("sddmm_cells"),
-            errs["sddmm_cells"], times["sddmm_cells"], "reddit F=64", card,
-            main="sddmm"),
+            errs["sddmm_cells"], times["sddmm_cells"], "reddit F=64", card),
         _kernel_entry(
             "spconv_pairs", "dgsparse_tpu_torch/csrc/spconv.cu",
             "dgsparse_tpu/kernels/pallas_spconv.py:147",

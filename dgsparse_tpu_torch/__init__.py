@@ -6,9 +6,11 @@ against it. This package imports torch and never JAX. What is ported so
 far: CSR formats, SpMM with SUM/MEAN/MAX/MIN (single- and multi-head,
 CSR and COO) with both gradients, the semiring `gspmm` grid, SDDMM, edge
 softmax, the sorted segment sum, the hybrid tiers on clustered graphs,
-sparse 3-D convolution with its host rulebook, the GCN, GAT, GIN, SAGE,
-DGCNN and point-cloud UNet models, and their serving and training
-(`entry.py`). Every Pallas kernel of the JAX package has a CUDA C++
+slot-space edge values and the fused slot-space GAT attention
+(`ops/slot.py`, `ops/attention.py`), the GE-SpMM C-API surface
+(`ge_spmm`, a submodule as in JAX), sparse 3-D convolution with its host
+rulebook, the GCN, GAT, GIN, SAGE, DGCNN and point-cloud UNet models, and
+their serving and training (`entry.py`). Every Pallas kernel of the JAX package has a CUDA C++
 counterpart for Hopper (sm_90a) under `csrc/`: `spmm_csr.cu`
 (`segment_matmul`), `sddmm_csr.cu` (`sddmm_esc`), `spmm_maxmin.cu`
 (`spmm_maxmin_esc` and its XLA winner-mask backward), `spmm_cells.cu`
@@ -22,10 +24,14 @@ __version__ = "0.1.0"
 from dgsparse_tpu_torch.core import ftransform
 from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
 from dgsparse_tpu_torch.core.transform import coo2csr, csr2coo, csr2csc
+from dgsparse_tpu_torch.ops.attention import gat_attention
 from dgsparse_tpu_torch.ops.edge_softmax import edge_softmax
 from dgsparse_tpu_torch.ops.gspmm import GSpMM_u, GSpMM_u_e, gspmm
 from dgsparse_tpu_torch.ops.sddmm import sddmm, sddmm_coo
 from dgsparse_tpu_torch.ops.segment import sorted_segment_sum
+from dgsparse_tpu_torch.ops.slot import (SlotValues, edge_softmax_slots,
+                                         edges_to_slots, sddmm_slots,
+                                         slots_to_edges, spmm_slots)
 from dgsparse_tpu_torch.ops.spmm import (spmm, spmm_max, spmm_mean, spmm_min,
                                          spmm_sum)
 from dgsparse_tpu_torch.ops.spmm_coo import spmm_coo
@@ -99,6 +105,13 @@ __all__ = [
     "sddmm",
     "sddmm_coo",
     "edge_softmax",
+    "SlotValues",
+    "sddmm_slots",
+    "edge_softmax_slots",
+    "spmm_slots",
+    "slots_to_edges",
+    "edges_to_slots",
+    "gat_attention",
     "SparseConvTensor",
     "build_rulebook",
     "inverse_plan",

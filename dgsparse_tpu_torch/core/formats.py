@@ -58,6 +58,17 @@ def _check_csr(rowptr: np.ndarray, col: np.ndarray) -> None:
         raise ValueError(f"col indices must be >= 0, got {col.min()}")
 
 
+def _values_key(values: torch.Tensor) -> Tuple[int, int]:
+    """What the cached tier values were built from: the values tensor's
+    identity and its version counter, which every in-place change moves
+    (views and `.detach()` share it). An inference tensor keeps no
+    counter; it is keyed by identity alone."""
+    try:
+        return id(values), values._version
+    except RuntimeError:
+        return id(values), -1
+
+
 def _device_of(*xs) -> torch.device:
     for x in xs:
         if isinstance(x, torch.Tensor):
@@ -162,6 +173,7 @@ class Storage:
         self.build_seconds = {"csc": t1 - t0, "upload": t2 - t1}
 
         self._hybrid = self._tier_vals = self._tier_ones = None
+        self._tier_key = self._slot_maps = None
         if build_plans and nnz >= 4096 and nnz / max(num_rows, 1) >= 16:
             hyb = P.build_hybrid_plan(rowptr_np, col_np, num_cols,
                                       device=device)
@@ -174,6 +186,7 @@ class Storage:
                 else:
                     self._tier_vals = P.tier_values(
                         hyb, vals.detach().float().cpu().numpy(), device)
+                    self._tier_key = _values_key(self._values)
                 self.build_seconds["tier_values"] = \
                     time.perf_counter() - t3
 
@@ -188,6 +201,10 @@ class Storage:
         """The same structure with every tensor (and plan) on `device`."""
         moved = {k[1:]: _move(v, device)
                  for k, v in self.__dict__.items() if k.startswith("_")}
+        if self._tier_vals is not None and \
+                self._tier_key == _values_key(self._values):
+            # the moved tiers are those of the moved values
+            moved["tier_key"] = _values_key(moved["values"])
         return self._replace(**moved)
 
     def ell_plan(self) -> Optional[P.HybridPlan]:
@@ -198,21 +215,44 @@ class Storage:
     def tier_values(self, ones: bool = False) -> Optional[dict]:
         """The hybrid tiers' values (`core.planner.tier_values`) for this
         storage's values, or with `ones` for implicit ones; None without a
-        hybrid plan. Built at construction or, after `set_values`, on
-        first use on the values' device, and kept."""
+        hybrid plan. Built at construction or on first use, and kept while
+        the values tensor is the same object at the same `_version`: an
+        in-place change (`v.mul_(2)`, an optimizer step on a Parameter,
+        through any view of it, `.detach()` included) rebuilds them on the
+        values' device at the next use, as does `set_values`. The ones'
+        tiers depend on the structure alone; do not change them in place."""
         if self._hybrid is None:
             return None
-        if ones:
-            if self._tier_ones is None:
-                self._tier_ones = P.tier_values(self._hybrid, None,
-                                                self.device)
-            return self._tier_ones
-        if self._tier_vals is None:
+        # kept tensors are made outside inference mode, or a later call
+        # under autograd could not save them for backward
+        with torch.inference_mode(False):
+            if ones:
+                if self._tier_ones is None:
+                    self._tier_ones = P.tier_values(self._hybrid, None,
+                                                    self.device)
+                return self._tier_ones
             if self._values is None:
                 raise ValueError("the storage has no values")
-            self._tier_vals = P.tier_values(self._hybrid, self._values,
-                                            self.device)
-        return self._tier_vals
+            key = _values_key(self._values)
+            if self._tier_vals is None or self._tier_key != key:
+                self._tier_vals = P.tier_values(self._hybrid, self._values,
+                                                self.device)
+                self._tier_key = key
+            return self._tier_vals
+
+    def slot_map(self, name: str) -> torch.Tensor:
+        """One of the hybrid plan's slot-space index maps
+        (`core.planner.slot_map`), composed on the host at first use and
+        kept: they depend on the structure alone, not on the values."""
+        if self._hybrid is None:
+            raise ValueError("the storage has no hybrid plan")
+        if self._slot_maps is None:
+            self._slot_maps = {}
+        if name not in self._slot_maps:
+            with torch.inference_mode(False):
+                self._slot_maps[name] = P.slot_map(self._hybrid, name,
+                                                   self.device)
+        return self._slot_maps[name]
 
     # --- reference-parity accessors (dgsparse/storage.py) ---
     def rowptr(self) -> torch.Tensor:
@@ -378,7 +418,8 @@ class SparseTensor:
             # the transpose's edge-order arrays are the original's CSC twins
             coo_row=src.csc_col(), csc_col=src.coo_row(),
             num_rows=src.num_cols, num_cols=src.num_rows,
-            hybrid=None, tier_vals=None, tier_ones=None)
+            hybrid=None, tier_vals=None, tier_ones=None, tier_key=None,
+            slot_maps=None)
         return SparseTensor._wrap(st, self.has_value)
 
     def to(self, device) -> "SparseTensor":
@@ -394,7 +435,8 @@ class SparseTensor:
             raise ValueError(
                 f"{values.shape[0]} values for {self.nnz} edges")
         return SparseTensor._wrap(
-            self.storage._replace(values=values, tier_vals=None),
+            self.storage._replace(values=values, tier_vals=None,
+                                  tier_key=None),
             values is not None)
 
     # --- shape ---

@@ -417,6 +417,81 @@ def tier_values(plan: HybridPlan, values, device) -> dict:
     return out
 
 
+SLOT_MAPS = ("src", "take", "nd_t", "bell_nd", "bell_valid", "res_nd",
+             "bell_rows", "bell_cols", "res_rows")
+
+
+def slot_map(plan: HybridPlan, name: str, device) -> torch.Tensor:
+    """An index map of slot space (`ops/slot.py`), on `device`. Slot
+    space is the tiers' own layout: the stream [cell positions (ncells x R
+    x C) ++ BELL slots (T x E) ++ residue edges (`res` order)].
+    - "src" [nnz]: each CSR edge's position in the stream (int32 while
+      the stream fits, else int64);
+    - "take" [stream]: one edge at each stream position, nnz where none
+      (a cell position without an edge, BELL padding); of duplicate edges
+      at one cell position the last (int32 or int64, as "src");
+    - "nd_t" [nd nnz]: each edge of the non-cell CSC `nd_t`, its position
+      in the stream's [BELL ++ residue] part (int64);
+    - "bell_nd" [T x E] / "res_nd" [res nnz]: each BELL slot's / residue
+      edge's position in the non-cell sub-CSR `nd` (0 on padding; int64),
+      with "bell_valid" [T x E] (bool) the real slots;
+    - "bell_rows" / "bell_cols" [T x E], "res_rows" [res nnz]: each slot's
+      row and column (int64; padding slots clamped into range).
+    Built from the plan's host arrays (`cells.slot`/`eperm`,
+    `bell.eperm`, `res.ids`, `nd.ids`, `nd_t.ids`)."""
+    cells, bell = plan.cells, plan.bell
+    cell_slots = cells.cell_slots if cells is not None else 0
+    bell_slots = bell.padded_edges if bell is not None else 0
+    total = cell_slots + bell_slots + plan.res.nnz
+    nnz = plan.nnz
+    ep = bell.eperm if bell is not None else np.zeros(0, np.int32)
+    valid = ep >= 0
+
+    def put(arr, dtype=np.int64):
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(device)
+
+    if name in ("src", "take"):
+        idt = np.int32 if max(total, nnz) < 2 ** 31 - 1 else np.int64
+        src = np.empty(nnz, idt)
+        if cells is not None:
+            src[cells.eperm] = cells.slot
+        src[ep[valid]] = cell_slots + np.nonzero(valid)[0]
+        src[plan.res.ids] = cell_slots + bell_slots + np.arange(plan.res.nnz)
+        if name == "src":
+            return put(src, idt)
+        take = np.full(total, nnz, idt)
+        take[src] = np.arange(nnz, dtype=idt)    # numpy: the last one wins
+        return put(take, idt)
+    if name == "bell_valid":
+        return torch.from_numpy(valid).to(device)
+    if name in ("bell_rows", "bell_cols"):
+        tile = np.arange(bell_slots) // max(bell.edge_tile, 1)
+        if name == "bell_rows":
+            blk = plan.bell.tile_rb.cpu().numpy()[tile]
+            loc = plan.bell.lrow.cpu().numpy()
+            return put(np.minimum(blk.astype(np.int64) * bell.row_block
+                                  + loc, plan.num_rows - 1))
+        blk = plan.bell.tile_cw.cpu().numpy()[tile]
+        loc = plan.bell.lcol.cpu().numpy()
+        return put(np.minimum(blk.astype(np.int64) * bell.col_window + loc,
+                              plan.num_cols - 1))
+    if name == "res_rows":
+        return put(expand_rowptr_np(plan.res.rowptr.cpu().numpy()))
+    # positions in the non-cell sub-CSR `nd` (edge ids ascending)
+    lut = np.zeros(nnz, np.int64)
+    lut[plan.nd.ids] = np.arange(plan.nd.nnz)
+    if name == "bell_nd":
+        return put(np.where(valid, lut[np.maximum(ep, 0)], 0))
+    if name == "res_nd":
+        return put(lut[plan.res.ids])
+    if name == "nd_t":
+        stream = np.empty(plan.nd.nnz, np.int64)
+        stream[lut[ep[valid]]] = np.nonzero(valid)[0]
+        stream[lut[plan.res.ids]] = bell_slots + np.arange(plan.res.nnz)
+        return put(stream[lut[plan.nd_t.ids]])
+    raise ValueError(f"unknown slot map {name!r}; one of {SLOT_MAPS}")
+
+
 def _sub_csr(rowptr: np.ndarray, col: np.ndarray, ids: np.ndarray,
              device) -> Tuple[np.ndarray, np.ndarray, SubCsr]:
     """The sub-CSR of a sorted edge-id subset (`planner.py:806-812`):

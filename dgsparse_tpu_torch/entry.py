@@ -18,6 +18,10 @@ port's Cora widths. "gcn-reddit" is the Reddit-scale GCN of
 602 -> 64 -> 41): its graph is `clustered_graph` with the self-loops and
 normalization of `bench_train.py:82-110` (`utils.testing.gcn_norm_csr`),
 and its storage gets a hybrid plan, so its SpMMs run the hybrid tiers.
+"gat-reddit" is the same 4-head GAT as gat-cora and gat-arxiv (602 -> 16
+x 4 -> 41) on that graph (its values are ignored: attention is structure
+only); with its 2^21 or more edges on a hybrid plan, its layers take the
+slot-space attention (`nn/gat.py`).
 The other GCN and GAT graphs come from `random_csr` with GCN
 normalization and self-loops; the GIN graph is `random_csr`'s structure as it is, with no values and no
 self-loops (`bench_train.py:121-135`); features and labels from numpy with
@@ -108,15 +112,16 @@ TRAIN_CONFIGS = {
     "gin-max-arxiv": TrainConfig("gin", "arxiv", 256, num_layers=3,
                                  aggregator="max"),
     "gcn-reddit": TrainConfig("gcn", "reddit", 64),
+    "gat-reddit": TrainConfig("gat", "reddit", 16, 4),
     "unet": TrainConfig("unet", "unet", 32, lr=1e-3),
     "unet-60k": TrainConfig("unet", "unet-60k", 32, lr=1e-3),
 }
 
 # the forwards served: the GCN of each graph (a bare graph name means it),
-# the 3-layer GIN-max and the point-cloud UNet
+# the 3-layer GIN-max, the Reddit-scale GAT and the point-cloud UNet
 SERVE_CONFIGS = {name: TRAIN_CONFIGS[name] for name in
                  ("gcn-cora", "gcn-arxiv", "gin-max-cora", "gin-max-arxiv",
-                  "gcn-reddit", "unet", "unet-60k")}
+                  "gcn-reddit", "gat-reddit", "unet", "unet-60k")}
 
 # optax.adam's defaults at the learning rate of bench_train.py
 ADAM = dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-8)

@@ -1,18 +1,20 @@
 """GAT layer and 2-layer model: per-edge attention scores, edge_softmax,
 then the value-weighted multi-head SpMM.
 
-Counterpart of `dgsparse_tpu/nn/gat.py`, edge-space branch only: its
-slot-space `gat_attention` branch, which the JAX package runs on
-hybrid-planned graphs of 2^21 or more edges, needs the slot-space
-attention (`dgsparse_tpu/ops/slot.py`, `ops/attention.py`), which is not
-ported. The hybrid plan itself is (`core/planner.py`, `ops/hybrid.py`:
-the SUM/MEAN SpMM and `sddmm` take its tiers), but this layer runs the
-edge-space branch on every graph. Layout as there: node
-features [N, H, F] with heads outer (`h.reshape(N, H, F)`), attention
-vectors `a_dst`/`a_src` [H, F]. The attention weights are the SpMM's edge
-values, so a training step runs both gradients of the multi-head SpMM:
-`d_dense` (the CSR kernel over the CSC view) and `d_values` (the SDDMM
-kernel).
+Counterpart of `dgsparse_tpu/nn/gat.py`, with both of its branches:
+- a storage with a hybrid plan (`core/planner.py::HybridPlan`) and at
+  least `GAT_SLOT_MIN_NNZ` (2^21) edges runs the fused slot-space
+  attention (`ops/attention.py::gat_attention`) once a head, on that
+  head's contiguous [N, F] slice, and stacks the heads
+  (`dgsparse_tpu/nn/gat.py:42-56`): its kernels are the hybrid tiers'
+  (`spmm_dense_cells`, `spmm_bell`, `csr_spmm`, and in the backward
+  `sddmm_cells` and `sddmm_csr`);
+- every other storage runs the edge-space branch: the attention weights
+  [nnz, H] in CSR edge order are the multi-head SpMM's edge values, so a
+  training step runs both gradients of the multi-head SpMM, `d_dense`
+  (the CSR kernel over the CSC view) and `d_values` (the SDDMM kernel).
+Layout as there: node features [N, H, F] with heads outer
+(`h.reshape(N, H, F)`), attention vectors `a_dst`/`a_src` [H, F].
 """
 
 import math
@@ -25,9 +27,14 @@ from torch.nn import functional as F
 from dgsparse_tpu_torch.core.formats import SparseTensor
 from dgsparse_tpu_torch.core.transform import gather_rows
 from dgsparse_tpu_torch.nn._flax import init_like_flax_dense
+from dgsparse_tpu_torch.ops.attention import gat_attention
 from dgsparse_tpu_torch.ops.edge_softmax import edge_softmax
 from dgsparse_tpu_torch.ops.spmm_mh import spmm_multihead
 from dgsparse_tpu_torch.ops.types import Algorithm
+
+# the slot-space branch's gate on the edge count (JAX's `1 << 21`); a
+# module constant so that tests can lower it
+GAT_SLOT_MIN_NNZ = 1 << 21
 
 
 class GATConv(nn.Module):
@@ -66,6 +73,13 @@ class GATConv(nn.Module):
         sd = torch.einsum("nhf,hf->nh", h, self.a_dst)
         ss = torch.einsum("nhf,hf->nh", h, self.a_src)
         st = adj.storage
+        if st.ell_plan() is not None and st.nnz >= GAT_SLOT_MIN_NNZ:
+            out = torch.stack(
+                [gat_attention(adj, sd[:, i].contiguous(),
+                               ss[:, i].contiguous(),
+                               h[:, i].contiguous(), self.negative_slope)
+                 for i in range(self.num_heads)], dim=1)
+            return out.reshape(n, self.num_heads * self.out_features)
         logits = F.leaky_relu(
             gather_rows(sd, st.coo_row()) + gather_rows(ss, st.col()),
             self.negative_slope)                            # [nnz, H]

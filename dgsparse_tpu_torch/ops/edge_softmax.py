@@ -1,7 +1,8 @@
 """Edge softmax: softmax of per-edge logits over each destination row.
 
-Counterpart of `dgsparse_tpu/ops/edge_softmax.py` (edge order only; the
-slot-order form is not ported). The JAX version is XLA segment ops, not a
+Counterpart of `dgsparse_tpu/ops/edge_softmax.py`: slot-space logits
+(`SlotValues`) go to `ops/slot.py::edge_softmax_slots`. The JAX version
+is XLA segment ops, not a
 Pallas kernel, and so is this one in PyTorch: a row max, exp, a row sum.
 Numerically stable (max-shifted, the shift detached, which is exact for
 softmax); empty rows are a no-op.
@@ -25,11 +26,12 @@ def _row_sums(x: torch.Tensor, row: torch.Tensor, m: int) -> torch.Tensor:
 
 def edge_softmax(sparse: SparseTensor, logits: torch.Tensor) -> torch.Tensor:
     """Softmax of `logits` [nnz] or [nnz, ...] (e.g. per attention head)
-    grouped by destination row. Returns the same shape."""
-    if isinstance(logits, (list, tuple)):
-        raise NotImplementedError(
-            "slot-order logits (SlotValues) are not ported yet "
-            "(ROADMAP.md, queue A #10)")
+    grouped by destination row. Returns the same shape. Slot-space logits
+    (`SlotValues`) give SlotValues (`edge_softmax_slots`)."""
+    from dgsparse_tpu_torch.ops.slot import SlotValues, edge_softmax_slots
+
+    if isinstance(logits, SlotValues):
+        return edge_softmax_slots(sparse, logits)
     st = sparse.storage
     row = st.coo_row()
     m = st.num_rows

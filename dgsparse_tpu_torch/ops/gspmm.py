@@ -18,6 +18,11 @@ No kernel of its own: every op rides the two SpMM autograd Functions of
   (`ops/gspmm.py:133-143`), and for the values the SDDMM (MUL, DIV, with
   autograd's -1/v² for DIV) or the row sum of g gathered per edge (ADD,
   SUB, autograd of the `index_add`).
+Slot-space values (`values=SlotValues`, `ops/slot.py`) cover the same
+grid as `dgsparse_tpu/ops/gspmm.py:284-316`: MUL runs `spmm_slots`, DIV
+runs it on `_sv_reciprocal`, ADD/SUB run it on `_sv_ones` plus or minus
+`sv_rowsum` (divided by the degree for MEAN), and MAX/MIN pay the one
+edge-order boundary (`slots_to_edges`) and take the edge-order op.
 """
 
 from typing import Optional
@@ -34,13 +39,11 @@ def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
           compute="mul", values=None) -> torch.Tensor:
     """Semiring SpMM over a SparseTensor, [M, F], differentiable in dense
     and in the sparse values. compute is ignored (copy_u) when the tensor
-    has no values. `values` (slot-order `SlotValues` in the JAX package)
-    is not ported and must be None."""
+    has no values. `values`, slot-space `SlotValues`, overrides the
+    tensor's own values (then compute always applies)."""
     reduce, compute = as_reduce(reduce), as_compute(compute)
     if values is not None:
-        raise NotImplementedError(
-            "slot-order values (SlotValues) are not ported yet "
-            "(ROADMAP.md, queue A #10)")
+        return _gspmm_slots(sparse, dense, reduce, compute, values)
     if dense.dim() != 2 or dense.shape[0] != sparse.sparse_sizes()[1]:
         raise ValueError(
             f"dense must be [{sparse.sparse_sizes()[1]}, F], got "
@@ -64,6 +67,33 @@ def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
     if reduce == ReduceOp.MEAN:
         deg = st.rowptr()[1:] - st.rowptr()[:-1]
         e_row = e_row / torch.clamp(deg, min=1).to(e_row.dtype)
+    e_row = e_row.to(base.dtype)[:, None]
+    return base + e_row if compute == ComputeOp.ADD else base - e_row
+
+
+def _gspmm_slots(sparse: SparseTensor, dense: torch.Tensor,
+                 reduce: ReduceOp, compute: ComputeOp, sv) -> torch.Tensor:
+    """The semiring grid on slot-space values `sv` (see the module
+    docstring)."""
+    from dgsparse_tpu_torch.ops.slot import (SlotValues, _sv_ones,
+                                             _sv_reciprocal, slots_to_edges,
+                                             spmm_slots, sv_rowsum)
+
+    if not isinstance(sv, SlotValues):
+        raise TypeError(f"values must be SlotValues, got {type(sv)}")
+    if reduce in (ReduceOp.MAX, ReduceOp.MIN):
+        return gspmm(sparse.set_values(slots_to_edges(sparse, sv)), dense,
+                     reduce, compute)
+    if compute == ComputeOp.MUL:
+        return spmm_slots(sparse, sv, dense, reduce)
+    if compute == ComputeOp.DIV:
+        return spmm_slots(sparse, _sv_reciprocal(sparse, sv), dense, reduce)
+    base = spmm_slots(sparse, _sv_ones(sparse, sv), dense, reduce)
+    e_row = sv_rowsum(sparse, sv)
+    if reduce == ReduceOp.MEAN:
+        rowptr = sparse.storage.rowptr()
+        e_row = e_row / torch.clamp(rowptr[1:] - rowptr[:-1], min=1).to(
+            e_row.dtype)
     e_row = e_row.to(base.dtype)[:, None]
     return base + e_row if compute == ComputeOp.ADD else base - e_row
 

@@ -60,11 +60,13 @@ def sddmm(sparse: SparseTensor, d1: torch.Tensor, d2: torch.Tensor,
           reduce="sum", algorithm="auto") -> torch.Tensor:
     """Per-edge dots over the sparsity pattern of `sparse`.
 
-    d1: [M, F] (rows), d2: [N, F] (cols). Returns float32 [nnz] in CSR edge
-    order, differentiable in d1 and d2. `algorithm` is "auto", "xla" or
-    "pallas" for parity with the JAX package: all run the CSR kernel, but
-    "auto" and "xla" take the hybrid route on a storage whose hybrid plan
-    has dense cells.
+    d1: [M, F] (rows), d2: [N, F] (cols). Returns [nnz] in CSR edge order
+    in the dtype the JAX function returns for these inputs (their
+    promoted dtype: bfloat16 for bfloat16), cast from the kernels'
+    float32 sums; differentiable in d1 and d2. `algorithm` is "auto",
+    "xla" or "pallas" for parity with the JAX package: all run the CSR
+    kernel, but "auto" and "xla" take the hybrid route on a storage whose
+    hybrid plan has dense cells.
     """
     reduce = as_reduce(reduce)
     if algorithm not in ALGORITHMS:
@@ -80,7 +82,8 @@ def sddmm(sparse: SparseTensor, d1: torch.Tensor, d2: torch.Tensor,
     st = sparse.storage
     hp = st.ell_plan()
     hybrid = algorithm != "pallas" and hp is not None and hp.cells is not None
-    return _SDDMM.apply(d1.contiguous(), d2.contiguous(), st, reduce, hybrid)
+    out = _SDDMM.apply(d1.contiguous(), d2.contiguous(), st, reduce, hybrid)
+    return out.to(torch.promote_types(d1.dtype, d2.dtype))
 
 
 def sddmm_coo(row: torch.Tensor, col: torch.Tensor, d1: torch.Tensor,

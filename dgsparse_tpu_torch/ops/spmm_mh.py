@@ -15,7 +15,8 @@ the degree for MEAN,
   d_values = the multi-head SDDMM of g and dense (`sddmm_csr`, H heads),
   d_dense  = the same multi-head SpMM over the CSC view, values permuted.
 MAX/MIN follow `_spmm_mh_maxmin_bwd`: the winner-mask backward, per head.
-Slot-order values (`SlotValues`) are not ported yet.
+A list of slot-space values (`SlotValues`, one per head) runs one
+`spmm_slots` per head and stacks them (`ops/spmm_mh.py:234-247`).
 """
 
 import torch
@@ -32,8 +33,9 @@ def spmm_multihead(sparse: SparseTensor, values, dense: torch.Tensor,
 
     Args:
       sparse: structure-only SparseTensor (its own values are ignored).
-      values: [nnz, H] per-head edge values (e.g. attention weights), or
-        None for copy-u aggregation shared across heads.
+      values: [nnz, H] per-head edge values (e.g. attention weights), a
+        list of H `SlotValues`, or None for copy-u aggregation shared
+        across heads.
       dense: [N, H, F] per-head node features.
       reduce: "sum", "mean", "max" or "min".
 
@@ -42,9 +44,16 @@ def spmm_multihead(sparse: SparseTensor, values, dense: torch.Tensor,
     reduce = as_reduce(reduce)
     as_algorithm(algorithm)
     if isinstance(values, (list, tuple)):
-        raise NotImplementedError(
-            "slot-order per-head values (SlotValues) are not ported yet "
-            "(ROADMAP.md, queue A #10)")
+        from dgsparse_tpu_torch.ops.slot import SlotValues, spmm_slots
+
+        if not values or not all(isinstance(v, SlotValues) for v in values):
+            raise TypeError("a list of values must hold one SlotValues a "
+                            "head")
+        if dense.dim() != 3 or dense.shape[1] != len(values):
+            raise ValueError(f"dense must be [N, H={len(values)}, F], got "
+                             f"{tuple(dense.shape)}")
+        return torch.stack([spmm_slots(sparse, sv, dense[:, h], reduce)
+                            for h, sv in enumerate(values)], dim=1)
     st = sparse.storage
     if dense.dim() != 3:
         raise ValueError(f"dense must be [N, H, F], got {tuple(dense.shape)}")

@@ -328,6 +328,19 @@ def fixture_model(fx: dict, name: str, device):
     return model, adj, x, y
 
 
+def fixture_gatconv(fx: dict, device):
+    """(conv, x) of attention_small.npz: a GATConv with the fixture's
+    flax params ("gat/dims": in, out, heads) and its input on `device`."""
+    import torch
+
+    from dgsparse_tpu_torch.nn import load_flax_params
+    from dgsparse_tpu_torch.nn.gat import GATConv
+
+    conv = GATConv(*(int(d) for d in fx["gat/dims"])).to(device)
+    load_flax_params(conv, _unflatten(_fixture_params(fx, "gat")))
+    return conv, torch.from_numpy(fx["gat/x"]).to(device)
+
+
 def _fixture_params(fx: dict, name: str) -> Dict[str, np.ndarray]:
     prefix = f"{name}/params/"
     return {k[len(prefix):]: v for k, v in fx.items() if k.startswith(prefix)}

@@ -124,7 +124,9 @@ def test_spmm_multihead_refuses_what_is_not_ported():
     x = torch.ones(N, H, F)
     with pytest.raises(ValueError):
         pt.spmm_multihead(p, torch.ones(nnz, H), x, "prod")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a list of per-head values must hold SlotValues (ported since the
+    # slot-space ops were)
+    with pytest.raises(TypeError, match="SlotValues"):
         pt.spmm_multihead(p, [object()] * H, x)
     with pytest.raises(ValueError):
         pt.spmm_multihead(p, torch.ones(nnz, H + 1), x)

@@ -102,7 +102,8 @@ def test_gspmm_refuses_slot_values_and_bad_shapes():
     rowptr, col, v, x, _ = _inputs(seed=41)
     p = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(v),
                                  sparse_sizes=(M, N))
-    with pytest.raises(NotImplementedError, match="SlotValues"):
+    # slot-space values are ported: anything else as `values` is refused
+    with pytest.raises(TypeError, match="SlotValues"):
         pt.gspmm(p, torch.from_numpy(x), values=object())
     with pytest.raises(ValueError):
         pt.gspmm(p, torch.ones(N + 1, F))

@@ -395,6 +395,46 @@ def test_set_values_rematerializes_the_cells():
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("change", ["mul_", "mul_ on the detached source",
+                                    "sgd step"])
+def test_hybrid_route_follows_in_place_value_changes(change):
+    # the tier values cached for the values must follow an in-place change
+    # of the values tensor: forward and d_dense equal the CSR route's
+    # (XLA_SEGMENT) within assert_sum_close's 1e-5
+    rowptr, col, vals = hybrid_csr(seed=23)
+    src = torch.from_numpy(vals.copy())
+    if change == "sgd step":
+        src = torch.nn.Parameter(src)
+    held = src.detach() if change == "mul_ on the detached source" else src
+    p = pt.SparseTensor.from_csr(rowptr, col, held, sparse_sizes=(N, N))
+    assert p.storage.ell_plan() is not None
+    x0, ct = _dense(24, (N, 8), (N, 8))
+    x = torch.from_numpy(x0).requires_grad_()
+    cot = torch.from_numpy(ct)
+    before = pt.spmm(p, x).detach()               # the tiers are cached
+    if change == "sgd step":
+        opt = torch.optim.SGD([src], lr=0.5)
+        (pt.spmm(p, x) * cot).sum().backward()
+        assert src.grad is not None and src.grad.abs().max() > 0
+        opt.step()
+    else:
+        src.mul_(2)
+
+    def route(algorithm):
+        out = pt.spmm(p, x, algorithm=algorithm)
+        (d_x,) = torch.autograd.grad((out * cot).sum(), x)
+        return out.detach(), d_x
+
+    abs_p = p.set_values(p.storage.values().detach().abs())
+    abs_x = torch.from_numpy(np.abs(x0))
+    abs_out = pt.spmm(abs_p, abs_x, algorithm=pt.Algorithm.XLA_SEGMENT)
+    abs_dx = pt.spmm(abs_p.t(), cot.abs(), algorithm=pt.Algorithm.XLA_SEGMENT)
+    hybrid, csr = route(pt.Algorithm.AUTO), route(pt.Algorithm.XLA_SEGMENT)
+    assert_sum_close(hybrid[0], csr[0], abs_out, 1e-5)
+    assert_sum_close(hybrid[1], csr[1], abs_dx, 1e-5)
+    assert (before - hybrid[0]).abs().max() > 1e-2    # the values moved
+
+
 # --- the GCN -----------------------------------------------------------------
 
 def _gcn_graph():

@@ -1107,3 +1107,101 @@ def test_unet_entry_on_card(cuda):
     assert (counts["spconv_pairs"], counts["spconv_dw"]) == (21, 12)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert TRAIN_CONFIGS["unet"].lr == 1e-3
+
+
+# --- the slot-space attention: widths F + 1 (the denominator column) ---------
+
+_PLAIN = (("spmm_csr", "csr_spmm"), ("sddmm_csr", "sddmm_csr"),
+          ("spmm_cells", "spmm_dense_cells"), ("spmm_cells", "sddmm_cells"),
+          ("spmm_bell", "spmm_bell"))
+
+
+def _plain_kernels(monkeypatch):
+    """Every tier kernel's plain version in place of its launch."""
+    import importlib
+
+    for mod, name in _PLAIN:
+        m = importlib.import_module(f"dgsparse_tpu_torch.kernels.{mod}")
+        monkeypatch.setattr(m, f"{name}_cuda", getattr(m, f"{name}_plain"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feat", [17, 42])
+def test_tier_kernels_at_ragged_attention_widths(cuda, feat, dtype):
+    # gat-reddit's heads of 16 and 41 features aggregate [x, 1]: the
+    # residue's csr_spmm, spmm_dense_cells both ways and spmm_bell into out
+    from dgsparse_tpu_torch.kernels import spmm_bell, spmm_cells
+
+    st = _hybrid(cuda).storage
+    hp, tiers = st.ell_plan(), st.tier_values()
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    dt = getattr(torch, dtype)
+    x = torch.randn(1500, feat, generator=g, device=cuda).to(dt)
+    cases = [(spmm_csr.csr_spmm_cuda, spmm_csr.csr_spmm_plain,
+              (hp.res.rowptr, hp.res.col, tiers["res"], x),
+              (hp.res.rowptr, hp.res.col, tiers["res"].abs(),
+               x.float().abs()))]
+    for transpose in (False, True):
+        cases.append((spmm_cells.spmm_dense_cells_cuda,
+                      spmm_cells.spmm_dense_cells_plain,
+                      (hp.cells, tiers["cells"], x, transpose),
+                      (hp.cells, tiers["cells"].abs(), x.float().abs(),
+                       transpose)))
+    for kernel, plain, args, abs_args in cases:
+        out = kernel(*args)
+        assert_sum_close(out, plain(*args), plain(*abs_args), TOLS[dtype])
+    o = torch.randn(1500, feat, generator=g, device=cuda)
+    out = spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x, out=o.clone())
+    ref = spmm_bell.spmm_bell_plain(hp.bell, tiers["bell"], x, out=o.clone())
+    abs_sum = spmm_bell.spmm_bell_plain(hp.bell, tiers["bell"].abs(),
+                                        x.float().abs(), out=o.abs())
+    torch.cuda.synchronize()
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+
+
+@pytest.mark.parametrize("feat", [16, 41])
+def test_gat_attention_matches_plain(cuda, feat, monkeypatch):
+    # the fused attention through the tier kernels against the same call
+    # on their plain versions, forward and the gradients of s_row, s_col
+    # and x (rtol 1e-4, atol 1e-5 of each one's largest value, as the
+    # training steps' gradients), with the launches of one call
+    sp = _hybrid(cuda, has_value=False)
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    inputs = [torch.randn(*s, generator=g, device=cuda).requires_grad_()
+              for s in ((1500,), (1500,), (1500, feat))]
+    ct = torch.randn(1500, feat, generator=g, device=cuda)
+
+    def run():
+        out = pt.gat_attention(sp, *inputs)
+        return out.detach(), torch.autograd.grad(out, inputs, ct)
+
+    reset_launch_counts()
+    out, grads = run()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"csr_spmm": 4, "spmm_dense_cells": 4, "spmm_bell": 2,
+                      "sddmm_cells": 1, "sddmm_csr": 1}
+    _plain_kernels(monkeypatch)
+    ref, ref_grads = run()
+    assert torch.isfinite(out).all()       # row block 5 has no dense cell
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * b.abs().max().item())
+
+
+def test_attention_matches_frozen_jax_fixture(cuda):
+    with np.load(FIXTURES / "attention_small.npz") as f:
+        fx = dict(f)
+    n = fx["x"].shape[0]
+    sp = pt.SparseTensor.from_csr(fx["rowptr"], fx["col"], None,
+                                  sparse_sizes=(n, n), device=cuda)
+    inputs = [torch.from_numpy(fx[k]).to(cuda).requires_grad_()
+              for k in ("s_row", "s_col", "x")]
+    out = pt.gat_attention(sp, *inputs)
+    grads = torch.autograd.grad(out, inputs,
+                                torch.from_numpy(fx["ct"]).to(cuda))
+    np.testing.assert_allclose(out.detach().cpu().numpy(), fx["attn/out"],
+                               rtol=2e-4, atol=2e-4)
+    for name, gr in zip(("s_row", "s_col", "x"), grads):
+        np.testing.assert_allclose(gr.cpu().numpy(), fx[f"attn/grads/{name}"],
+                                   rtol=2e-3, atol=2e-3, err_msg=name)

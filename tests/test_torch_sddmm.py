@@ -52,6 +52,27 @@ def test_sddmm_matches_jax_xla_and_pallas(feat, reduce):
 
 
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_sddmm_bf16_matches_jax_dtype_and_values(reduce):
+    # the JAX function returns bfloat16 for bfloat16 inputs; the port casts
+    # its kernels' float32 sums to it, so it is the float32 result rounded
+    # once, and JAX's at 2e-2 (its bf16 einsum also rounds as it sums)
+    p, j, _, _ = _pair(130, 90, seed=21)
+    d1, d2 = _dense(22, (130, 16), (90, 16))
+    a = torch.from_numpy(d1).bfloat16()
+    b = torch.from_numpy(d2).bfloat16()
+    out = pt.sddmm(p, a, b, reduce)
+    ref = jx.sddmm(j, jnp.asarray(d1, jnp.bfloat16),
+                   jnp.asarray(d2, jnp.bfloat16), reduce, "xla")
+    assert ref.dtype == jnp.bfloat16
+    assert out.dtype == torch.bfloat16 and out.shape == (p.nnz,)
+    exact = pt.sddmm(p, a.float(), b.float(), reduce)
+    torch.testing.assert_close(out, exact.bfloat16(), rtol=0, atol=0)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
 def test_sddmm_grads_match_jax(reduce):
     p, j, _, col = _pair(110, 80, seed=5)
     d1, d2 = _dense(6, (110, 12), (80, 12))
