@@ -52,8 +52,9 @@ exits non-zero without a result line:
      and dX (pairs by input, Wᵀ) and spconv_dw, against their plain
      versions on a two-batch cloud's submanifold, strided and inverse
      plans and on the "unet-60k" enc2 plan, at (c_in, c_out) in
-     SPCONV_CHANNELS, fp32 at 1e-5 and bf16 at 1e-2 scaled by the terms'
-     absolute sum; spconv_pairs and spconv_dw run twice equal themselves
+     SPCONV_CHANNELS, fp32 and bf16 both at 1e-5 scaled by the terms'
+     absolute sum (bf16 products are exact in the float32 sums both
+     sides take); spconv_pairs and spconv_dw run twice equal themselves
      bitwise.
   4. fixtures: the port's GCN forward against the JAX package's frozen
      output (tests/fixtures/torch_port/gcn_small.npz) at 1e-4; its GCN and
@@ -162,8 +163,45 @@ exits non-zero without a result line:
      sddmm_group_kernel, gcn-reddit's bell_rows_kernel and
      bell_long_kernel and gat-reddit's cell and SDDMM kernels by name, and
      gcn-reddit's elementwise float adds (the tier sums among them).
-Then one JSON line of per-kernel results, the card's name and power
-limit, and as the last line
+  9. utilities: with `utils.metrics` on, one forward each of gcn-reddit,
+     gat-reddit, gin-max-arxiv and unet-60k, its `metrics.summary()`
+     printed and its routes held to the kernels that launched (the hybrid
+     tiers, PALLAS_ROW_TILE, on Reddit; the max/min CSR kernel on GIN;
+     the fused spconv on the UNet; gat_attention records none); with
+     validation on, a card storage whose column was corrupted after
+     construction raises ValueError before any launch, then a clean SpMM
+     runs; `degree_stats` of the Reddit storage; RCM on a geometric graph
+     of 10^5 nodes: bandwidth, host seconds, and csr_spmm at F=256 in
+     both orders (equal after un-permuting at 1e-5 of the terms'
+     absolute sum, CUDA-event times).
+ 10. native: unet-60k's four rulebooks from the native C++ builder and
+     from numpy, identical plans, each builder's host seconds with the
+     upload; fails if the library does not build or load.
+ 11. esc: unet-60k with the ESC route forced on (`ops/spconv.py`; a plan
+     that fails JAX's structure gate keeps the fused kernels): logits
+     against the fused route's at 1e-4, step-1 gradients on one shared
+     forward at rtol 1e-4 / atol 1e-5 * max|g|, a served forward and an
+     Adam step with exact launches; per conv, ESC's out, dX and dW
+     against the fused route's at 1e-5 of the terms' absolute sum, and
+     both routes timed, forward and forward + backward.
+ 12. bf16 layers: an enc2-shaped SubMConv3d(64, 64,
+     compute_dtype=bfloat16) forward and backward against the fp32 layer
+     at 1e-2 of the largest |fp32 value|, and the bf16 spconv_pairs /
+     spconv_dw against their plain versions at 1e-5 of the terms'
+     absolute sum; each check refuses a planted fault (a tenth of one
+     offset's pairs left out).
+ 13. checkpoint: gcn-arxiv, 2 Adam steps, saved and restored into a
+     fresh trainer, one more step in both: parameters bitwise equal.
+ 14. tune (last: `run` points DGSPARSE_TUNE_CACHE at a temporary file
+     before its first phase, so no earlier phase sees an entry and no
+     user's cache is read or written):
+     `tune_spmm` on the Reddit storage at F=64 and 41, forward and with
+     the backward; a gcn-reddit forward under AUTO runs the winners (the
+     metrics show them), each width against the other route at 1e-5
+     scaled; `tune_report` on the arxiv storage; the file deleted.
+Then one JSON line of per-kernel results (csr_spmm's launches by path
+include the esc and tune paths), the card's name and power limit, and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -172,9 +210,12 @@ import contextlib
 import functools
 import itertools
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -793,9 +834,10 @@ def phase_spconv_kernels(torch, cuda, enc2_plan):
     """spconv_pairs forward (pairs by output, W) and dX (pairs by input,
     Wᵀ) and spconv_dw against their plain versions: on a two-batch cloud's
     submanifold, strided and inverse plans and on the "unet-60k" enc2 plan,
-    at (c_in, c_out) in SPCONV_CHANNELS; float32 at 1e-5 and bfloat16 at
-    1e-2, scaled by the terms' absolute sum. Each kernel run twice equals
-    itself bitwise (no atomics)."""
+    at (c_in, c_out) in SPCONV_CHANNELS; float32 and bfloat16 both at 1e-5
+    scaled by the terms' absolute sum (each side sums the products in
+    float32, and a product of two bf16 values is exact there). Each kernel
+    run twice equals itself bitwise (no atomics)."""
     from dgsparse_tpu_torch.kernels import spconv as K
     from dgsparse_tpu_torch.ops.spconv import build_rulebook, inverse_plan
     from dgsparse_tpu_torch.utils.testing import (assert_sum_close,
@@ -817,7 +859,7 @@ def phase_spconv_kernels(torch, cuda, enc2_plan):
         if not torch.equal(out, again):
             raise AssertionError(f"{kernel}: two runs on the same inputs "
                                  f"differ")
-        e = assert_sum_close(out, ref, abs_sum, TOL[dtype])
+        e = assert_sum_close(out, ref, abs_sum, TOL["float32"])
         errs[kernel][dtype] = max(errs[kernel][dtype], e)
         return e
 
@@ -2460,6 +2502,636 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
     return results
 
 
+# --- the single-card utilities, native rulebooks, ESC, bf16 layers,
+# checkpoints and the tuner ---------------------------------------------------
+
+# the forwards whose dispatch counters phase 9 reads, and the routes each
+# must record: (op, route tags...) -> calls
+METRIC_ROUTES = {
+    "gcn-reddit": {("spmm", "PALLAS_ROW_TILE", "sum"): 2},
+    "gat-reddit": {},           # gat_attention runs the tiers directly
+    "gin-max-arxiv": {("spmm", "XLA_SEGMENT", "max"): 2},
+    "unet-60k": {("spconv", "fused"): 4},
+}
+# a random geometric graph of ~9 neighbours a node for the RCM reading
+RCM_NODES, RCM_RADIUS, RCM_FEAT = 100_000, 0.0054, 256
+# the UNet's convs: (c_in, c_out) of each
+UNET_CONVS = {"enc1": (8, 32), "down1": (32, 64), "enc2": (64, 64),
+              "up1": (64, 32)}
+
+
+def _route_key(key):
+    op, tags = key[0], dict(key[1:])
+    if op == "spmm":
+        return op, tags["alg"], tags["reduce"]
+    if op == "spconv":
+        return op, tags["path"]
+    return (op,)
+
+
+def phase_utilities(torch, cuda, graphs):
+    """The dispatch counters on one forward each of gcn-reddit, gat-reddit,
+    gin-max-arxiv and unet-60k, held to the kernels that launched;
+    validation on a corrupted card storage (a ValueError and no launch,
+    then a clean SpMM); the Reddit storage's degree statistics; RCM on a
+    geometric graph of 10^5 nodes, csr_spmm at F = 256 in both orders.
+    Returns the launches of the four forwards."""
+    import numpy as np
+
+    from dgsparse_tpu_torch import SparseTensor, spmm
+    from dgsparse_tpu_torch.core import reorder
+    from dgsparse_tpu_torch.entry import SERVE_CONFIGS, build_model
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.kernels import spmm_csr as K
+    from dgsparse_tpu_torch.utils import debug, metrics, stats
+    from dgsparse_tpu_torch.utils.testing import (assert_sum_close,
+                                                  geometric_graph,
+                                                  random_csr)
+
+    launches = dict(_NONE)
+    for config, want in METRIC_ROUTES.items():
+        tc = SERVE_CONFIGS[config]
+        adj, x, _ = graphs[_graph_key(tc)]
+        model = build_model(config, seed=0, device=cuda)
+        metrics.reset()
+        reset_launch_counts()
+        metrics.enable()
+        try:
+            with torch.inference_mode():
+                model(x, adj)
+        finally:
+            metrics.disable()
+        torch.cuda.synchronize()
+        counts = _counts()
+        recorded = {}
+        for key, n in metrics.counters().items():
+            recorded[_route_key(key)] = recorded.get(_route_key(key), 0) + n
+        log(f"[utilities] {config}: metrics.summary() of one forward:")
+        for line in metrics.summary().splitlines():
+            log(f"[utilities]   {line}")
+        metrics.reset()
+        if recorded != want:
+            raise AssertionError(f"{config}: routes {recorded}, expected "
+                                 f"{want}")
+        if counts != FORWARD_LAUNCHES[_launch_kind(tc, adj)]:
+            raise AssertionError(f"{config}: launches {counts}")
+        for k in KERNEL_NAMES:
+            launches[k] += counts[k]
+
+    # validation: a column corrupted after construction raises before any
+    # launch, and the context stays healthy
+    rowptr, col, values = random_csr(4000, 3000, avg_degree=8.0, seed=12)
+    sp = SparseTensor.from_csr(rowptr, col, torch.from_numpy(values),
+                               sparse_sizes=(4000, 3000), device=cuda)
+    good = sp.storage.col()
+    bad = good.clone()
+    bad[len(col) // 2] = 3000 + 7
+    sp.storage._col = bad
+    x = torch.randn(3000, 32, device=cuda)
+    reset_launch_counts()
+    debug.set_validate(True)
+    try:
+        spmm(sp, x)
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError("validation let a corrupted storage through")
+    finally:
+        debug.set_validate(False)
+    torch.cuda.synchronize()
+    if not message.startswith("col indices out of range") \
+            or any(_counts().values()):
+        raise AssertionError(f"validation: {message!r}, launches "
+                             f"{_counts()}")
+    sp.storage._col = good
+    out = spmm(sp, x)
+    abs_sum = K.csr_spmm_plain(sp.storage.rowptr(), good,
+                               sp.storage.values().abs(), x.abs())
+    e = assert_sum_close(out, K.csr_spmm_plain(
+        sp.storage.rowptr(), good, sp.storage.values(), x), abs_sum, 1e-5)
+    log(f"[utilities] validate: ValueError({message!r}) before any "
+        f"launch; the clean SpMM afterwards launched "
+        f"{ {k: v for k, v in _counts().items() if v} } and matched the "
+        f"plain version, max_abs_err {e:.3e}")
+
+    log(f"[utilities] degree_stats of the Reddit-scale storage: "
+        f"{stats.degree_stats(graphs['reddit'][0].storage.rowptr())}")
+
+    # RCM: bandwidth, host seconds, and csr_spmm in both orders
+    t0 = time.perf_counter()
+    rowptr, col, n = geometric_graph(RCM_NODES, RCM_RADIUS, seed=0)
+    t_gen = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    vals = rng.standard_normal(len(col)).astype(np.float32)
+    t0 = time.perf_counter()
+    perm = reorder.rcm_permutation(rowptr, col)
+    t_rcm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rp2, col2, vals2 = reorder.permute_csr(rowptr, col, vals, perm)
+    t_perm = time.perf_counter() - t0
+    bw0, bw1 = reorder.bandwidth(rowptr, col), reorder.bandwidth(rp2, col2)
+    r0, c0, v0, r1, c1, v1 = _to(cuda, rowptr, col, vals, rp2, col2, vals2)
+    x = torch.randn(n, RCM_FEAT, device=cuda)
+    idx = torch.from_numpy(perm).to(cuda).long()
+    xp = x[idx].contiguous()
+    out0 = K.csr_spmm_cuda(r0, c0, v0, x)
+    out1 = K.csr_spmm_cuda(r1, c1, v1, xp)
+    abs0 = K.csr_spmm_plain(r0, c0, v0.abs(), x.abs())
+    e = assert_sum_close(out1, out0[idx], abs0[idx], 1e-5)
+    ms = _time_turns({"shuffled": (K.csr_spmm_cuda, (r0, c0, v0, x)),
+                      "rcm": (K.csr_spmm_cuda, (r1, c1, v1, xp))})
+    log(f"[utilities] RCM on a geometric graph of {n} nodes, {len(col)} "
+        f"edges (built in {t_gen:.2f} s): bandwidth {bw0} -> {bw1}; host "
+        f"rcm_permutation {t_rcm:.3f} s, permute_csr {t_perm:.3f} s; "
+        f"csr_spmm F={RCM_FEAT} fp32 shuffled ids {ms['shuffled'] * 1e3:.2f}"
+        f" us, RCM order {ms['rcm'] * 1e3:.2f} us (un-permuted result vs "
+        f"the shuffled one: max_abs_err {e:.3e})")
+    return launches
+
+
+@contextlib.contextmanager
+def _numpy_rulebooks():
+    """`build_rulebook` on its numpy path for the block, at every size."""
+    from dgsparse_tpu_torch.ops import spconv as ops
+
+    saved = ops._native_rulebook
+    ops._native_rulebook = lambda *args: None
+    try:
+        yield
+    finally:
+        ops._native_rulebook = saved
+
+
+def _unet_rulebooks(torch, st, cuda):
+    """The UNet's four rulebooks on the cloud `st`, built afresh on `cuda`;
+    (plans, coarse coords, host seconds incl. upload)."""
+    from dgsparse_tpu_torch.ops.spconv import build_rulebook, inverse_plan
+
+    t0 = time.perf_counter()
+    shape = st.spatial_shape
+    enc1, _ = build_rulebook(st.coords, 3, 1, 1, spatial_shape=shape,
+                             device=cuda)
+    down1, coarse = build_rulebook(st.coords, 3, 2, 1, spatial_shape=shape,
+                                   device=cuda)
+    shape2 = tuple(max((s + 2 - 3) // 2 + 1, 1) for s in shape)
+    enc2, _ = build_rulebook(coarse, 3, 1, 1, spatial_shape=shape2,
+                             device=cuda)
+    up1 = inverse_plan(down1)
+    torch.cuda.synchronize()
+    return ({"enc1": enc1, "down1": down1, "enc2": enc2, "up1": up1},
+            coarse, time.perf_counter() - t0)
+
+
+def _same_plan(torch, a, b, name):
+    for f in ("knnz", "kpos", "qkpos", "num_out", "num_in", "k_vol",
+              "separate_mid"):
+        if getattr(a, f) != getattr(b, f):
+            raise AssertionError(f"{name}: {f} differs")
+    pairs = [(f, getattr(a, f), getattr(b, f))
+             for f in ("imap", "omap", "widx", "o2i", "i2o")]
+    for layout in ("by_out", "by_in", "by_offset"):
+        la, lb = getattr(a, layout), getattr(b, layout)
+        for f, v in vars(la).items():
+            if isinstance(v, torch.Tensor):
+                pairs.append((f"{layout}.{f}", v, getattr(lb, f)))
+            elif v != getattr(lb, f):
+                raise AssertionError(f"{name}: {layout}.{f} differs")
+    for f, u, v in pairs:
+        if not torch.equal(u, v):
+            raise AssertionError(f"{name}: {f} differs")
+
+
+def phase_native(torch, cuda, cloud):
+    """unet-60k's four rulebooks by the native builder and by numpy:
+    identical plans, and each builder's host seconds (upload included).
+    Fails if the native library does not build or load."""
+    from dgsparse_tpu_torch import native
+
+    path = native.build()
+    if not native.available():
+        raise AssertionError(f"the native library {path} did not load")
+    st = cloud[0]
+    nat, nat_coarse, t_nat = _unet_rulebooks(torch, st, cuda)
+    with _numpy_rulebooks():
+        ref, ref_coarse, t_ref = _unet_rulebooks(torch, st, cuda)
+    import numpy as np
+
+    if not np.array_equal(nat_coarse, ref_coarse):
+        raise AssertionError("the coarse sites differ")
+    for name in nat:
+        _same_plan(torch, nat[name], ref[name], name)
+    log(f"[native] {path} (dg_version {native.version()}): unet-60k's 4 "
+        f"rulebooks ({len(st.coords)} voxels; pairs "
+        f"{ {k: p.total_pairs for k, p in nat.items()} }) identical from "
+        f"both builders (by_out, by_in, by_offset, the imap/omap/widx "
+        f"streams, o2i, i2o); host seconds with the upload: native "
+        f"{t_nat:.3f} s, numpy {t_ref:.3f} s")
+    return {"native_s": t_nat, "numpy_s": t_ref}
+
+
+@contextlib.contextmanager
+def _esc(on=True):
+    """The ESC spconv route forced on (or off) for the block."""
+    from dgsparse_tpu_torch.ops import spconv as ops
+
+    prev = ops._FORCE_ESC[0]
+    ops._FORCE_ESC[0] = on
+    try:
+        yield
+    finally:
+        ops._FORCE_ESC[0] = prev
+
+
+def _spconv_call(torch, plan, esc, backward, g=None):
+    """fn(x, w) running one spconv on `plan` on the ESC or the fused route,
+    with the backward (dX and dW of the cotangent g) when asked. ESC is
+    called directly, so it also runs on a plan its structure gate sends
+    to the fused route."""
+    from dgsparse_tpu_torch.ops import spconv as ops
+
+    def fn(x, w):
+        if esc:
+            out = ops._esc_forward(x, w, plan)
+            return (out, *ops._esc_backward(x, w, plan, g, True, True)) \
+                if backward else out
+        with _esc(False):
+            if not backward:
+                with torch.no_grad():
+                    return ops.spconv(x, w, plan)
+            xi, wi = x.detach().requires_grad_(), w.detach().requires_grad_()
+            out = ops.spconv(xi, wi, plan)
+            return (out, *torch.autograd.grad(out, (xi, wi), g))
+    return fn
+
+
+def _esc_launches(plans):
+    """The launches of a served UNet forward and one training step with
+    ESC forced on: a conv whose plan passes the structure gate reduces
+    with csr_spmm (forward, dX), the others run the fused kernels; enc1
+    runs no dX."""
+    counts = dict(_NONE)
+    for name, plan in plans.items():
+        esc = plan.use_esc_structure()
+        counts["csr_spmm" if esc else "spconv_pairs"] += \
+            3 if name != "enc1" else 2
+        counts["spconv_dw"] += 0 if esc else 1
+    return counts
+
+
+def phase_esc(torch, cuda, graphs):
+    """unet-60k on the ESC route: the forward against the fused route's at
+    1e-4; step-1 gradients on one shared forward, the backward once on
+    each route, at rtol 1e-4 and atol 1e-5 * max|g|; a served forward and
+    an Adam step on ESC with exact launches (csr_spmm only). Per conv, on
+    random inputs at its plan: ESC's out, dX and dW against the fused
+    route's at 1e-5 scaled by the terms' absolute sum, and both routes
+    timed, forward and forward + backward. Returns the launches of the
+    ESC forward and step, and the times."""
+    from torch.nn import functional as F
+
+    from dgsparse_tpu_torch.entry import build_trainer, train_step
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.kernels import spconv as K
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    data = graphs["unet-60k"]
+    st, x, y = data
+    plans = unet_plans(st)
+    gate = {k: p.use_esc_structure() for k, p in plans.items()}
+    log(f"[esc] unet-60k plans that pass the ESC structure gate (pairs < "
+        f"half the (offset, output) probes): {gate}")
+
+    model, _, _ = build_trainer("unet-60k", seed=0, device=cuda, data=data)
+    with torch.no_grad():
+        fused = model(x, st)
+        with _esc():
+            esc = model(x, st)
+    fwd_err = max_err(esc, fused, 1e-4)
+    loss = F.cross_entropy(model(x, st), y)
+    loss.backward(retain_graph=True)
+    ref = _grads(model)
+    model.zero_grad(set_to_none=True)
+    with _esc():
+        loss.backward()
+    got = _grads(model)
+    grad_err = 0.0
+    for name, g in ref.items():
+        torch.testing.assert_close(got[name], g, rtol=1e-4,
+                                   atol=1e-5 * g.abs().max().item(),
+                                   msg=lambda m: f"esc {name}: {m}")
+        grad_err = max(grad_err, (got[name] - g).abs().max().item())
+
+    model, opt, _ = build_trainer("unet-60k", seed=0, device=cuda, data=data)
+    reset_launch_counts()
+    with _esc():
+        with torch.inference_mode():
+            out = model(x, st)
+        step_loss = float(train_step(model, opt, x, st, y))
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches != _esc_launches(plans):
+        raise AssertionError(f"esc: launches {launches}, expected "
+                             f"{_esc_launches(plans)}")
+    if not (bool(torch.isfinite(out).all()) and math.isfinite(step_loss)):
+        raise AssertionError("esc: non-finite output or loss")
+    log(f"[esc] unet-60k on the ESC route: logits vs the fused route "
+        f"max_abs_err {fwd_err:.3e}; step-1 gradients (ESC backward vs "
+        f"fused backward on one forward) max_abs_err {grad_err:.3e}; a "
+        f"served forward and an Adam step (loss {step_loss:.6f}) launched "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    times = {}
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for name, (c_in, c_out) in UNET_CONVS.items():
+        plan = plans[name]
+        mid = (plan.k_vol - 1) // 2
+        xr = torch.randn(plan.num_in, c_in, generator=gen, device=cuda)
+        w = torch.randn(plan.k_vol, c_in, c_out, generator=gen,
+                        device=cuda) * 0.1
+        g = torch.randn(plan.num_out, c_out, generator=gen, device=cuda)
+        wt_abs = w.abs().transpose(1, 2).contiguous()
+        center = (lambda a, b: a @ b) if plan.separate_mid else \
+            (lambda a, b: 0)
+        abs_sums = (
+            K.spconv_pairs_plain(plan.by_out, xr.abs(), w.abs())
+            + center(xr.abs(), w[mid].abs()),
+            K.spconv_pairs_plain(plan.by_in, g.abs(), wt_abs)
+            + center(g.abs(), w[mid].T.abs()),
+            K.spconv_dw_plain(plan.by_offset, xr.abs(), g.abs()))
+        if plan.separate_mid:
+            abs_sums[2][mid] += xr.abs().T @ g.abs()
+        on = _spconv_call(torch, plan, True, True, g)(xr, w)
+        off = _spconv_call(torch, plan, False, True, g)(xr, w)
+        errs = [assert_sum_close(a, b, s, 1e-5)
+                for a, b, s in zip(on, off, abs_sums)]
+        ms = {}
+        for label, backward in (("forward", False), ("forward+backward",
+                                                     True)):
+            t = _time_turns({
+                "esc": (_spconv_call(torch, plan, True, backward, g),
+                        (xr, w)),
+                "fused": (_spconv_call(torch, plan, False, backward, g),
+                          (xr, w))}, warmup=3, iters=20)
+            ms[label] = t
+        times[name] = ms
+        log(f"[esc] {name} {c_in}->{c_out} ({plan.num_in} -> "
+            f"{plan.num_out} sites, {plan.total_pairs} pairs, "
+            f"{plan.qkpos[-1]} stream rows, "
+            f"{'passes' if gate[name] else 'fails'} the gate): ESC vs fused"
+            f" max_abs_err out "
+            f"{errs[0]:.3e} dX {errs[1]:.3e} dW {errs[2]:.3e}; forward ESC "
+            f"{ms['forward']['esc'] * 1e3:.2f} us, fused "
+            f"{ms['forward']['fused'] * 1e3:.2f} us; forward+backward (dX "
+            f"and dW) ESC {ms['forward+backward']['esc'] * 1e3:.2f} us, "
+            f"fused {ms['forward+backward']['fused'] * 1e3:.2f} us")
+    return launches, times
+
+
+def _max_rel_close(what, got, want, tol):
+    """max |got - want| <= tol * max |want|; returns max |got - want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    bound = tol * want.float().abs().max().item()
+    if not err <= bound:
+        raise AssertionError(f"{what}: max |got - want| = {err:.3e} > "
+                             f"{tol} * max |want| = {bound:.3e}")
+    return err
+
+
+def _refuses(what, check, *args):
+    """A planted fault `check` must refuse."""
+    try:
+        check(*args)
+    except AssertionError:
+        return
+    raise AssertionError(f"{what}: the check passed a planted fault")
+
+
+def phase_bf16_layers(torch, cuda, cloud):
+    """An enc2-shaped SubMConv3d(64, 64, compute_dtype=bfloat16), forward
+    and backward, against the fp32 layer with the same parameters: out,
+    dX, dW and db at 1e-2 of the terms' absolute sum, and dW and db, sums
+    of about 10^5 terms, where that bound exceeds a typical value, also
+    within 1e-2 of the largest |fp32 value| (bf16 rounds the inputs and
+    each result to 8 significant bits, 2^-8 of a value at most). The bf16
+    spconv_pairs / spconv_dw on its rounded inputs against their plain
+    versions at 1e-5 of the terms' absolute sum: both sum the same exact
+    bf16 products in float32, in another order. The kernel checks and the
+    layer's dW check must also refuse a planted fault: a tenth of the
+    busiest offset's pairs left out. Returns the bf16 layer's
+    launches."""
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.kernels import spconv as K
+    from dgsparse_tpu_torch.nn import PointCloudUNet
+    from dgsparse_tpu_torch.nn.sparse_conv import SubMConv3d
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    st = cloud[0]
+    coarse = PointCloudUNet().down1.output_sites(st)
+    plan = unet_plans(st)["enc2"]
+    mid = (plan.k_vol - 1) // 2
+    f32 = SubMConv3d(64, 64, generator=torch.Generator().manual_seed(3))
+    f32 = f32.to(cuda)
+    bf16 = SubMConv3d(64, 64, compute_dtype=torch.bfloat16).to(cuda)
+    bf16.load_state_dict(f32.state_dict())
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(plan.num_in, 64, generator=gen, device=cuda)
+    ct = torch.randn(plan.num_out, 64, generator=gen, device=cuda)
+
+    def run(layer):
+        xi = x.clone().requires_grad_()
+        out = layer(coarse.replace(features=xi)).features
+        (out.float() * ct).sum().backward()
+        return out, xi.grad, layer.kernel.grad, layer.bias.grad
+
+    reset_launch_counts()
+    got = run(bf16)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = run(f32)
+    if got[0].dtype != torch.bfloat16 or launches != {
+            **_NONE, "spconv_pairs": 2, "spconv_dw": 1}:
+        raise AssertionError(f"bf16 layer: {got[0].dtype}, {launches}")
+    w = f32.kernel.detach()
+    with torch.no_grad():
+        # the pairs' terms, then the center tap's added for the layer
+        dw_abs = K.spconv_dw_plain(plan.by_offset, x.abs(), ct.abs())
+        dw_abs[mid] += x.abs().T @ ct.abs()
+        abs_sums = (
+            K.spconv_pairs_plain(plan.by_out, x.abs(), w.abs())
+            + x.abs() @ w[mid].abs(),
+            K.spconv_pairs_plain(plan.by_in, ct.abs(), w.abs().transpose(
+                1, 2).contiguous()) + ct.abs() @ w[mid].abs().T,
+            dw_abs, ct.abs().sum(0))
+    names = ("out", "dX", "dW", "db")
+    errs = [assert_sum_close(a.float(), b, s, 1e-2)
+            for a, b, s in zip(got, want, abs_sums)]
+    for n, a, b in zip(names[2:], got[2:], want[2:]):
+        _max_rel_close(f"bf16 layer {n}", a, b, 1e-2)
+    xb, wb, gb = x.bfloat16(), w.bfloat16(), ct.bfloat16()
+    with torch.no_grad():
+        pairs = (K.spconv_pairs_cuda(plan.by_out, xb, wb),
+                 K.spconv_pairs_plain(plan.by_out, xb, wb),
+                 K.spconv_pairs_plain(plan.by_out, xb.float().abs(),
+                                      wb.float().abs()))
+        dw = (K.spconv_dw_cuda(plan.by_offset, xb, gb),
+              K.spconv_dw_plain(plan.by_offset, xb, gb),
+              K.spconv_dw_plain(plan.by_offset, xb.float().abs(),
+                                gb.float().abs()))
+    kerrs = [assert_sum_close(*pairs, 1e-5), assert_sum_close(*dw, 1e-5)]
+    # the planted fault: a tenth of the busiest offset's pairs left out
+    widx = plan.by_offset.widx.long()
+    busy = torch.bincount(widx, minlength=plan.k_vol)
+    busy[mid] = 0
+    off = int(busy.argmax())
+    sel = torch.nonzero(widx == off).flatten()
+    sel = sel[:max(sel.numel() // 10, 1)]
+    i = plan.by_offset.in_ids[sel].long()
+    o = plan.by_offset.out_ids[sel].long()
+    with torch.no_grad():
+        bad_out = pairs[0].index_add(0, o, xb[i].float() @ wb[off].float(),
+                                     alpha=-1)
+        bad_dw = dw[0].clone()
+        bad_dw[off] -= xb[i].float().T @ gb[o].float()
+        bad_layer_dw = got[2].clone()
+        bad_layer_dw[off] -= x[i].T @ ct[o]
+    _refuses("spconv_pairs bf16", assert_sum_close, bad_out, *pairs[1:],
+             1e-5)
+    _refuses("spconv_dw bf16", assert_sum_close, bad_dw, *dw[1:], 1e-5)
+    _refuses("bf16 layer dW", _max_rel_close, "dW", bad_layer_dw, want[2],
+             1e-2)
+    log(f"[bf16] SubMConv3d(64, 64, compute_dtype=bfloat16) on the enc2 "
+        f"plan ({plan.num_in} sites, {plan.total_pairs} pairs): launches "
+        f"{ {k: v for k, v in launches.items() if v} }, output "
+        f"{got[0].dtype}; vs the fp32 layer max_abs_err "
+        + " ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+        + " (at 1e-2 of the terms' absolute sum; dW and db also at 1e-2 "
+        "of max |fp32|: "
+        + " ".join(f"{n} {1e-2 * b.float().abs().max().item():.3e}"
+                   for n, b in zip(names[2:], want[2:]))
+        + f"); bf16 kernels vs their plain versions: spconv_pairs "
+        f"{kerrs[0]:.3e}, spconv_dw {kerrs[1]:.3e} (at 1e-5 of the terms' "
+        f"absolute sum); all three checks refuse {sel.numel()} of offset "
+        f"{off}'s pairs left out")
+    return launches
+
+
+def phase_checkpoint(torch, cuda, graphs):
+    """gcn-arxiv: 2 Adam steps, its model and Adam state saved and
+    restored into a fresh trainer on the card, then one more step in both:
+    the parameters bitwise equal (the kernels sum in a fixed order)."""
+    from dgsparse_tpu_torch.entry import build_trainer, train_step
+    from dgsparse_tpu_torch.utils import checkpoint
+
+    data = graphs["arxiv"]
+    adj, x, y = data
+    model, opt, _ = build_trainer("gcn-arxiv", seed=0, device=cuda, data=data)
+    for _ in range(2):
+        train_step(model, opt, x, adj, y)
+    tmp = tempfile.mkdtemp(prefix="dgsparse_ckpt_")
+    try:
+        path = os.path.join(tmp, "gcn-arxiv.pt")
+        t0 = time.perf_counter()
+        checkpoint.save(path, {"model": model.state_dict(),
+                               "opt": opt.state_dict()})
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fresh, fresh_opt, _ = build_trainer("gcn-arxiv", seed=1, device=cuda,
+                                            data=data)
+        t0 = time.perf_counter()
+        state = checkpoint.restore(path, template={
+            "model": fresh.state_dict(), "opt": fresh_opt.state_dict()})
+        fresh.load_state_dict(state["model"])
+        fresh_opt.load_state_dict(state["opt"])
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [float(train_step(m, o, x, adj, y))
+              for m, o in ((model, opt), (fresh, fresh_opt))]
+    for (name, a), b in zip(model.named_parameters(), fresh.parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"checkpoint: {name} differs after the "
+                                 f"resumed step")
+    if losses[0] != losses[1]:
+        raise AssertionError(f"checkpoint: step-3 losses {losses}")
+    log(f"[checkpoint] gcn-arxiv: 2 steps, saved ({size} B) in "
+        f"{t_save:.3f} s, restored into a fresh trainer in {t_restore:.3f} "
+        f"s; step 3 in both: loss {losses[0]:.6f}, every parameter "
+        f"bitwise equal")
+
+
+def phase_tune(torch, cuda, graphs, tune_dir):
+    """The tuner on the Reddit-scale storage at F = 64 and 41, forward and
+    with the backward; then a gcn-reddit forward under AUTO, whose metrics
+    must show the tuned winners, and each width's AUTO SpMM against the
+    other route at 1e-5 scaled by the terms' absolute sum; tune_report on
+    the arxiv storage (one candidate). Runs last, on the temporary cache
+    file in `tune_dir` that `run` points DGSPARSE_TUNE_CACHE at, and
+    deletes it; refuses any other cache file. Returns the phase's
+    launches."""
+    from dgsparse_tpu_torch import spmm
+    from dgsparse_tpu_torch.entry import build_model
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.ops.types import Algorithm
+    from dgsparse_tpu_torch.utils import metrics, tune
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    path = tune.cache_path()
+    if os.path.dirname(os.path.abspath(path)) != os.path.abspath(tune_dir):
+        raise AssertionError(f"tune: the cache {path} is not the run's "
+                             f"temporary file under {tune_dir}")
+    reddit, x, _ = graphs["reddit"]
+    winners = {}
+    reset_launch_counts()
+    for feat in REDDIT_FEATS:
+        for with_grad in (False, True):
+            best, times = tune.tune_spmm(reddit, feat, with_grad=with_grad)
+            if len(times) != 2:
+                raise AssertionError(f"tune: candidates {list(times)}")
+            winners[feat, with_grad] = best
+            mode = ("forward+backward (d_values, d_dense)" if with_grad
+                    else "forward")
+            log(f"[tune] gcn-reddit storage F={feat} {mode}: best "
+                f"{best.name}; " + ", ".join(
+                    f"{a.name} {t * 1e6:.2f} us" for a, t in times.items()))
+    model = build_model("gcn-reddit", seed=0, device=cuda)
+    metrics.reset()
+    metrics.enable()
+    try:
+        with torch.inference_mode():
+            model(x, reddit)
+    finally:
+        metrics.disable()
+    torch.cuda.synchronize()
+    launches = _counts()
+    routes = {dict(k[1:])["feat"]: dict(k[1:])["alg"]
+              for k in metrics.counters() if k[0] == "spmm"}
+    metrics.reset()
+    want = {f: winners[f, False].name for f in REDDIT_FEATS}
+    if routes != want:
+        raise AssertionError(f"tune: AUTO ran {routes}, tuned {want}")
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    errs = {}
+    for feat in REDDIT_FEATS:
+        xf = torch.randn(reddit.shape[1], feat, generator=gen, device=cuda)
+        other = ({Algorithm.XLA_SEGMENT, Algorithm.PALLAS_ROW_TILE}
+                 - {winners[feat, False]}).pop()
+        abs_sum = spmm(reddit.set_values(reddit.storage.values().abs()),
+                       xf.abs(), algorithm=Algorithm.XLA_SEGMENT)
+        errs[feat] = assert_sum_close(spmm(reddit, xf),
+                                      spmm(reddit, xf, algorithm=other),
+                                      abs_sum, 1e-5)
+    log(f"[tune] gcn-reddit forward under AUTO ran {routes} (by width), the "
+        f"tuned forward winners; AUTO vs the other route max_abs_err "
+        f"{ {f: f'{e:.3e}' for f, e in errs.items()} }")
+    for line in tune.tune_report(graphs["arxiv"][0]).splitlines():
+        log(f"[tune] arxiv storage: {line}")
+    if tune.cache_path() != path:
+        raise AssertionError(f"tune: the cache moved to {tune.cache_path()}")
+    log(f"[tune] cache {path}: {len(tune._load())} entries; deleted")
+    os.remove(path)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, errs, shapes, timed,
                   card, main="training"):
     t = shapes[timed]
@@ -2486,7 +3158,25 @@ def _kernel_entry(name, source, replaces, launches, errs, shapes, timed,
 
 
 def run(torch, cuda) -> int:
-    """Every phase on `cuda`, then the result lines; 1 on any failure."""
+    """Every phase on `cuda`, then the result lines; 1 on any failure.
+    The tuner's cache is a fresh temporary file for the run's length, so
+    AUTO follows the hybrid gate until the last phase tunes, and no
+    user's cache is read or written (utils/tune.py reads the variable at
+    each use)."""
+    tune_dir = tempfile.mkdtemp(prefix="dgsparse_tune_")
+    saved = os.environ.get("DGSPARSE_TUNE_CACHE")
+    os.environ["DGSPARSE_TUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
+    try:
+        return _run(torch, cuda, tune_dir)
+    finally:
+        if saved is None:
+            os.environ.pop("DGSPARSE_TUNE_CACHE", None)
+        else:
+            os.environ["DGSPARSE_TUNE_CACHE"] = saved
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _run(torch, cuda, tune_dir) -> int:
     try:
         t0 = time.perf_counter()
         name, card = phase_device(torch)
@@ -2508,6 +3198,12 @@ def run(torch, cuda) -> int:
         phase_attention_numbers(torch, cuda, graphs["reddit"])
         times.update(phase_spconv_numbers(torch, cuda, graphs["unet-60k"]))
         phase_profile(torch, cuda, graphs)
+        utilities = phase_utilities(torch, cuda, graphs)
+        phase_native(torch, cuda, graphs["unet-60k"])
+        esc, _ = phase_esc(torch, cuda, graphs)
+        bf16 = phase_bf16_layers(torch, cuda, graphs["unet-60k"])
+        phase_checkpoint(torch, cuda, graphs)
+        tuned = phase_tune(torch, cuda, graphs, tune_dir)
         if "jax" in sys.modules:
             raise AssertionError("JAX was imported")
         # every kernel of each path launched in that path's run
@@ -2526,7 +3222,17 @@ def run(torch, cuda) -> int:
                 ("sddmm_cells", "training", training),
                 ("spconv_pairs", "serving", serving),
                 ("spconv_pairs", "training", training),
-                ("spconv_dw", "training", training)):
+                ("spconv_dw", "training", training),
+                ("spmm_dense_cells", "utilities", utilities),
+                ("spmm_maxmin", "utilities", utilities),
+                ("spconv_pairs", "utilities", utilities),
+                ("csr_spmm", "esc", esc),
+                ("spconv_pairs", "bf16", bf16),
+                ("spconv_dw", "bf16", bf16),
+                ("csr_spmm", "tune", tuned),
+                ("spmm_dense_cells", "tune", tuned),
+                ("spmm_bell", "tune", tuned),
+                ("sddmm_csr", "tune", tuned)):
             if counts[kernel] <= 0:
                 raise AssertionError(
                     f"{kernel} never launched on the {path} path")
@@ -2534,10 +3240,13 @@ def run(torch, cuda) -> int:
         traceback.print_exc()
         return 1
 
+    by_path = {"serving": serving, "training": training,
+               "sddmm": sddmm_path, "utilities": utilities, "esc": esc,
+               "bf16": bf16, "tune": tuned}
+
     def paths(*names):
-        return {"serving": sum(serving[k] for k in names),
-                "training": sum(training[k] for k in names),
-                "sddmm": sum(sddmm_path[k] for k in names)}
+        return {path: sum(counts[k] for k in names)
+                for path, counts in by_path.items()}
 
     kernels = [
         _kernel_entry(
@@ -2608,8 +3317,8 @@ def main() -> int:
     try:
         import dgsparse_tpu_torch  # noqa: F401
     except ImportError:
-        print("chip_smoke: dgsparse_tpu_torch not found beside this script",
-              file=sys.stderr)
+        print("chip_smoke: dgsparse_tpu_torch not found beside this "
+              "script", file=sys.stderr)
         return 1
     return run(torch, torch.device("cuda", 0))
 

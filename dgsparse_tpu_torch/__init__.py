@@ -9,8 +9,13 @@ softmax, the sorted segment sum, the hybrid tiers on clustered graphs,
 slot-space edge values and the fused slot-space GAT attention
 (`ops/slot.py`, `ops/attention.py`), the GE-SpMM C-API surface
 (`ge_spmm`, a submodule as in JAX), sparse 3-D convolution with its host
-rulebook, the GCN, GAT, GIN, SAGE, DGCNN and point-cloud UNet models, and
-their serving and training (`entry.py`). Every Pallas kernel of the JAX package has a CUDA C++
+rulebook (native C++ builder for large clouds, `native.py`) and its fused
+and ESC routes, the GCN, GAT, GIN, SAGE, DGCNN and point-cloud UNet
+models, their serving and training (`entry.py`), RCM reordering
+(`core/reorder.py`), and the utilities of `utils/`: opt-in validation
+(`debug`), dispatch counters (`metrics`), degree statistics (`stats`),
+the route tuner that `spmm`'s AUTO consults (`tune`) and checkpoints
+(`checkpoint`). Every Pallas kernel of the JAX package has a CUDA C++
 counterpart for Hopper (sm_90a) under `csrc/`: `spmm_csr.cu`
 (`segment_matmul`), `sddmm_csr.cu` (`sddmm_esc`), `spmm_maxmin.cu`
 (`spmm_maxmin_esc` and its XLA winner-mask backward), `spmm_cells.cu`
@@ -43,9 +48,11 @@ from dgsparse_tpu_torch import nn  # noqa: E402  (nn.GCN, nn.GIN, ...)
 
 
 def version() -> dict:
-    """Package, torch and CUDA versions, and the device name when a card
-    is present."""
+    """Package, torch and CUDA versions, the device name when a card is
+    present, and the native host library's version (None without it)."""
     import torch
+
+    from dgsparse_tpu_torch import native
 
     cuda = torch.cuda.is_available()
     return {
@@ -53,18 +60,27 @@ def version() -> dict:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0) if cuda else None,
+        "native": native.version(),
     }
 
 
-def self_check(device="cuda") -> None:
+def self_check(device="cuda", require_native: bool = False) -> None:
     """One SpMM on a tiny graph on `device` (the card unless the caller
     names the CPU), checked against a numpy oracle. On a CUDA device this
-    builds and launches the kernel."""
+    builds and launches the kernel. `require_native` also asserts that
+    the native host library built and loaded (`native.py`)."""
     import numpy as np
     import torch
 
     from dgsparse_tpu_torch.entry import resolve_device
 
+    if require_native:
+        from dgsparse_tpu_torch import native
+
+        if not native.available():
+            raise RuntimeError(
+                "native host library (libdgsparse_host.so) did not load: "
+                f"build it with native.build() ({native.library_path()})")
     device = resolve_device(device)
 
     rowptr = np.array([0, 2, 3, 3, 5], np.int32)

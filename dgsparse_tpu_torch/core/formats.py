@@ -9,9 +9,12 @@ structure per call. Of the JAX package's kernel plans only the hybrid one
 has a counterpart (`core/planner.py::HybridPlan`, built under the same
 gate, `Storage.ell_plan()`), with its construction-time cache of each
 tier's values; the edge-tile, ELL and slot plans have none: the CSR
-kernels read CSR as is.
+kernels read CSR as is. Each storage also carries the sampled structure
+hash `_tune_key` that keys the tuner's cache (`utils/tune.py`), with the
+JAX recipe, so both packages key a structure alike.
 """
 
+import hashlib
 import time
 from typing import Optional, Tuple
 
@@ -40,22 +43,32 @@ def _index_tensor(arr: np.ndarray, device) -> torch.Tensor:
         np.ascontiguousarray(arr, dtype=np.int32)).to(device)
 
 
-def _check_csr(rowptr: np.ndarray, col: np.ndarray) -> None:
+def _check_csr(rowptr: np.ndarray, col: np.ndarray, num_cols: int,
+               nnz: int) -> None:
     """Raise ValueError unless rowptr starts at 0, ends at nnz and never
-    decreases and every column is >= 0 (the CSR kernels walk
-    [rowptr[m], rowptr[m + 1]) of col unchecked); the invariants of
-    `dgsparse_tpu/core/formats.py::SparseTensor.validate`."""
-    if len(rowptr) == 0:
-        raise ValueError("rowptr must hold num_rows + 1 >= 1 entries")
-    if rowptr[0] != 0:
-        raise ValueError(f"rowptr must start at 0, got {rowptr[0]}")
-    if rowptr[-1] != len(col):
-        raise ValueError(f"rowptr must end at nnz = {len(col)}, got "
-                         f"{rowptr[-1]}")
+    decreases and every column lies in [0, num_cols) (the CSR kernels walk
+    [rowptr[m], rowptr[m + 1]) of col unchecked): the invariants and
+    messages of `dgsparse_tpu/core/formats.py::SparseTensor.validate`."""
+    if len(rowptr) == 0 or rowptr[0] != 0 or rowptr[-1] != nnz:
+        raise ValueError("rowptr must start at 0 and end at nnz")
     if (np.diff(rowptr) < 0).any():
-        raise ValueError("rowptr must never decrease")
-    if len(col) and col.min() < 0:
-        raise ValueError(f"col indices must be >= 0, got {col.min()}")
+        raise ValueError("rowptr must be nondecreasing")
+    if len(col) and (col.min() < 0 or col.max() >= num_cols):
+        raise ValueError(f"col indices out of range [0, {num_cols})")
+
+
+def structure_hash(num_rows: int, num_cols: int, nnz: int, rowptr,
+                   col) -> str:
+    """The sampled structure hash of `dgsparse_tpu/core/formats.py:147-156`:
+    blake2b (12 bytes) of "m,n,nnz", then rowptr and col as int32, each
+    sampled at stride max(len // 65536, 1). A tensor is sampled where it
+    lies and only the sample is copied to the host."""
+    h = hashlib.blake2b(digest_size=12)
+    h.update(f"{num_rows},{num_cols},{nnz}".encode())
+    for a in (rowptr, col):
+        step = max(len(a) // 65536, 1)
+        h.update(np.ascontiguousarray(_host(a[::step]), np.int32).tobytes())
+    return h.hexdigest()
 
 
 def _values_key(values: torch.Tensor) -> Tuple[int, int]:
@@ -134,7 +147,6 @@ class Storage:
         else:
             rowptr_np = _index_host(rowptr)
 
-        _check_csr(rowptr_np, col_np)
         num_rows = len(rowptr_np) - 1
         if sparse_sizes is not None:
             if int(sparse_sizes[0]) != num_rows:
@@ -145,10 +157,7 @@ class Storage:
         else:
             # reference derives N = col.max() + 1 (storage.py:33-41)
             num_cols = int(col_np.max()) + 1 if nnz else 0
-        if nnz and int(col_np.max()) >= num_cols:
-            raise ValueError(
-                f"col index {int(col_np.max())} out of range "
-                f"[0, {num_cols}) — wrong sparse_sizes?")
+        _check_csr(rowptr_np, col_np, num_cols, nnz)
         if vals is not None and vals.shape[0] != nnz:
             raise ValueError("values/col length mismatch")
 
@@ -169,6 +178,8 @@ class Storage:
         self._num_rows = num_rows
         self._num_cols = num_cols
         self._nnz = nnz
+        self._tune_key = structure_hash(num_rows, num_cols, nnz, rowptr_np,
+                                        col_np)
         t2 = time.perf_counter()
         self.build_seconds = {"csc": t1 - t0, "upload": t2 - t1}
 
@@ -286,6 +297,10 @@ class Storage:
     def coo_row(self) -> torch.Tensor:
         """Per-edge row ids in CSR order."""
         return self._coo_row
+
+    def degrees(self) -> torch.Tensor:
+        """Row degrees, [num_rows] int32."""
+        return T.row_degrees(self._rowptr)
 
     def csc_col(self) -> torch.Tensor:
         """Per-edge col ids in CSC order (segment ids of the transpose)."""
@@ -418,6 +433,8 @@ class SparseTensor:
             # the transpose's edge-order arrays are the original's CSC twins
             coo_row=src.csc_col(), csc_col=src.coo_row(),
             num_rows=src.num_cols, num_cols=src.num_rows,
+            # the tuner's entries are for the original structure
+            tune_key=None,
             hybrid=None, tier_vals=None, tier_ones=None, tier_key=None,
             slot_maps=None)
         return SparseTensor._wrap(st, self.has_value)
@@ -444,12 +461,30 @@ class SparseTensor:
         return self.storage.sparse_sizes()
 
     @property
+    def shape(self) -> Tuple[int, int]:
+        return self.storage.sparse_sizes()
+
+    @property
     def nnz(self) -> int:
         return self.storage.nnz
 
     @property
     def device(self) -> torch.device:
         return self.storage.device
+
+    def validate(self) -> "SparseTensor":
+        """Check the CSR invariants on host copies, with the messages of
+        `dgsparse_tpu/core/formats.py::SparseTensor.validate`; raises
+        ValueError on a violation. `utils/debug.py` runs it before an op's
+        first launch: an out-of-range index that reached a kernel would be
+        an illegal address, which poisons the CUDA context."""
+        st = self.storage
+        _check_csr(_host(st.rowptr()), _host(st.col()),
+                   self.sparse_sizes()[1], self.nnz)
+        if self.has_value and st.values() is not None \
+                and st.values().shape[0] != self.nnz:
+            raise ValueError("values length != nnz")
+        return self
 
     def __repr__(self) -> str:
         m, n = self.sparse_sizes()

@@ -56,7 +56,9 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
     """Copy flax params (numpy arrays, with or without the top-level
     'params' key) into a module whose submodules carry the flax names
     (`flax_target` maps each path). Raises unless every parameter of the
-    model is written once, at its shape."""
+    model is written once, at its shape. Values are cast to each
+    parameter's type; a bfloat16 leaf (flax's `param_dtype=jnp.bfloat16`)
+    crosses exactly through float32."""
     params = params.get("params", params)
     written = set()
     for path, value in _flat(params):
@@ -69,7 +71,11 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
             raise ValueError(
                 f"{'/'.join(path)}: flax array of shape {value.shape} does "
                 f"not fit {getattr(target, 'shape', target)}")
-        target.copy_(torch.tensor(value))
+        if value.dtype.name == "bfloat16":   # numpy has no such type
+            src = torch.tensor(value.astype(np.float32)).to(torch.bfloat16)
+        else:
+            src = torch.tensor(value)
+        target.copy_(src)
         written.add(id(target))
     missing = [n for n, p in model.named_parameters() if id(p) not in written]
     if missing:

@@ -4,7 +4,11 @@
 Parameters keep the JAX layout and flax's names: `kernel` [k_vol, c_in,
 c_out] and `bias` [c_out], drawn as flax's `he_normal` (variance 2/fan_in,
 truncated normal, fan_in = k_vol * c_in) and zeros. PyTorch needs the input
-width at construction, which flax infers.
+width at construction, which flax infers. As in JAX, `param_dtype` is the
+parameters' type and `compute_dtype` (None: the features' own) the type
+that features, kernel and bias are cast to before the product; the output
+comes out in it. bfloat16 runs the kernels' bf16 variants, which sum in
+float32.
 """
 
 import math
@@ -34,14 +38,22 @@ class _SpConvLayer(nn.Module):
     """The parameters of a sparse conv layer and its product."""
 
     def __init__(self, in_channels: int, out_channels: int, k_vol: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(he_normal_(
-            torch.empty(k_vol, in_channels, out_channels), generator))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+            torch.empty(k_vol, in_channels, out_channels),
+            generator).to(param_dtype))
+        self.bias = nn.Parameter(torch.zeros(out_channels, dtype=param_dtype))
+        self.compute_dtype = compute_dtype
 
     def _conv(self, features: torch.Tensor, plan) -> torch.Tensor:
-        return spconv(features, self.kernel, plan) + self.bias
+        w, b = self.kernel, self.bias
+        if self.compute_dtype is not None:
+            cd = self.compute_dtype
+            features, w, b = features.to(cd), w.to(cd), b.to(cd)
+        return spconv(features, w, plan) + b
 
 
 class SubMConv3d(_SpConvLayer):
@@ -49,9 +61,12 @@ class SubMConv3d(_SpConvLayer):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Size3 = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 param_dtype: torch.dtype = torch.float32):
         ks = _triple(kernel_size)
-        super().__init__(in_channels, out_channels, math.prod(ks), generator)
+        super().__init__(in_channels, out_channels, math.prod(ks), generator,
+                         compute_dtype, param_dtype)
         self.kernel_size = ks
 
     def plan(self, st: SparseConvTensor) -> SpConvPlan:
@@ -71,9 +86,12 @@ class SparseConv3d(_SpConvLayer):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Size3 = 3, stride: Size3 = 2,
                  padding: Size3 = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 param_dtype: torch.dtype = torch.float32):
         ks = _triple(kernel_size)
-        super().__init__(in_channels, out_channels, math.prod(ks), generator)
+        super().__init__(in_channels, out_channels, math.prod(ks), generator,
+                         compute_dtype, param_dtype)
         self.kernel_size, self.stride = ks, _triple(stride)
         self.padding = _triple(padding)
 
@@ -108,9 +126,12 @@ class SparseInverseConv3d(_SpConvLayer):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Size3 = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels,
-                         math.prod(_triple(kernel_size)), generator)
+                         math.prod(_triple(kernel_size)), generator,
+                         compute_dtype, param_dtype)
 
     def plan(self, fine_st: SparseConvTensor, kernel_size: Size3 = 3,
              stride: Size3 = 2, padding: Size3 = 1) -> SpConvPlan:

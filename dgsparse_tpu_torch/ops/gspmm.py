@@ -33,6 +33,8 @@ from dgsparse_tpu_torch.core.formats import SparseTensor
 from dgsparse_tpu_torch.ops.spmm import aggregate
 from dgsparse_tpu_torch.ops.types import (ComputeOp, ReduceOp, as_compute,
                                           as_reduce)
+from dgsparse_tpu_torch.utils import metrics
+from dgsparse_tpu_torch.utils.debug import maybe_validate
 
 
 def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
@@ -44,6 +46,9 @@ def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
     reduce, compute = as_reduce(reduce), as_compute(compute)
     if values is not None:
         return _gspmm_slots(sparse, dense, reduce, compute, values)
+    maybe_validate(sparse)
+    metrics.record("gspmm", reduce=reduce.value, compute=compute.value,
+                   nnz=sparse.nnz, feat=dense.shape[-1])
     if dense.dim() != 2 or dense.shape[0] != sparse.sparse_sizes()[1]:
         raise ValueError(
             f"dense must be [{sparse.sparse_sizes()[1]}, F], got "

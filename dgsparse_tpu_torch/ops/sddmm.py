@@ -24,6 +24,8 @@ from dgsparse_tpu_torch.kernels.spmm_csr import csr_spmm
 from dgsparse_tpu_torch.ops.hybrid import sddmm_hybrid
 from dgsparse_tpu_torch.ops.spmm import mean_scaled, transpose_values
 from dgsparse_tpu_torch.ops.types import ReduceOp, as_reduce
+from dgsparse_tpu_torch.utils import metrics
+from dgsparse_tpu_torch.utils.debug import maybe_validate
 
 ALGORITHMS = ("auto", "xla", "pallas")
 
@@ -73,6 +75,9 @@ def sddmm(sparse: SparseTensor, d1: torch.Tensor, d2: torch.Tensor,
         raise ValueError(f"unknown sddmm algorithm {algorithm!r}")
     if reduce not in (ReduceOp.SUM, ReduceOp.MEAN):
         raise NotImplementedError(f"sddmm handles SUM/MEAN, got {reduce}")
+    maybe_validate(sparse)
+    metrics.record("sddmm", alg=algorithm, reduce=str(reduce),
+                   nnz=sparse.nnz, feat=d1.shape[-1])
     m, n = sparse.sparse_sizes()
     if d1.dim() != 2 or d2.dim() != 2 or d1.shape[1] != d2.shape[1] \
             or d1.shape[0] != m or d2.shape[0] != n:

@@ -49,6 +49,8 @@ from dgsparse_tpu_torch.kernels.spmm_maxmin import (spmm_maxmin,
 from dgsparse_tpu_torch.ops.hybrid import spmm_hybrid, spmm_hybrid_t
 from dgsparse_tpu_torch.ops.types import (Algorithm, ComputeOp, ReduceOp,
                                           as_algorithm, as_reduce)
+from dgsparse_tpu_torch.utils import metrics, tune
+from dgsparse_tpu_torch.utils.debug import maybe_validate
 
 
 def mean_scaled(g: torch.Tensor, st: Storage,
@@ -183,12 +185,15 @@ def spmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
 
     SUM/MEAN run the hybrid tiers on a storage with a hybrid plan under
     AUTO or PALLAS_ROW_TILE, else the CSR kernel; MAX/MIN the CSR max/min
-    kernel, whatever the `algorithm`. MAX/MIN keep the earliest winning
-    edge of each element (ties included) and send its gradient there
-    alone.
+    kernel, whatever the `algorithm`. AUTO first takes the route tuned for
+    this structure, width and reduction on this device
+    (`utils/tune.py`), where there is one. MAX/MIN keep the earliest
+    winning edge of each element (ties included) and send its gradient
+    there alone.
     """
     reduce = as_reduce(reduce)
     algorithm = as_algorithm(algorithm)
+    maybe_validate(sparse)
     if dense.dim() != 2:
         raise ValueError(
             f"dense must be [N, F], got shape {tuple(dense.shape)}")
@@ -202,10 +207,21 @@ def spmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
         raise ValueError(
             f"spmm takes one value per edge, got {tuple(values.shape)}; "
             "per-head values go to spmm_multihead")
+    if algorithm == Algorithm.AUTO:
+        tuned = tune.lookup_key(st._tune_key, dense.shape[1], reduce,
+                                device=dense.device)
+        if tuned is not None:       # (XLA_SEGMENT is 0, so no `or`)
+            algorithm = tuned
     tiers = None
     if st.ell_plan() is not None and reduce in (ReduceOp.SUM, ReduceOp.MEAN) \
             and algorithm in (Algorithm.AUTO, Algorithm.PALLAS_ROW_TILE):
         tiers = st.tier_values(ones=values is None)
+    # the route run: the hybrid tiers, or the CSR (sum/mean or max/min)
+    # kernel
+    metrics.record("spmm", alg=("PALLAS_ROW_TILE" if tiers is not None
+                                else "XLA_SEGMENT"),
+                   reduce=reduce.value, nnz=st.nnz, feat=dense.shape[1],
+                   cached_values=tiers is not None)
     if values is not None:
         values = values.float().unsqueeze(1)
     out = aggregate(values, dense.contiguous().unsqueeze(1), st, reduce,

@@ -7,7 +7,8 @@ AUTO and PALLAS_ROW_TILE run the hybrid tiers (`ops/hybrid.py`: the
 dense-cell, BELL and CSR kernels), as the JAX package's AUTO does on the
 TPU; every other case, and XLA_SEGMENT, PALLAS_EDGE_TILE and PALLAS_BELL
 always, run the CSR kernels (`kernels/spmm_csr.py`, `spmm_maxmin.py`).
-AUTO follows the JAX gate, not a measurement on the card yet.
+AUTO first takes a route the tuner measured for the graph on this card
+(`utils/tune.py`), and otherwise follows the JAX gate.
 """
 
 import enum

@@ -400,3 +400,48 @@ def assert_train_close(losses, grads, ref_losses, ref_grads,
                                    err_msg=path)
         grad_err = max(grad_err, float(np.abs(grads[path] - ref).max()))
     return float(np.abs(np.asarray(losses) - ref_losses).max()), grad_err
+
+
+def load_mtx(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 Tuple[int, int]]:
+    """MatrixMarket coordinate file -> CSR (rowptr, col, values, shape),
+    columns sorted within rows (`dgsparse_tpu/utils/testing.py::load_mtx`,
+    scipy's reader)."""
+    import scipy.io
+
+    mat = scipy.io.mmread(path).tocsr()
+    mat.sort_indices()
+    return (
+        mat.indptr.astype(np.int32),
+        mat.indices.astype(np.int32),
+        np.asarray(mat.data, np.float32),
+        (int(mat.shape[0]), int(mat.shape[1])),
+    )
+
+
+def geometric_graph(n: int = 800, radius: float = 0.06, seed: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Random geometric graph in the unit square with shuffled ids
+    (locality that the labels hide): (rowptr, col, n), equal to
+    `tests/test_reorder.py::geometric_graph` for the same arguments. Every
+    pair closer than `radius` is an edge in both directions; the pairs
+    come from a k-d tree here instead of a Python loop over grid cells, so
+    a graph of 10^5 nodes takes a second."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 2))
+    # a hair wider than the radius, then the test's own strict comparison
+    pairs = cKDTree(pts).query_pairs(radius * (1 + 1e-9),
+                                     output_type="ndarray")
+    i, j = pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64)
+    keep = ((pts[i] - pts[j]) ** 2).sum(1) < radius ** 2
+    i, j = i[keep], j[keep]
+    shuffle = rng.permutation(n)
+    u = shuffle[np.concatenate([i, j])]
+    v = shuffle[np.concatenate([j, i])]
+    order = np.lexsort((v, u))
+    u, v = u[order], v[order]
+    rowptr = np.zeros(n + 1, np.int64)
+    np.add.at(rowptr, u + 1, 1)
+    return np.cumsum(rowptr).astype(np.int32), v.astype(np.int32), n

@@ -194,7 +194,12 @@ def test_import_pulls_in_no_jax():
             "dgsparse_tpu_torch.kernels.spconv, "
             "dgsparse_tpu_torch.ops.spconv, "
             "dgsparse_tpu_torch.nn.sparse_conv, dgsparse_tpu_torch.nn.unet, "
-            "dgsparse_tpu_torch.kernels._build; "
+            "dgsparse_tpu_torch.kernels._build, "
+            "dgsparse_tpu_torch.native, dgsparse_tpu_torch.core.reorder, "
+            "dgsparse_tpu_torch.utils.debug, "
+            "dgsparse_tpu_torch.utils.metrics, "
+            "dgsparse_tpu_torch.utils.stats, dgsparse_tpu_torch.utils.tune, "
+            "dgsparse_tpu_torch.utils.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'dgsparse_tpu.', 'flax'))"
             " or m == 'dgsparse_tpu']; "

@@ -1205,3 +1205,147 @@ def test_attention_matches_frozen_jax_fixture(cuda):
     for name, gr in zip(("s_row", "s_col", "x"), grads):
         np.testing.assert_allclose(gr.cpu().numpy(), fx[f"attn/grads/{name}"],
                                    rtol=2e-3, atol=2e-3, err_msg=name)
+
+
+# --- the ESC spconv route, native rulebooks, tuning, validation, bf16 --------
+
+@pytest.mark.parametrize("kind", ["subm-sparse", "strided", "inverse"])
+def test_esc_route_matches_the_fused_route(cuda, kind, monkeypatch):
+    """The ESC route (forced on) through csr_spmm, forward and both
+    gradients, against the fused kernels on the same plan."""
+    from dgsparse_tpu_torch.kernels import spconv
+    from dgsparse_tpu_torch.ops import spconv as ops
+
+    plan = _spconv_plan(cuda, kind)
+    assert plan.use_esc_structure()
+    x = _randn(cuda, 1, plan.num_in, 32)
+    w = _randn(cuda, 2, plan.k_vol, 32, 64) * 0.1
+    ct = _randn(cuda, 3, plan.num_out, 64)
+
+    def run():
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = ops.spconv(xi, wi, plan)
+        return (out, *torch.autograd.grad(out, (xi, wi), ct))
+
+    fused = run()
+    monkeypatch.setattr(ops, "_FORCE_ESC", [True])
+    reset_launch_counts()
+    esc = run()
+    counts = launch_counts()
+    assert counts["csr_spmm"] == 2
+    assert counts["spconv_pairs"] == counts["spconv_dw"] == 0
+    with torch.no_grad():
+        abs_out = ops.spconv(x.abs(), w.abs(), plan)
+    assert_sum_close(esc[0], fused[0], abs_out, 1e-5)
+    for got, want in zip(esc[1:], fused[1:]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def test_native_rulebooks_on_card_equal_numpy(cuda, monkeypatch):
+    from dgsparse_tpu_torch import native
+    from dgsparse_tpu_torch.ops import spconv as ops
+    from dgsparse_tpu_torch.utils.testing import random_cloud
+
+    native.build()
+    assert native.available()
+    coords = random_cloud(3000, (24, 20, 16), 2, seed=5)
+    native_path = ops._native_rulebook
+    for stride in (1, 2):
+        args = (coords, 3, stride, 1)
+        monkeypatch.setattr(ops, "_native_rulebook", native_path)
+        a, ao = ops.build_rulebook(*args, spatial_shape=(24, 20, 16),
+                                   device=cuda)
+        monkeypatch.setattr(ops, "_native_rulebook", lambda *_: None)
+        b, bo = ops.build_rulebook(*args, spatial_shape=(24, 20, 16),
+                                   device=cuda)
+        np.testing.assert_array_equal(ao, bo)
+        for f in ("imap", "omap", "widx", "o2i", "i2o"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        for f in ("by_out", "by_in"):
+            for t in ("ptr", "src", "widx"):
+                assert torch.equal(getattr(getattr(a, f), t),
+                                   getattr(getattr(b, f), t)), (f, t)
+
+
+def test_tuner_on_card_times_both_routes(cuda, tmp_path, monkeypatch):
+    from dgsparse_tpu_torch.utils import metrics, tune
+    from dgsparse_tpu_torch.utils.testing import hybrid_csr
+
+    monkeypatch.setenv("DGSPARSE_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setattr(tune, "_CACHE", None)
+    rowptr, col, values = hybrid_csr()
+    n = len(rowptr) - 1
+    sp = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(values),
+                                  sparse_sizes=(n, n), device=cuda)
+    for with_grad in (False, True):
+        best, times = tune.tune_spmm(sp, 41, with_grad=with_grad,
+                                     iters=(2, 5))
+        assert set(times) == {pt.Algorithm.XLA_SEGMENT,
+                              pt.Algorithm.PALLAS_ROW_TILE}
+        assert all(t > 0 for t in times.values())
+    assert torch.cuda.get_device_name(0) in (tmp_path / "tune.json"
+                                             ).read_text()
+    fwd_best = tune.cached_algorithm(sp, 41)
+    metrics.reset()
+    metrics.enable()
+    try:
+        pt.spmm(sp, torch.ones(n, 41, device=cuda))
+    finally:
+        metrics.disable()
+    (key,), = [list(metrics.counters())]
+    metrics.reset()
+    assert dict(key[1:])["alg"] == fwd_best.name
+
+
+def test_validation_on_card_raises_before_a_launch(cuda):
+    from dgsparse_tpu_torch.utils import debug
+
+    rowptr, col, values = random_csr(300, 200, avg_degree=6.0, seed=3)
+    sp = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(values),
+                                  sparse_sizes=(300, 200), device=cuda)
+    good = sp.storage.col().clone()
+    sp.storage._col[5] = 10 ** 6
+    x = torch.ones(200, 16, device=cuda)
+    debug.set_validate(True)
+    reset_launch_counts()
+    try:
+        with pytest.raises(ValueError, match="col indices out of range"):
+            pt.spmm(sp, x)
+    finally:
+        debug.set_validate(False)
+    assert launch_counts()["csr_spmm"] == 0
+    sp.storage._col = good
+    out = pt.spmm(sp, x)
+    torch.cuda.synchronize()
+    assert launch_counts()["csr_spmm"] == 1 and torch.isfinite(out).all()
+
+
+def test_bf16_layer_on_card_matches_fp32(cuda):
+    from dgsparse_tpu_torch.nn.sparse_conv import SubMConv3d
+    from dgsparse_tpu_torch.ops.spconv import SparseConvTensor
+    from dgsparse_tpu_torch.utils.testing import random_cloud
+
+    coords = random_cloud(3000, (24, 20, 16), 2, seed=9)
+    gen = torch.Generator().manual_seed(0)
+    f32 = SubMConv3d(64, 64, generator=gen).to(cuda)
+    bf16 = SubMConv3d(64, 64, compute_dtype=torch.bfloat16).to(cuda)
+    bf16.load_state_dict(f32.state_dict())
+    x = _randn(cuda, 4, len(coords), 64)
+    st = SparseConvTensor(x, coords, (24, 20, 16))
+    ct = _randn(cuda, 5, len(coords), 64)
+    outs = []
+    for layer in (bf16, f32):
+        xi = x.clone().requires_grad_()
+        out = layer(st.replace(features=xi)).features
+        (out.float() * ct).sum().backward()
+        outs.append((out, xi.grad, layer.kernel.grad))
+    assert outs[0][0].dtype == torch.bfloat16
+    with torch.no_grad():
+        abs_sum = SubMConv3d(64, 64).to(cuda)
+        abs_sum.kernel.copy_(f32.kernel.abs())
+        scale = abs_sum(st.replace(features=x.abs())).features
+    assert_sum_close(outs[0][0].float(), outs[1][0], scale, 1e-2)
+    for got, want in zip(outs[0][1:], outs[1][1:]):
+        assert (got - want).abs().max().item() <= \
+            1e-2 * want.abs().max().item()

@@ -3,9 +3,10 @@
 - The host rulebook (`ops/spconv.py::build_rulebook`, `inverse_plan`,
   `plan_from_reference_rulebook`) field by field: knnz, kpos, qkpos, the
   Q-padded imap/omap/widx stream, o2i/i2o, out_coords and separate_mid. At
-  >= 2048 voxels the JAX package builds with its native C++ builder and the
-  port with its numpy path; both give the pairs of each offset in the same
-  order (by output id), so those clouds are compared exactly too.
+  >= 2048 voxels both packages build with the native C++ builder
+  (`tests/test_torch_native.py` holds it to the port's numpy path); every
+  builder gives the pairs of each offset in the same order (by output id),
+  so those clouds are compared exactly too.
 - `spconv` and both gradients against JAX's dense masked-gather path and
   against its fused Pallas kernels (`fused_pair_matmul`, `fused_pair_dw`)
   in interpret mode, at 1e-4: sums of up to 27 * c_in terms in another
