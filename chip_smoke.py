@@ -192,7 +192,31 @@ exits non-zero without a result line:
      offset's pairs left out).
  13. checkpoint: gcn-arxiv, 2 Adam steps, saved and restored into a
      fresh trainer, one more step in both: parameters bitwise equal.
- 14. tune (last: `run` points DGSPARSE_TUNE_CACHE at a temporary file
+ 14. dist: the sharded ops of `dgsparse_tpu_torch/dist/` as ranks on
+     this one card (`dist.launch.run_ranks`, spawned processes; NCCL
+     refuses two ranks on one device, so D > 1 runs on gloo, whose
+     collectives stage CUDA tensors through pinned host memory, and D = 1
+     on NCCL), fp32, TF32 off. D = 2: the arxiv GCN (128 -> 256 -> 40)
+     row-sharded by rows and by edges, its forward against the
+     single-process forward at 1e-5 of the terms' absolute sum and 3 SGD
+     steps (loss, parameters) against D = 1 at 1e-5 of the largest
+     magnitude; the 4-head GAT at gat-arxiv's widths, forward and step-1
+     gradients against D = 1; `spconv_sharded` on the unet-60k cloud,
+     SubM 3^3 32 -> 32 and 64 -> 64, out, dX and dW against the
+     single-device `spconv` in slab order at scaled 1e-5, ppermute volume
+     2 * h_max * C a rank, h_max < 0.35 own_max; the frozen JAX dist run
+     (`dist_small.npz`) at 1e-4. D = 4: `spmm_sharded_2d` on a 2 x 2
+     mesh at F = 256, forward and d_x, against the 1-D mesh of the same
+     graph axis and one device, its per-rank gather half the 1-D one's.
+     D = 1 on NCCL: `spmm_sharded` at F = 256 (forward and d_x) and the
+     GCN step against the unsharded path. The ranks run the cases of
+     `dist/cases.py`, the tests' rank bodies, with a hook that times each
+     step; `spconv_sharded` gives every rank the global dW. Per rank, for D = 2 and D = 1: step time (host
+     clock), the kernels' time (CUDA events around each launch), the
+     staged collectives' host time and peak memory. Every rank checks
+     that it imported no JAX; the launches of the ranks' driven runs are
+     the "dist" path.
+ 15. tune (last: `run` points DGSPARSE_TUNE_CACHE at a temporary file
      before its first phase, so no earlier phase sees an entry and no
      user's cache is read or written):
      `tune_spmm` on the Reddit storage at F=64 and 41, forward and with
@@ -200,7 +224,7 @@ exits non-zero without a result line:
      metrics show them), each width against the other route at 1e-5
      scaled; `tune_report` on the arxiv storage; the file deleted.
 Then one JSON line of per-kernel results (csr_spmm's launches by path
-include the esc and tune paths), the card's name and power limit, and as
+include the esc, dist and tune paths), the card's name and power limit, and as
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
@@ -3059,6 +3083,409 @@ def phase_checkpoint(torch, cuda, graphs):
         f"bitwise equal")
 
 
+# --- phase 14: the sharded ops of dist/, as ranks on the card ----------------
+
+# the kernels the dist path launches, by the module that holds each wrapper
+DIST_KERNELS = {"csr_spmm": "spmm_csr", "sddmm_csr": "sddmm_csr",
+                "spconv_pairs": "spconv", "spconv_dw": "spconv"}
+DIST_STEPS = 3                 # SGD steps of the sharded GCN
+DIST_GAT_STEPS = 2
+DIST_LR = 1e-2
+DIST_TIMEOUT = 240             # seconds a run_ranks call may take
+DIST_CHANNELS = (32, 64)       # the sharded SubM 3^3 convs, C -> C
+DIST_FEAT = 256                # the 2-D mesh's and NCCL spmm's width
+DIST_FIXTURE = os.path.join(FIXTURES, "dist_small.npz")
+
+
+@contextlib.contextmanager
+def _kernel_events(torch):
+    """CUDA events around every launch of the dist path's kernels while
+    the context is open: yields the list of (start, stop) pairs."""
+    import importlib
+
+    events, saved = [], []
+    for name, module in DIST_KERNELS.items():
+        mod = importlib.import_module(f"dgsparse_tpu_torch.kernels.{module}")
+        orig = getattr(mod, f"{name}_cuda")
+
+        def timed(*args, _orig=orig, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _orig(*args, **kw)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+        saved.append((mod, f"{name}_cuda", orig))
+        setattr(mod, f"{name}_cuda", timed)
+    try:
+        yield events
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+
+
+def _timed_steps(fn, steps):
+    """`dist.cases`' run_steps on the card: ([fn() a step], {"steps": per
+    step the host-clock ms around synchronize, the dist kernels' ms by
+    CUDA events and the staged collectives' host ms; "peak_bytes":
+    max_memory_allocated over them})."""
+    import torch
+
+    from dgsparse_tpu_torch.dist import comm
+
+    device = torch.cuda.current_device()
+    torch.cuda.reset_peak_memory_stats(device)
+    outs, rows = [], []
+    for _ in range(steps):
+        staged = comm.STAGED["seconds"]
+        with _kernel_events(torch) as events:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            outs.append(fn())
+            torch.cuda.synchronize(device)
+            host = time.perf_counter() - t0
+        rows.append({"step_ms": host * 1e3,
+                     "kernel_ms": sum(a.elapsed_time(b) for a, b in events),
+                     "staged_ms": (comm.STAGED["seconds"] - staged) * 1e3})
+    return outs, {"steps": rows,
+                  "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def _dist_cloud_data(c, channels):
+    """(features, kernel, cotangent) of the sharded conv at C channels,
+    from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(channels)
+    n = len(c["coords"])
+    return (rng.standard_normal((n, channels), dtype=np.float32),
+            (rng.standard_normal((27, channels, channels), dtype=np.float32)
+             * 0.1),
+            rng.standard_normal((n, channels), dtype=np.float32))
+
+
+def _no_jax():
+    if "jax" in sys.modules:
+        raise AssertionError("a rank imported JAX")
+
+
+def _dist_ranks(rank, world, device, driven, checks):
+    """A rank of phase 14: `dist.cases.run_cases` of the driven cases, each
+    step timed (`_timed_steps`), with the launches they alone made; then
+    the cases that only check (the frozen JAX fixture)."""
+    from dgsparse_tpu_torch import kernels
+    from dgsparse_tpu_torch.dist import cases
+
+    kernels.reset_launch_counts()
+    out = cases.run_cases(rank, world, device, driven, _timed_steps)
+    launches = _counts()
+    checked = cases.run_cases(rank, world, device, checks)
+    _no_jax()
+    return {"driven": out, "launches": launches, "checks": checked}
+
+
+def _dist_wide(g):
+    """(x, ct) [n, DIST_FEAT] of the 2-D mesh and the NCCL SpMM, from a
+    seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(DIST_FEAT)
+    n = len(g["rowptr"]) - 1
+    return (rng.standard_normal((n, DIST_FEAT), dtype=np.float32),
+            rng.standard_normal((n, DIST_FEAT), dtype=np.float32))
+
+
+def _dist_fixture_cases(fx):
+    """The frozen JAX dist run's inputs as `dist.cases` cases: the GCN's
+    loss and one SGD step, the GAT's logits, the sharded conv's output."""
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in fx.items()
+                if k.startswith(prefix)}
+
+    def graph(prefix):
+        m = len(fx[f"{prefix}_rowptr"]) - 1
+        return {"rowptr": fx[f"{prefix}_rowptr"], "col": fx[f"{prefix}_col"],
+                "shape": (m, m), "x": fx[f"{prefix}_x"],
+                "y": fx[f"{prefix}_y"]}
+
+    return {"gcn": dict(graph("gcn"), op="gcn", values=fx["gcn_values"],
+                        params=part("gcn_param_"), lr=1e-2, steps=1),
+            "gat": dict(graph("gat"), op="gat", values=None,
+                        params=part("gat_param_"),
+                        heads=int(fx["gat_heads"]), lr=1e-2, steps=0),
+            "conv": {"op": "spconv", "coords": fx["spconv_coords"],
+                     "kernel_size": 3,
+                     "spatial_shape": tuple(fx["spconv_spatial_shape"]),
+                     "feats": fx["spconv_feats"],
+                     "kernel": fx["spconv_kernel"]}}
+
+
+def _scaled(what, got, want, rel):
+    """max |got - want| / max |want| per array of a dict (or one array);
+    raises above `rel`."""
+    import numpy as np
+
+    pairs = got.items() if isinstance(got, dict) else [(what, got)]
+    worst = 0.0
+    for k, g in pairs:
+        w = want[k] if isinstance(want, dict) else want
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        err = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        if not np.isfinite(g).all() or err > rel:
+            raise AssertionError(f"dist: {what} {k}: {err:.3e} of max |ref| "
+                                 f"> {rel}")
+        worst = max(worst, err)
+    return worst
+
+
+def _time_line(tag, t, card):
+    rows = t["steps"]
+    fmt = lambda key: "/".join(f"{r[key]:.2f}" for r in rows)  # noqa: E731
+    return (f"[dist] {tag}: step {fmt('step_ms')} ms (host clock), "
+            f"kernels {fmt('kernel_ms')} ms (CUDA events), staged "
+            f"collectives {fmt('staged_ms')} ms, peak "
+            f"{t['peak_bytes'] / 2**20:.1f} MiB; {card}")
+
+
+def phase_dist(torch, cuda, graphs, card):
+    """The sharded ops of `dist/` as ranks on the one card, through
+    `dist.launch.run_ranks` (see the module docstring, phase 14); returns
+    the summed launches of the ranks' driven runs."""
+    import numpy as np
+    from torch.nn import functional as F
+
+    from dgsparse_tpu_torch import build_rulebook, spconv, spmm
+    from dgsparse_tpu_torch.dist import gat as dgat
+    from dgsparse_tpu_torch.dist import gcn as dgcn
+    from dgsparse_tpu_torch.dist import spconv as dsp
+    from dgsparse_tpu_torch.dist.launch import run_ranks
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    t0 = time.perf_counter()
+    adj, x, y = graphs["arxiv"]
+    st = adj.storage
+    n = adj.sparse_sizes()[0]
+    if bool((st.values() < 0).any()):
+        raise AssertionError("dist: the arxiv GCN values must be >= 0, the "
+                             "abs sums below reuse them")
+    graph = {"rowptr": st.rowptr().cpu().numpy(),
+             "col": st.col().cpu().numpy(),
+             "values": st.values().cpu().numpy(),
+             "shape": (n, n), "x": x.cpu().numpy(), "y": y.cpu().numpy()}
+    gen = torch.Generator().manual_seed(0)
+    gcn_p = {k: v.numpy() for k, v in
+             dgcn.init_params(gen, 128, 256, 40).items()}
+    gat_p = {k: v.numpy() for k, v in
+             dgat.init_params(gen, 128, 16, 40, 4).items()}
+    cloud_st = graphs["unet-60k"][0]
+    cloud = {"coords": cloud_st.coords,
+             "spatial_shape": cloud_st.spatial_shape}
+    with np.load(DIST_FIXTURE) as f:
+        fixture = dict(f)
+    # the cases of `dist/cases.py`; the ranks' pickle holds each array once
+    gcn_case = dict(graph, op="gcn", params=gcn_p, lr=DIST_LR,
+                    steps=DIST_STEPS)
+    models = {"gcn_rows": dict(gcn_case, balance="rows"),
+              "gat": dict(graph, op="gat", values=None, params=gat_p,
+                          heads=4, lr=DIST_LR, steps=DIST_GAT_STEPS)}
+    convs = {f"conv{c}": dict(
+        zip(("feats", "kernel", "ct"), _dist_cloud_data(cloud, c)),
+        op="spconv", kernel_size=3, calls=2, **cloud)
+        for c in DIST_CHANNELS}
+    xw, ctw = _dist_wide(graph)
+    wide = dict(graph, x=xw, ct=ctw)
+    runs = {}
+    for world, backend, driven, checks in (
+            (2, "gloo", dict(models, gcn_edges=dict(gcn_case,
+                                                    balance="edges"),
+                             **convs), _dist_fixture_cases(fixture)),
+            (4, "gloo", {"mesh": dict(wide, op="spmm2d", mesh=(2, 2))}, {}),
+            (1, "nccl", dict(models, spmm=dict(wide, op="spmm",
+                                               balance="rows",
+                                               reduce="sum"), **convs),
+             {})):
+        t1 = time.perf_counter()
+        res = run_ranks(_dist_ranks, world, backend, cuda, DIST_TIMEOUT,
+                        (list(driven.values()), list(checks.values())))
+        if any(r.jax_loaded for r in res):
+            raise AssertionError("dist: a rank imported JAX")
+        runs[world] = [dict(zip(driven, r.result["driven"]),
+                            launches=r.result["launches"],
+                            checks=dict(zip(checks, r.result["checks"])))
+                       for r in res]
+        log(f"[dist] D={world} {backend}: {world} rank(s) on {cuda} in "
+            f"{time.perf_counter() - t1:.1f} s (spawn, host plans, runs)")
+    d2, d4, d1 = runs[2], runs[4], runs[1][0]
+
+    # the single-process GCN forward and SGD step on the full graph
+    p = {k: torch.from_numpy(v).to(cuda).requires_grad_()
+         for k, v in gcn_p.items()}
+    h2 = torch.relu(spmm(adj, x @ p["w1"] + p["b1"])) @ p["w2"] + p["b2"]
+    ref = spmm(adj, h2)
+    loss = F.cross_entropy(ref, y)
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    with torch.no_grad():
+        abs_sum = spmm(adj, h2.abs())
+        for balance in ("rows", "edges"):
+            got = torch.from_numpy(np.concatenate(
+                [r[f"gcn_{balance}"]["logits"] for r in d2])).to(cuda)
+            err = assert_sum_close(got, ref, abs_sum, 1e-5)
+            log(f"[dist] D=2 GCN ({balance}) forward vs one process: max "
+                f"|diff| {err:.3e} (1e-5 of the terms' absolute sum)")
+        one = {k: (v - DIST_LR * grads[k]).cpu().numpy() for k, v in p.items()}
+    ref1 = d1["gcn_rows"]
+    _scaled("NCCL D=1 GCN step-1 loss", float(ref1["losses"][0]),
+            float(loss.detach()), 1e-5)
+    err = _scaled("NCCL D=1 GCN step-1 params", ref1["params"][0], one, 1e-5)
+    log(f"[dist] NCCL D=1 GCN step 1 vs the unsharded step: params "
+        f"{err:.3e} of max |p|")
+    for balance in ("rows", "edges"):
+        for r in d2:
+            run = r[f"gcn_{balance}"]
+            for s in range(DIST_STEPS):
+                _scaled(f"D=2 GCN ({balance}) step {s + 1} loss",
+                        float(run["losses"][s]), float(ref1["losses"][s]),
+                        1e-5)
+                err = _scaled(f"D=2 GCN ({balance}) step {s + 1} params",
+                              run["params"][s], ref1["params"][s], 1e-5)
+        log(f"[dist] D=2 GCN ({balance}): {DIST_STEPS} SGD steps, losses "
+            f"{[round(float(v), 6) for v in run['losses']]} = D=1's, "
+            f"params {err:.3e} of max |p| after step {DIST_STEPS}")
+
+    # GAT: the forward and step 1's gradients against D = 1
+    gat1 = d1["gat"]
+    got = np.concatenate([r["gat"]["logits"] for r in d2])
+    err = _scaled("D=2 GAT logits", got, gat1["logits"], 1e-5)
+    for r in d2:
+        gerr = _scaled("D=2 GAT step-1 grads", r["gat"]["grads"],
+                       gat1["grads"], 1e-5)
+        for s in range(DIST_GAT_STEPS):
+            _scaled(f"D=2 GAT step {s + 1} loss", float(r["gat"]["losses"][s]),
+                    float(gat1["losses"][s]), 1e-5)
+    log(f"[dist] D=2 GAT (4 x 16): logits {err:.3e}, step-1 gradients "
+        f"{gerr:.3e} of max |ref| against D=1; losses "
+        f"{[round(float(v), 6) for v in d2[0]['gat']['losses']]}")
+
+    # the sharded conv against the single-device conv in slab order
+    for c in DIST_CHANNELS:
+        plan_d, order = dsp.shard_pointcloud(cloud["coords"], 2, 3,
+                                             cloud["spatial_shape"])
+        rb, _ = build_rulebook(cloud["coords"][order], 3, 1, 1,
+                               spatial_shape=cloud["spatial_shape"],
+                               device=cuda)
+        feats, kernel, ct = _dist_cloud_data(cloud, c)
+        feats, ct = (torch.from_numpy(a[order]).to(cuda) for a in (feats, ct))
+        kernel = torch.from_numpy(kernel).to(cuda)
+        xs, ws = feats.requires_grad_(), kernel.requires_grad_()
+        out = spconv(xs, ws, rb)
+        dx, dw = torch.autograd.grad((out * ct).sum(), (xs, ws))
+        xa, wa = feats.abs().detach().requires_grad_(), kernel.abs().detach()
+        wa.requires_grad_()
+        out_a = spconv(xa, wa, rb)
+        dxa, dwa = torch.autograd.grad((out_a * ct.abs()).sum(), (xa, wa))
+        errs = []
+        for key, want, bound in (("out", out, out_a), ("dx", dx, dxa)):
+            got = torch.from_numpy(np.concatenate(
+                [r[f"conv{c}"][key] for r in d2])).to(cuda)
+            errs.append(assert_sum_close(got, want.detach(), bound.detach(),
+                                         1e-5))
+        # every rank holds the global dW
+        for r in d2:
+            got = torch.from_numpy(r[f"conv{c}"]["dw"]).to(cuda)
+            errs.append(assert_sum_close(got, dw, dwa, 1e-5))
+        for r in d2:
+            s = r[f"conv{c}"]
+            if s["volumes"] != {"ppermute": 2 * s["h_max"] * c} \
+                    or not s["h_max"] < 0.35 * s["own_max"]:
+                raise AssertionError(f"dist: conv {c}: volumes "
+                                     f"{s['volumes']}, h_max {s['h_max']}, "
+                                     f"own_max {s['own_max']}")
+        log(f"[dist] D=2 SubM 3^3 {c}->{c} on unet-60k "
+            f"({len(order)} voxels, h_max {plan_d.h_max}, own_max "
+            f"{plan_d.own_max}): out / dX / dW vs one device "
+            f"{errs[0]:.3e} / {errs[1]:.3e} / {max(errs[2:]):.3e} (1e-5 of "
+            f"the terms' absolute sum); ppermute 2 * h_max * {c} a rank")
+
+    # the 2-D mesh and the NCCL SpMM against the unsharded SpMM
+    xw, ctw = (torch.from_numpy(a).to(cuda) for a in _dist_wide(graph))
+    xw.requires_grad_()
+    ref = spmm(adj, xw)
+    dref, = torch.autograd.grad((ref * ctw).sum(), xw)
+    xa = xw.detach().abs().requires_grad_()
+    bound_out = spmm(adj, xa)
+    bound_dx, = torch.autograd.grad((bound_out * ctw.abs()).sum(), xa)
+    grid = {tuple(r["mesh"]["coords"]): r["mesh"] for r in d4}
+    for name, feat, suffix in (("2d", 2, ""), ("1d", 1, "_1d")):
+        def whole(key):
+            return torch.from_numpy(np.concatenate([np.concatenate(
+                [grid[(g, f)][key + suffix] for f in range(feat)], axis=1)
+                for g in (0, 1)])[:n]).to(cuda)
+
+        e1 = assert_sum_close(whole("out"), ref.detach(),
+                              bound_out.detach(), 1e-5)
+        e2 = assert_sum_close(whole("dx"), dref, bound_dx, 1e-5)
+        log(f"[dist] D=4 {name} mesh (graph 2 x feat {feat}) F={DIST_FEAT}: "
+            f"out {e1:.3e}, d_x {e2:.3e} vs one device (1e-5 of the "
+            f"terms' absolute sum)")
+    for r in d4:
+        v1 = r["mesh"]["volumes_1d"]["all_gather"]
+        v2 = r["mesh"]["volumes"]["all_gather"]
+        if 2 * v2 != v1:
+            raise AssertionError(f"dist: 2-D gather volume {v2} is not half "
+                                 f"of the 1-D mesh's {v1}")
+    log(f"[dist] D=4 per-rank all_gather: 2-D {v2} elements, 1-D {v1}")
+    err = assert_sum_close(torch.from_numpy(d1["spmm"]["out"]).to(cuda),
+                           ref.detach(), bound_out.detach(), 1e-5)
+    e2 = assert_sum_close(torch.from_numpy(d1["spmm"]["dx"]).to(cuda),
+                          dref, bound_dx, 1e-5)
+    log(f"[dist] NCCL D=1 spmm_sharded F={DIST_FEAT} vs the unsharded "
+        f"spmm: out {err:.3e}, d_x {e2:.3e} (1e-5 of the terms' absolute "
+        f"sum)")
+
+    # the frozen JAX dist run, at 1e-4
+    for r in d2:
+        fx = r["checks"]["gcn"]
+        _scaled("fixture GCN loss", float(fx["loss"]),
+                float(fixture["gcn_loss"]), 1e-4)
+        _scaled("fixture GCN step loss", float(fx["losses"][0]),
+                float(fixture["gcn_step_loss"]), 1e-4)
+        _scaled("fixture GCN step", fx["params"][0],
+                {k: fixture[f"gcn_step_{k}"] for k in fx["params"][0]}, 1e-4)
+    _scaled("fixture GAT logits",
+            np.concatenate([r["checks"]["gat"]["logits"] for r in d2]),
+            fixture["gat_logits"], 1e-4)
+    _, order = dsp.shard_pointcloud(fixture["spconv_coords"], 2, 3,
+                                    tuple(fixture["spconv_spatial_shape"]))
+    conv = np.empty_like(fixture["spconv_out"])
+    conv[order] = np.concatenate([r["checks"]["conv"]["out"] for r in d2])
+    _scaled("fixture conv", conv, fixture["spconv_out"], 1e-4)
+    log("[dist] dist_small.npz (JAX's dist at D=4) at D=2: GCN loss and "
+        "step, GAT logits, sharded conv within 1e-4")
+
+    for world, results in ((2, d2), (1, [d1])):
+        for rank, r in enumerate(results):
+            tag = f"D={world} rank {rank}"
+            log(_time_line(f"{tag} GCN arxiv (rows) SGD steps",
+                           r["gcn_rows"]["time"], card))
+            log(_time_line(f"{tag} GAT arxiv 4 x 16 steps", r["gat"]["time"],
+                           card))
+            for c in DIST_CHANNELS:
+                log(_time_line(f"{tag} SubM {c}->{c} forward + backward",
+                               r[f"conv{c}"]["time"], card))
+    log("[dist] staged collectives: gloo copies each CUDA tensor to the "
+        "host and back; on one card that measures the host, not NVLink")
+    launches = dict(_NONE)
+    for r in d2 + d4 + [d1]:
+        for k in KERNEL_NAMES:
+            launches[k] += int(r["launches"][k])
+    log(f"[dist] launches of the ranks' driven runs: "
+        f"{ {k: v for k, v in launches.items() if v} }; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_tune(torch, cuda, graphs, tune_dir):
     """The tuner on the Reddit-scale storage at F = 64 and 41, forward and
     with the backward; then a gcn-reddit forward under AUTO, whose metrics
@@ -3203,6 +3630,7 @@ def _run(torch, cuda, tune_dir) -> int:
         esc, _ = phase_esc(torch, cuda, graphs)
         bf16 = phase_bf16_layers(torch, cuda, graphs["unet-60k"])
         phase_checkpoint(torch, cuda, graphs)
+        dist = phase_dist(torch, cuda, graphs, card)
         tuned = phase_tune(torch, cuda, graphs, tune_dir)
         if "jax" in sys.modules:
             raise AssertionError("JAX was imported")
@@ -3229,6 +3657,10 @@ def _run(torch, cuda, tune_dir) -> int:
                 ("csr_spmm", "esc", esc),
                 ("spconv_pairs", "bf16", bf16),
                 ("spconv_dw", "bf16", bf16),
+                ("csr_spmm", "dist", dist),
+                ("sddmm_csr", "dist", dist),
+                ("spconv_pairs", "dist", dist),
+                ("spconv_dw", "dist", dist),
                 ("csr_spmm", "tune", tuned),
                 ("spmm_dense_cells", "tune", tuned),
                 ("spmm_bell", "tune", tuned),
@@ -3242,7 +3674,7 @@ def _run(torch, cuda, tune_dir) -> int:
 
     by_path = {"serving": serving, "training": training,
                "sddmm": sddmm_path, "utilities": utilities, "esc": esc,
-               "bf16": bf16, "tune": tuned}
+               "bf16": bf16, "dist": dist, "tune": tuned}
 
     def paths(*names):
         return {path: sum(counts[k] for k in names)

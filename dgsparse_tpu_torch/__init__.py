@@ -8,7 +8,9 @@ CSR and COO) with both gradients, the semiring `gspmm` grid, SDDMM, edge
 softmax, the sorted segment sum, the hybrid tiers on clustered graphs,
 slot-space edge values and the fused slot-space GAT attention
 (`ops/slot.py`, `ops/attention.py`), the GE-SpMM C-API surface
-(`ge_spmm`, a submodule as in JAX), sparse 3-D convolution with its host
+(`ge_spmm`, a submodule as in JAX), the sharded ops and training steps
+of `dist/` on `torch.distributed` (a submodule as in JAX), sparse 3-D
+convolution with its host
 rulebook (native C++ builder for large clouds, `native.py`) and its fused
 and ESC routes, the GCN, GAT, GIN, SAGE, DGCNN and point-cloud UNet
 models, their serving and training (`entry.py`), RCM reordering

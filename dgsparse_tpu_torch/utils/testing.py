@@ -2,11 +2,13 @@
 oracles, a check for sums taken in different orders, and the port's side
 of the frozen training fixtures.
 
-`random_csr`, `spmm_oracle` and `gspmm_oracle` are copies of those in
-`dgsparse_tpu/utils/testing.py`, `clustered_graph` of the one in
-`benchmark/bench_scale.py` and `random_cloud` of the one in
-`tests/test_spconv.py`, so the port and `chip_smoke.py` build the same
-seeded graphs and voxel clouds without importing JAX; `gcn_norm_csr` is
+`random_csr`, `spmm_oracle`, `sddmm_oracle` and `gspmm_oracle` are
+copies of those in `dgsparse_tpu/utils/testing.py` (`collective_volumes`
+is its counterpart, over the counters of `dist/comm.py`),
+`clustered_graph` of the one in `benchmark/bench_scale.py` and
+`random_cloud` of the one in `tests/test_spconv.py`, so the port and
+`chip_smoke.py` build the same seeded graphs and voxel clouds without
+importing JAX; `gcn_norm_csr` is
 the Reddit-scale graph build of `benchmark/bench_train.py`.
 """
 
@@ -242,6 +244,40 @@ def spmm_oracle(
         else:
             raise ValueError(reduce)
     return out
+
+
+def sddmm_oracle(rowptr, col, d1, d2, reduce="sum"):
+    """Slow per-edge numpy SDDMM: out[p] = d1[row(p)] @ d2[col[p]], MEAN
+    dividing by the row's degree."""
+    nnz = len(col)
+    out = np.zeros(nnz, d1.dtype)
+    m = len(rowptr) - 1
+    for r in range(m):
+        s, e = int(rowptr[r]), int(rowptr[r + 1])
+        for p in range(s, e):
+            out[p] = d1[r] @ d2[col[p]]
+            if reduce == "mean":
+                out[p] /= (e - s)
+    return out
+
+
+def collective_volumes(fn, *args) -> dict:
+    """The elements each collective of `dist/comm.py` passed on this rank
+    during one call of fn(*args) (a forward, under no_grad), keyed by
+    JAX's primitive names (all_gather, psum, psum_scatter, ppermute), the
+    ones used only: per-rank sends, as the JAX helper of this name counts
+    them in a traced jaxpr. A halo exchange whose volume grew to
+    O(volume) still computes the right numbers; only a volume check
+    catches it."""
+    import torch
+
+    from dgsparse_tpu_torch.dist import comm
+
+    before = dict(comm.VOLUMES)
+    with torch.no_grad():
+        fn(*args)
+    return {k: v - before[k] for k, v in comm.VOLUMES.items()
+            if v != before[k]}
 
 
 def gspmm_oracle(rowptr, col, values, dense, reduce, compute):

@@ -199,7 +199,10 @@ def test_import_pulls_in_no_jax():
             "dgsparse_tpu_torch.utils.debug, "
             "dgsparse_tpu_torch.utils.metrics, "
             "dgsparse_tpu_torch.utils.stats, dgsparse_tpu_torch.utils.tune, "
-            "dgsparse_tpu_torch.utils.checkpoint; "
+            "dgsparse_tpu_torch.utils.checkpoint, "
+            "dgsparse_tpu_torch.dist, dgsparse_tpu_torch.dist.gcn, "
+            "dgsparse_tpu_torch.dist.gat, dgsparse_tpu_torch.dist.launch, "
+            "dgsparse_tpu_torch.dist.cases; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'dgsparse_tpu.', 'flax'))"
             " or m == 'dgsparse_tpu']; "
