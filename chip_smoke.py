@@ -153,6 +153,27 @@ exits non-zero without a result line:
      then gat_attention against the edge route, forward and with the
      backward, one head at F = 16 and 41, four heads against GATConv's
      edge branch, and the slot chain against the edge-order chain.
+ 7b. bf16 hybrid (`phase_bf16_hybrid`, the hybrid tiers' bf16 compute
+     mode): on the small graph of bf16_hybrid_small.npz, `spmm` of a bf16
+     x (SUM and MEAN, forward and d_dense) against the JAX package's frozen
+     PALLAS_ROW_TILE run on the rows and columns its cells visit, and on
+     attention_small.npz's graph gat_attention(compute_dtype=bfloat16)
+     against JAX's frozen bf16 forward and against the plain versions, all
+     at 1e-2 of the terms' absolute sum, with exact launches; the
+     bf16-cell variant of spmm_dense_cells (the storage's bf16 twin of the
+     cells times a bf16 B), forward and transpose, against its plain
+     version at 1e-5 of the terms' absolute sum and bitwise against a
+     second call, on a small clustered graph (F in {1, 41, 64, 130}) and
+     at Reddit scale (F = 64, 41), the twin's bytes logged; the slice's
+     path at Reddit scale with the counts set to 0 just before it: `spmm`
+     forward + d_dense at F = 64 and 41 with an fp32 and a bf16 x, and
+     gat_attention forward + backward one head at F = 16 and 41 in both
+     modes, exact launches by variant, bf16 mode against fp32 mode at
+     1e-2; CUDA-event times of the bf16-cell kernel beside the fp32-mode
+     kernel, its plain version and torch.bmm over the bf16 blocks, and of
+     sddmm_cells in bf16 mode (a cast, no kernel of its own), beside their
+     bounds (bytes, or operations at bf16's 989 TFLOP/s); and the path's
+     ops in both modes with their peak memory.
   8. profile: the time of the per-edge gather of an [N, 4] fp32 table,
      contiguous and column-major; torch.profiler over 3 training steps
      each of gcn-arxiv, gat-arxiv and gin-max-arxiv after 2 warm-up
@@ -224,7 +245,9 @@ exits non-zero without a result line:
      metrics show them), each width against the other route at 1e-5
      scaled; `tune_report` on the arxiv storage; the file deleted.
 Then one JSON line of per-kernel results (csr_spmm's launches by path
-include the esc, dist and tune paths), the card's name and power limit, and as
+include the esc, dist and tune paths; spmm_dense_cells_bf16, the bf16-cell
+variant, counts the "bf16_hybrid" path of phase 7b), the card's name and
+power limit, and as
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
@@ -251,6 +274,7 @@ GIN_FIXTURE = os.path.join(FIXTURES, "gin_small.npz")
 HYBRID_FIXTURE = os.path.join(FIXTURES, "hybrid_small.npz")
 UNET_FIXTURE = os.path.join(FIXTURES, "unet_small.npz")
 ATTENTION_FIXTURE = os.path.join(FIXTURES, "attention_small.npz")
+BF16_FIXTURE = os.path.join(FIXTURES, "bf16_hybrid_small.npz")
 # bench.py:57-61 — the p2p-Gnutella31 shape; the .mtx is not in the repo
 P2P_NODES, P2P_EDGES = 62586, 147892
 FEATS = (1, 7, 32, 40, 41, 64, 128, 256)
@@ -264,15 +288,17 @@ STEPS = 5
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12
 RATE_NAMES = {FP32_FLOPS: "fp32 FFMA 67 TFLOP/s",
-              TF32X3_FLOPS: "3xTF32 on TF32 tensor cores 165 TFLOP/s"}
+              TF32X3_FLOPS: "3xTF32 on TF32 tensor cores 165 TFLOP/s",
+              BF16_FLOPS: "bf16 tensor cores 989 TFLOP/s"}
 KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin", "spmm_cells", "spmm_bell",
            "spconv")
 # the wrappers the main paths launch, as `kernels.launch_counts` names them
 KERNEL_NAMES = ("csr_spmm", "sddmm_csr", "spmm_maxmin",
                 "spmm_maxmin_d_dense", "spmm_maxmin_d_values",
-                "spmm_dense_cells", "spmm_bell", "sddmm_cells",
-                "spconv_pairs", "spconv_dw")
+                "spmm_dense_cells", "spmm_dense_cells_bf16", "spmm_bell",
+                "sddmm_cells", "spconv_pairs", "spconv_dw")
 _NONE = dict.fromkeys(KERNEL_NAMES, 0)
 # kernel launches per training step: the forward and d_dense of both
 # layers, plus d_values of both layers where the edge values are
@@ -288,6 +314,15 @@ _NONE = dict.fromkeys(KERNEL_NAMES, 0)
 # sddmm_cells and sddmm_csr; d_s_row's tiers and d_s_col's transpose
 ATTENTION_LAUNCHES = {"csr_spmm": 4, "spmm_dense_cells": 4, "spmm_bell": 2,
                       "sddmm_cells": 1, "sddmm_csr": 1}
+# ... in the bf16 compute mode: the forward's and d_x's cells on the
+# bf16-cell variant, d_s_row's and d_s_col's on the fp32 kernel
+ATTENTION_LAUNCHES_BF16 = {**ATTENTION_LAUNCHES, "spmm_dense_cells": 2,
+                           "spmm_dense_cells_bf16": 2}
+# one hybrid spmm forward and d_dense: cells 2, BELL 1, CSR 2 (residue,
+# non-cell transpose), the cells on the bf16 variant for a bf16 operand
+SPMM_LAUNCHES = {"csr_spmm": 2, "spmm_dense_cells": 2, "spmm_bell": 1}
+SPMM_LAUNCHES_BF16 = {"csr_spmm": 2, "spmm_dense_cells_bf16": 2,
+                      "spmm_bell": 1}
 # a GAT on a hybrid storage of 2^21 or more edges ("gat-hybrid") runs one
 # gat_attention a head: 4 in its first layer, 1 in its second
 GAT_HEADS = 5
@@ -313,6 +348,8 @@ FORWARD_LAUNCHES = {"gcn": {**_NONE, "csr_spmm": 2},
 # Reddit-scale GCN's two layers
 HYBRID_FEATS = (1, 41, 64, 130)
 REDDIT_FEATS = (64, 41)
+# gat_attention's widths a head at Reddit scale (gat-reddit's 16 and 41)
+ATTENTION_FEATS = (16, 41)
 # the max/min kernel phase: the compute ops (None: copy_u) and widths
 MAXMIN_COMPUTES = (None, "add", "sub", "mul", "div")
 MAXMIN_FEATS = {"p2p": (32,), "arxiv": (128, 256)}
@@ -2176,6 +2213,324 @@ def phase_attention_numbers(torch, cuda, reddit):
             f"{ms['slot_fwd_bwd']:.3f} ms, edge {ms['edge_fwd_bwd']:.3f} ms")
 
 
+def _visited_rows(torch, blocks, size, cuda):
+    """Mask [size] of the rows in the given 128-blocks."""
+    mask = torch.zeros(-(-size // 128), dtype=torch.bool, device=cuda)
+    mask[blocks.long()] = True
+    return mask.repeat_interleave(128)[:size]
+
+
+def _bf16_blocks(torch, x, block, which):
+    """Row blocks `which` of x [N, F] as bf16 [len(which), block, F], x
+    padded with zero rows to whole blocks: the operand of `torch.bmm`."""
+    nb = -(-x.shape[0] // block)
+    xp = torch.zeros(nb * block, x.shape[1], dtype=torch.bfloat16,
+                     device=x.device)
+    xp[:x.shape[0]] = x
+    return xp.view(nb, block, -1)[which.long()].contiguous()
+
+
+def phase_bf16_hybrid(torch, cuda, graphs):
+    """The hybrid tiers' bf16 compute mode (see the module docstring,
+    phase 7b): the small JAX-frozen fixture; the bf16-cell kernel against
+    its plain version; the slice's path at Reddit scale, counted; its
+    times beside both modes, the bound and torch.bmm. Returns (times,
+    errs, launches of the driven run)."""
+    import numpy as np
+
+    import dgsparse_tpu_torch as pt
+    from dgsparse_tpu_torch.kernels import reset_launch_counts
+    from dgsparse_tpu_torch.kernels import spmm_cells as C
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close, hybrid_csr
+
+    t0 = time.perf_counter()
+    bf16, seg = torch.bfloat16, pt.Algorithm.XLA_SEGMENT
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    kernel_errs = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    def check(out, ref, abs_sum, tol):
+        torch.cuda.synchronize()
+        return assert_sum_close(out, ref, abs_sum, tol)
+
+    def expect(what, counts, *parts):
+        want = dict(_NONE)
+        for n, part in parts:
+            for k, v in part.items():
+                want[k] += n * v
+        if counts != want:
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"{want}")
+
+    # (1) the JAX-frozen fixture: spmm of a bf16 x, SUM and MEAN, forward
+    # and d_dense, on the visited rows / columns (JAX leaves the others
+    # NaN); gat_attention(compute_dtype=bfloat16) on attention_small's
+    # graph; both at 1e-2 of the terms' absolute sum, with exact launches
+    with np.load(BF16_FIXTURE) as f:
+        fx = dict(f)
+    n, feat = fx["x"].shape
+    sp = pt.SparseTensor.from_csr(fx["rowptr"], fx["col"],
+                                  torch.from_numpy(fx["vals"]),
+                                  sparse_sizes=(n, n), device=cuda)
+    hp = sp.storage.ell_plan()
+    rows = _visited_rows(torch, hp.cells.cell_rb, n, cuda)
+    cols = _visited_rows(torch, hp.cells.cell_cw, n, cuda)
+    a_abs = sp.set_values(sp.storage.values().abs())
+    ct = torch.from_numpy(fx["ct"]).to(cuda)
+    worst = []
+    for reduce in ("sum", "mean"):
+        xb = torch.from_numpy(fx["x"]).to(cuda).to(bf16).requires_grad_()
+        reset_launch_counts()
+        out = pt.spmm(sp, xb, reduce)
+        (out.float() * ct).sum().backward()
+        expect(f"fixture spmm {reduce}", _counts(), (1, SPMM_LAUNCHES_BF16))
+        z = torch.zeros(n, feat, device=cuda, requires_grad=True)
+        (pt.spmm(a_abs, z, reduce, seg) * ct.abs()).sum().backward()
+        fwd_abs = pt.spmm(a_abs, xb.detach().float().abs(), reduce, seg)
+        ref = torch.from_numpy(fx[f"spmm/{reduce}/out"]).to(cuda)
+        ref_dx = torch.from_numpy(fx[f"spmm/{reduce}/d_x"]).to(cuda)
+        worst.append(check(out.detach()[rows], ref[rows], fwd_abs[rows],
+                           1e-2))
+        worst.append(check(xb.grad[cols], ref_dx[cols], z.grad[cols], 1e-2))
+    with np.load(ATTENTION_FIXTURE) as f:
+        fa = dict(f)
+    asp = pt.SparseTensor.from_csr(fa["rowptr"], fa["col"], None,
+                                   sparse_sizes=(n, n), device=cuda)
+    inputs = [torch.from_numpy(fa[k]).to(cuda).requires_grad_()
+              for k in ("s_row", "s_col", "x")]
+    act = torch.from_numpy(fa["ct"]).to(cuda)
+
+    def attend():
+        out = pt.gat_attention(asp, *inputs, compute_dtype=bf16)
+        return out.detach(), torch.autograd.grad(out, inputs, act)
+
+    with plain_kernels():
+        ref, ref_grads = attend()
+    reset_launch_counts()
+    out, grads = attend()
+    expect("fixture gat_attention", _counts(), (1, ATTENTION_LAUNCHES_BF16))
+    abs_sum = pt.gat_attention(asp, inputs[0].detach(), inputs[1].detach(),
+                               inputs[2].detach().abs())
+    e_jax = check(out, torch.from_numpy(fx["attn/out"]).to(cuda), abs_sum,
+                  1e-2)
+    e_plain = check(out, ref, abs_sum, 1e-2)
+    g_plain = _grad_close(torch, grads, ref_grads, 1e-2, 1e-2)
+    log(f"[bf16] fixture ({n} nodes, F={feat}), bf16 compute mode: spmm "
+        f"sum/mean of a bf16 x vs the JAX package's PALLAS_ROW_TILE, forward "
+        f"and d_dense on the visited rows / columns, max_abs_err "
+        f"{max(worst):.3e} (1e-2 of the terms' absolute sum); "
+        f"gat_attention(compute_dtype=bfloat16) vs JAX's {e_jax:.3e}, vs the "
+        f"plain versions forward {e_plain:.3e}, gradients {g_plain:.3e} "
+        f"(1e-2); launches exact")
+
+    # (2) the bf16-cell kernel against its plain version (the same bf16
+    # operands, products exact in float32) at 1e-5 of the terms' absolute
+    # sum, bitwise equal to a second call: a small clustered graph with a
+    # row block without a cell (F in HYBRID_FEATS), then Reddit scale
+    def kernel_cases(tag, st, feats):
+        plan = st.ell_plan().cells
+        twin = st.tier_values(compute_dtype=bf16)["cells_bf16"]
+        worst = []
+        for f in feats:
+            for transpose in (False, True):
+                x = randn(plan.num_rows if transpose else plan.num_cols,
+                          f).to(bf16)
+                args = (plan, twin, x, transpose, bf16)
+                out = C.spmm_dense_cells_cuda(*args)
+                abs_sum = C.spmm_dense_cells_plain(
+                    plan, twin.float().abs(), x.float().abs(), transpose)
+                kernel_errs.append(check(out, C.spmm_dense_cells_plain(*args),
+                                         abs_sum, TOL["float32"]))
+                worst.append(kernel_errs[-1])
+                if not torch.equal(out, C.spmm_dense_cells_cuda(*args)):
+                    raise AssertionError(f"bf16 cells {tag} F={f}: a second "
+                                         "call differs")
+        log(f"[bf16] spmm_dense_cells bf16-cell variant vs its plain version"
+            f", {tag}, F in {feats}, forward and transpose: max_abs_err "
+            f"{max(worst):.3e} (1e-5 of the terms' absolute sum), bitwise "
+            f"repeatable")
+
+    rowptr, col, vals = hybrid_csr()
+    m = len(rowptr) - 1
+    small = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(vals),
+                                     sparse_sizes=(m, m), device=cuda)
+    kernel_cases("small clustered graph", small.storage, HYBRID_FEATS)
+    adj, _, _ = graphs["reddit"]
+    st = adj.storage
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tiers = st.tier_values(compute_dtype=bf16)
+    torch.cuda.synchronize()
+    twin_bytes = tiers["cells_bf16"].untyped_storage().nbytes()
+    log(f"[bf16] reddit: the bf16 twin of {st.ell_plan().cells.num_cells} "
+        f"cells holds {twin_bytes} B (fp32 blocks "
+        f"{tiers['cells'].untyped_storage().nbytes()} B); allocated "
+        f"{torch.cuda.memory_allocated() - before} B more, "
+        f"{torch.cuda.memory_allocated()} B resident")
+    kernel_cases("reddit", st, REDDIT_FEATS)
+
+    # (3) the slice's path at Reddit scale, counted: spmm forward + d_dense
+    # at F = 64 and 41 with an fp32 and a bf16 x, gat_attention forward +
+    # backward one head at F = 16 and 41 in both modes
+    m, n = st.num_rows, st.num_cols
+    a_abs = adj.set_values(st.values().abs())
+
+    def spmm_step(x, ct):
+        xt = x.detach().requires_grad_()
+        out = pt.spmm(adj, xt)
+        return out.detach(), torch.autograd.grad(out, xt, ct)[0]
+
+    def attention_step(inputs, ct, cd):
+        out = pt.gat_attention(adj, *inputs, compute_dtype=cd)
+        return out.detach(), torch.autograd.grad(out, inputs, ct)
+
+    spmm_cases = {f: (randn(n, f), randn(m, f)) for f in REDDIT_FEATS}
+    attn_cases = {f: ([randn(m).requires_grad_(), randn(n).requires_grad_(),
+                       randn(n, f).requires_grad_()], randn(m, f))
+                  for f in ATTENTION_FEATS}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    runs = {}
+    for f, (x, ct) in spmm_cases.items():
+        for dt in (torch.float32, bf16):
+            runs["spmm", f, dt] = spmm_step(x.to(dt), ct.to(dt))
+    for f, (inputs, ct) in attn_cases.items():
+        for cd in (torch.float32, bf16):
+            runs["attention", f, cd] = attention_step(inputs, ct, cd)
+    torch.cuda.synchronize()
+    launches = _counts()
+    k = len(REDDIT_FEATS)
+    j = len(ATTENTION_FEATS)
+    expect("the bf16 path", launches, (k, SPMM_LAUNCHES),
+           (k, SPMM_LAUNCHES_BF16), (j, ATTENTION_LAUNCHES),
+           (j, ATTENTION_LAUNCHES_BF16))
+    for f, (x, ct) in spmm_cases.items():
+        (o32, g32), (o16, g16) = (runs["spmm", f, dt]
+                                  for dt in (torch.float32, bf16))
+        if o16.dtype != bf16 or g16.dtype != bf16 or \
+                not (torch.isfinite(o16).all() and torch.isfinite(g16).all()):
+            raise AssertionError(f"bf16 spmm F={f}: {o16.dtype} output")
+        e = check(o16, o32, pt.spmm(a_abs, x.abs(), "sum", seg), 1e-2)
+        e = max(e, check(g16, g32, pt.spmm(a_abs.t(), ct.abs(), "sum", seg),
+                         1e-2))
+        log(f"[bf16] reddit spmm F={f}, bf16 x vs fp32 x, forward and "
+            f"d_dense: max_abs_err {e:.3e} (1e-2 of the terms' absolute "
+            f"sum)")
+    for f, (inputs, ct) in attn_cases.items():
+        (o32, g32), (o16, g16) = (runs["attention", f, cd]
+                                  for cd in (torch.float32, bf16))
+        abs_sum = pt.gat_attention(adj, inputs[0].detach(),
+                                   inputs[1].detach(), inputs[2].detach().abs())
+        e = check(o16, o32, abs_sum, 1e-2)
+        g = _grad_close(torch, g16, g32, 1e-2, 1e-2)
+        log(f"[bf16] reddit gat_attention one head F={f}, bf16 mode vs fp32 "
+            f"mode: forward max_abs_err {e:.3e} (1e-2 of the terms' "
+            f"absolute sum), gradients {g:.3e} (1e-2 of the largest)")
+    log(f"[bf16] the path's launches: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del runs
+
+    # (4) times (CUDA events, best of two turns): the bf16-cell kernel
+    # beside the fp32-mode kernel, its plain version and torch.bmm over
+    # the bf16 blocks; sddmm_cells in bf16 mode; the path's ops in both
+    # modes, with their peak memory
+    hp = st.ell_plan()
+    plan, twin, cells = hp.cells, tiers["cells_bf16"], tiers["cells"]
+    cell_flops = 2.0 * plan.num_cells * 128 * 128
+    results = {"spmm_dense_cells_bf16": {}, "sddmm_cells_bf16": {}}
+    for f in REDDIT_FEATS:
+        for transpose in (False, True):
+            inp = randn(m if transpose else n, f)
+            xb = inp.to(bf16)
+            blk = _bf16_blocks(torch, xb, 128,
+                               plan.cell_rb if transpose else plan.cell_cw)
+            a = twin.transpose(1, 2) if transpose else twin
+            ms = _time_turns({
+                "kernel": (C.spmm_dense_cells_cuda,
+                           (plan, twin, xb, transpose, bf16)),
+                "fp32_mode": (C.spmm_dense_cells_cuda,
+                              (plan, cells, inp, transpose)),
+                "plain": (C.spmm_dense_cells_plain,
+                          (plan, twin, xb, transpose, bf16)),
+                "library": (torch.bmm, (a, blk))})
+            out_rows = n if transpose else m
+            ms.update(bound(2 * (twin.numel() + xb.numel())
+                            + 4 * out_rows * f, cell_flops * f, BF16_FLOPS))
+            ms["library_call"] = ("torch.bmm(bf16 cells, gathered bf16 "
+                                  "window blocks), bf16 out")
+            label = f"reddit {'transpose' if transpose else 'forward'} F={f}"
+            results["spmm_dense_cells_bf16"][label] = ms
+            log(f"[numbers] spmm_dense_cells bf16 cells {label}: kernel "
+                f"{ms['kernel'] * 1e3:.2f} us, fp32-mode kernel "
+                f"{ms['fp32_mode'] * 1e3:.2f} us, plain {ms['plain'] * 1e3:.2f}"
+                f" us, torch.bmm {ms['library'] * 1e3:.2f} us, bound "
+                f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
+                f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of "
+                f"the bound")
+        d1, d2 = randn(m, f), randn(n, f)
+        d1b, d2b = d1.to(bf16), d2.to(bf16)
+        ms = _time_turns({
+            "kernel": (C.sddmm_cells_cuda, (plan, d1b, d2b, bf16)),
+            "kernel_with_cast": (C.sddmm_cells_cuda, (plan, d1, d2, bf16)),
+            "fp32_mode": (C.sddmm_cells_cuda, (plan, d1, d2)),
+            "plain": (C.sddmm_cells_plain, (plan, d1b, d2b, bf16)),
+            "library": (torch.bmm, (
+                _bf16_blocks(torch, d1b, 128, plan.cell_rb),
+                _bf16_blocks(torch, d2b, 128, plan.cell_cw).transpose(1, 2)))})
+        ms.update(bound(2 * (d1.numel() + d2.numel()) + 4 * plan.cell_slots,
+                        cell_flops * f, BF16_FLOPS))
+        ms["library_call"] = ("torch.bmm(gathered bf16 d1 blocks, gathered "
+                              "bf16 d2 blocksᵀ), bf16 out")
+        results["sddmm_cells_bf16"][f"reddit F={f}"] = ms
+        log(f"[numbers] sddmm_cells bf16 mode reddit F={f}: kernel on bf16 "
+            f"d1, d2 {ms['kernel'] * 1e3:.2f} us (with the cast from fp32 "
+            f"{ms['kernel_with_cast'] * 1e3:.2f}), fp32 mode "
+            f"{ms['fp32_mode'] * 1e3:.2f} us, plain {ms['plain'] * 1e3:.2f} "
+            f"us, torch.bmm {ms['library'] * 1e3:.2f} us, bound "
+            f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}); "
+            f"{ms['bound'] / ms['kernel']:.3f} of the bound")
+    for f, (x, ct) in spmm_cases.items():
+        fns = {dt: (spmm_step, (x.to(dt), ct.to(dt)))
+               for dt in (torch.float32, bf16)}
+        ms = _time_turns(fns, warmup=2, iters=10)
+        peak = {}
+        for dt, (fn, args) in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn(*args)
+            torch.cuda.synchronize()
+            peak[dt] = torch.cuda.max_memory_allocated() - base
+        log(f"[numbers] reddit spmm F={f} forward + d_dense: fp32 x "
+            f"{ms[torch.float32]:.3f} ms, bf16 x (bf16 mode) "
+            f"{ms[bf16]:.3f} ms; peak above resident {peak[torch.float32]} / "
+            f"{peak[bf16]} B")
+    for f, (inputs, ct) in attn_cases.items():
+        fns = {cd: (attention_step, (inputs, ct, cd))
+               for cd in (torch.float32, bf16)}
+        ms = _time_turns(fns, warmup=1, iters=3)
+        peak = {}
+        for cd, (fn, args) in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn(*args)
+            torch.cuda.synchronize()
+            peak[cd] = torch.cuda.max_memory_allocated() - base
+        log(f"[numbers] reddit gat_attention one head F={f} forward + "
+            f"backward: fp32 mode {ms[torch.float32]:.3f} ms, bf16 mode "
+            f"{ms[bf16]:.3f} ms; peak above resident {peak[torch.float32]} "
+            f"/ {peak[bf16]} B")
+    log(f"[bf16] phase {time.perf_counter() - t0:.1f} s")
+    # the variant computes in the bf16 mode only: its one error, against
+    # its plain version, under both keys
+    e = max(kernel_errs)
+    errs = {"spmm_dense_cells_bf16": {"float32": e, "bfloat16": e}}
+    return results, errs, launches
+
+
 def _grid(torch, feats, coords, shape):
     """feats [n, C] at the voxels `coords` (batch 0) of a dense
     [1, C, X, Y, Z] float32 grid, zero elsewhere."""
@@ -3623,6 +3978,10 @@ def _run(torch, cuda, tune_dir) -> int:
         times = phase_numbers(torch, cuda, runs, graphs)
         times.update(phase_hybrid_numbers(torch, cuda, graphs["reddit"][0]))
         phase_attention_numbers(torch, cuda, graphs["reddit"])
+        bf16_times, bf16_errs, bf16_path = phase_bf16_hybrid(torch, cuda,
+                                                             graphs)
+        times.update(bf16_times)
+        errs.update(bf16_errs)
         times.update(phase_spconv_numbers(torch, cuda, graphs["unet-60k"]))
         phase_profile(torch, cuda, graphs)
         utilities = phase_utilities(torch, cuda, graphs)
@@ -3648,6 +4007,12 @@ def _run(torch, cuda, tune_dir) -> int:
                 ("spmm_bell", "training", training),
                 ("sddmm_cells", "sddmm", sddmm_path),
                 ("sddmm_cells", "training", training),
+                ("spmm_dense_cells_bf16", "bf16_hybrid", bf16_path),
+                ("spmm_dense_cells", "bf16_hybrid", bf16_path),
+                ("spmm_bell", "bf16_hybrid", bf16_path),
+                ("csr_spmm", "bf16_hybrid", bf16_path),
+                ("sddmm_cells", "bf16_hybrid", bf16_path),
+                ("sddmm_csr", "bf16_hybrid", bf16_path),
                 ("spconv_pairs", "serving", serving),
                 ("spconv_pairs", "training", training),
                 ("spconv_dw", "training", training),
@@ -3673,8 +4038,9 @@ def _run(torch, cuda, tune_dir) -> int:
         return 1
 
     by_path = {"serving": serving, "training": training,
-               "sddmm": sddmm_path, "utilities": utilities, "esc": esc,
-               "bf16": bf16, "dist": dist, "tune": tuned}
+               "sddmm": sddmm_path, "bf16_hybrid": bf16_path,
+               "utilities": utilities, "esc": esc, "bf16": bf16,
+               "dist": dist, "tune": tuned}
 
     def paths(*names):
         return {path: sum(counts[k] for k in names)
@@ -3707,6 +4073,13 @@ def _run(torch, cuda, tune_dir) -> int:
             "dgsparse_tpu/kernels/pallas_spmm.py:645",
             paths("spmm_dense_cells"), errs["spmm_dense_cells"],
             times["spmm_dense_cells"], "reddit forward F=64", card),
+        _kernel_entry(
+            "spmm_dense_cells_bf16", "dgsparse_tpu_torch/csrc/spmm_cells.cu",
+            "dgsparse_tpu/kernels/pallas_spmm.py:645 "
+            "(compute_dtype=bfloat16)",
+            paths("spmm_dense_cells_bf16"), errs["spmm_dense_cells_bf16"],
+            times["spmm_dense_cells_bf16"], "reddit forward F=64", card,
+            main="bf16_hybrid"),
         _kernel_entry(
             "spmm_bell", "dgsparse_tpu_torch/csrc/spmm_bell.cu",
             "dgsparse_tpu/kernels/pallas_spmm.py:844", paths("spmm_bell"),

@@ -223,15 +223,19 @@ class Storage:
         ELL plans have no counterpart here)."""
         return self._hybrid
 
-    def tier_values(self, ones: bool = False) -> Optional[dict]:
+    def tier_values(self, ones: bool = False,
+                    compute_dtype=torch.float32) -> Optional[dict]:
         """The hybrid tiers' values (`core.planner.tier_values`) for this
         storage's values, or with `ones` for implicit ones; None without a
         hybrid plan. Built at construction or on first use, and kept while
         the values tensor is the same object at the same `_version`: an
         in-place change (`v.mul_(2)`, an optimizer step on a Parameter,
         through any view of it, `.detach()` included) rebuilds them on the
-        values' device at the next use, as does `set_values`. The ones'
-        tiers depend on the structure alone; do not change them in place."""
+        values' device at the next use, as does `set_values`. With
+        `compute_dtype` bfloat16 the dict also holds "cells_bf16", the
+        blocks' bf16 twin, made at the first such call and kept with them
+        (`core.planner.with_bf16_cells`). The ones' tiers depend on the
+        structure alone; do not change them in place."""
         if self._hybrid is None:
             return None
         # kept tensors are made outside inference mode, or a later call
@@ -241,15 +245,19 @@ class Storage:
                 if self._tier_ones is None:
                     self._tier_ones = P.tier_values(self._hybrid, None,
                                                     self.device)
-                return self._tier_ones
-            if self._values is None:
-                raise ValueError("the storage has no values")
-            key = _values_key(self._values)
-            if self._tier_vals is None or self._tier_key != key:
-                self._tier_vals = P.tier_values(self._hybrid, self._values,
-                                                self.device)
-                self._tier_key = key
-            return self._tier_vals
+                tiers = self._tier_ones
+            else:
+                if self._values is None:
+                    raise ValueError("the storage has no values")
+                key = _values_key(self._values)
+                if self._tier_vals is None or self._tier_key != key:
+                    self._tier_vals = P.tier_values(self._hybrid,
+                                                    self._values, self.device)
+                    self._tier_key = key
+                tiers = self._tier_vals
+            if compute_dtype == torch.bfloat16:
+                P.with_bf16_cells(tiers)
+            return tiers
 
     def slot_map(self, name: str) -> torch.Tensor:
         """One of the hybrid plan's slot-space index maps

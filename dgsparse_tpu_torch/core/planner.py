@@ -369,7 +369,8 @@ class HybridPlan(_OnDevice):
 
 def tier_values(plan: HybridPlan, values, device) -> dict:
     """Each tier's edge values for the kernels, on `device`: "cells" the
-    materialized blocks [ncells, R, C] (or None), "bell" the BELL slot
+    materialized blocks [ncells, R, C] (or None), "cells_bf16" their bf16
+    twin (None until `with_bf16_cells` makes it), "bell" the BELL slot
     values [T*E] (0 on padding; or None), "res" and "nd_t" the residue's
     and the non-cell CSC's values in their edge orders (None for ones).
 
@@ -378,7 +379,8 @@ def tier_values(plan: HybridPlan, values, device) -> dict:
     tensor on its device, through the sorted slot order
     (`kernels.spmm_cells.materialize_cells`, the segment-sum kernel on
     CUDA)."""
-    out = {"cells": None, "bell": None, "res": None, "nd_t": None}
+    out = {"cells": None, "cells_bf16": None, "bell": None, "res": None,
+           "nd_t": None}
     if isinstance(values, torch.Tensor):
         from dgsparse_tpu_torch.kernels.spmm_cells import materialize_cells
 
@@ -415,6 +417,19 @@ def tier_values(plan: HybridPlan, values, device) -> dict:
         out["res"] = put(vals[plan.res.ids])
         out["nd_t"] = put(vals[plan.nd_t.ids])
     return out
+
+
+def with_bf16_cells(tiers: dict) -> dict:
+    """`tiers` with "cells_bf16" filled in: the fp32 blocks rounded to bf16
+    (to nearest even, as the JAX planner's `astype(bfloat16)` rounds them:
+    duplicate edges were summed in fp32 first), made on their device at the
+    first call and kept in the dict. The bf16 compute mode's cell passes
+    read it, half the bytes of the fp32 blocks; float32-only callers never
+    pay for it. The twin lives in the same dict as the blocks, so whatever
+    rebuilds the tiers (new or changed values) drops it with them."""
+    if tiers["cells"] is not None and tiers.get("cells_bf16") is None:
+        tiers["cells_bf16"] = tiers["cells"].to(torch.bfloat16)
+    return tiers
 
 
 SLOT_MAPS = ("src", "take", "nd_t", "bell_nd", "bell_valid", "res_nd",

@@ -27,13 +27,36 @@
 // once per 64-feature tile, so once at F <= 64. Design: one CTA of 8 warps
 // (4 x 2, each a 32 x 32 accumulator tile in registers) computes a [128,
 // 64] output tile; the cells of its run are walked in k slices of 32
-// through a four-stage cp.async ring (16-byte copies, zero-filled past the
-// matrix), so a slice's copy overlaps the products of the three before it
+// through a three-stage cp.async ring (16-byte copies, zero-filled past the
+// matrix), so a slice's copy overlaps the products of the two before it
 // and the next cell's first slices are in flight while a cell finishes. The
 // transpose stages the cell rows k0 .. k0 + 31 as they lie and reads A(r,
 // k) = cell[k0 + k][r] from them at a row stride of 136 floats, so its
 // fragment loads hit 32 distinct banks; no transposed copy of the cells
 // exists.
+//
+// The bf16 compute mode (the JAX package's compute_dtype=bfloat16: the
+// cells rounded to bf16, a bf16 B, fp32 accumulation) has a kernel of its
+// own, dense_cells_bf16_kernel. It reads bf16 cell blocks, half the bytes
+// of the fp32 ones: at Reddit scale 0.30 GB at F = 64, ~89 us at
+// 3.35 TB/s. Both operands are bf16, so each product is one exact pass of
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulators), half the instructions of
+// TF32's m16n8k8 on converted values, with no split; and the fragments
+// come from shared memory through ldmatrix, which loads a warp's 16 x 16
+// A tile or two 16 x 8 B tiles in one instruction where 16-bit element
+// loads would take 32 (with those, the products fell behind the copies:
+// 0.58 of the bound at F = 64 on an H100). The CTA
+// design is the fp32 kernel's: one output block and 64 features a CTA, 8
+// warps of 32 x 32, the block's cells walked through a three-stage
+// cp.async ring, here in k slices of 64 (two a cell; a stage is 27 KB).
+// ldmatrix reads 8 rows of 16 bytes a matrix, so the staged rows are
+// padded to lie 4 banks apart: forward cell rows of 64 + 8 bf16 (144
+// bytes), transposed rows of 128 + 8 (272 bytes; a bare bf16 row of 128
+// is 256 bytes and would put all 8 rows on the same banks), B rows of 64
+// + 8. The transpose reads A(r, k) = cell[k0 + k][r] through
+// ldmatrix.trans from the staged rows, and B(k, n) comes through
+// ldmatrix.trans too; a B staged flat (F = 41: rows of 82 bytes, not the
+// 16-byte rows ldmatrix needs) is read element by element instead.
 //
 // sddmm_cells writes a [128, 128] fp32 block per cell, 64 KB, against
 // 2 * 128 * F input values: at Reddit scale (6,332 cells) 415 MB of output,
@@ -76,6 +99,47 @@ constexpr int kThreads = 256;
 // chunks and read at row stride F; kBElem otherwise, element by element.
 enum BMode : int { kBRows, kBFlat, kBElem };
 
+// Stages the B slice of one step, window rows in0 .. in0 + KK and
+// features f0 .. f0 + kFT, at row stride `sb` (kBRows, kBElem) or as it
+// lies (kBFlat: row stride F), zero past the matrix.
+template <typename T, int BMODE, int KK>
+__device__ __forceinline__ void stage_b(T* bs, int sb, const T* b,
+                                        int64_t in0, int in_rows, int feat,
+                                        int f0, int tid) {
+  constexpr int kE = 16 / sizeof(T);  // elements per 16-byte copy
+  if constexpr (BMODE == kBRows) {
+    constexpr int qb = kFT / kE;
+#pragma unroll
+    for (int it = 0; it < KK * qb / kThreads; ++it) {
+      const int e = tid + it * kThreads;
+      const int k = e / qb, f = (e % qb) * kE;
+      const int64_t row = in0 + k;
+      const int n = row < in_rows ? max(min(kE, feat - f0 - f), 0) : 0;
+      cp_async16(bs + k * sb + f, n ? b + row * feat + f0 + f : b,
+                 n * static_cast<int>(sizeof(T)));
+    }
+  } else if constexpr (BMODE == kBFlat) {
+    const int64_t e0 = in0 * feat;  // 16-byte aligned: in0 % 32 == 0
+    const int64_t e1 = (in0 + KK < in_rows ? in0 + KK : in_rows) * feat;
+    for (int q = tid; q < (KK * feat + kE - 1) / kE; q += kThreads) {
+      const int64_t at = e0 + static_cast<int64_t>(q) * kE;
+      const int64_t left = e1 - at;
+      const int n = left <= 0 ? 0 : left >= kE ? kE : static_cast<int>(left);
+      cp_async16(bs + q * kE, n ? b + at : b,
+                 n * static_cast<int>(sizeof(T)));
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < KK * kFT / kThreads; ++it) {
+      const int e = tid + it * kThreads;
+      const int k = e / kFT, f = e % kFT;
+      const int64_t row = in0 + k;
+      const bool ok = row < in_rows && f0 + f < feat;
+      cp_async_elem(bs + k * sb + f, ok ? b + row * feat + f0 + f : b, ok);
+    }
+  }
+}
+
 // Dynamic shared memory of dense_cells_kernel<T, TRANSPOSE>: a ring of A
 // slices (forward: cell rows [kR][kK + 4]; transpose: cell rows k0 ..
 // k0 + kK, [kK][kC + 8]) and B slices ([kK][kFT + 8] window rows), and the
@@ -108,7 +172,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   using L = CellsSmem<T, TRANSPOSE>;
   constexpr bool kSplitB = sizeof(T) == 4;  // a bf16 B is exact in TF32
   constexpr int kModeB = kSplitB ? kPreSplit : kExact;
-  constexpr int kE = 16 / sizeof(T);        // B elements per 16-byte copy
   constexpr int kSlices = kC / kK;          // k slices per cell
   extern __shared__ __align__(16) unsigned char smem[];
   float* const ring_a = reinterpret_cast<float*>(smem);
@@ -147,38 +210,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     // the B slice, zero past the matrix
-    if constexpr (BMODE == kBRows) {
-      constexpr int qb = kFT / kE;
-#pragma unroll
-      for (int it = 0; it < kK * qb / kThreads; ++it) {
-        const int e = tid + it * kThreads;
-        const int k = e / qb, f = (e % qb) * kE;
-        const int64_t row = in0 + k;
-        const int n = row < in_rows ? max(min(kE, feat - f0 - f), 0) : 0;
-        cp_async16(bs + k * L::kSB + f, n ? b + row * feat + f0 + f : b,
-                   n * static_cast<int>(sizeof(T)));
-      }
-    } else if constexpr (BMODE == kBFlat) {
-      const int64_t e0 = in0 * feat;  // 16-byte aligned: in0 % 32 == 0
-      const int64_t e1 = (in0 + kK < in_rows ? in0 + kK : in_rows) * feat;
-      for (int q = tid; q < (kK * feat + kE - 1) / kE; q += kThreads) {
-        const int64_t at = e0 + static_cast<int64_t>(q) * kE;
-        const int64_t left = e1 - at;
-        const int n = left <= 0 ? 0 : left >= kE ? kE : static_cast<int>(left);
-        cp_async16(bs + q * kE, n ? b + at : b,
-                   n * static_cast<int>(sizeof(T)));
-      }
-    } else {
-#pragma unroll
-      for (int it = 0; it < kK * kFT / kThreads; ++it) {
-        const int e = tid + it * kThreads;
-        const int k = e / kFT, f = e % kFT;
-        const int64_t row = in0 + k;
-        const bool ok = row < in_rows && f0 + f < feat;
-        cp_async_elem(bs + k * L::kSB + f, ok ? b + row * feat + f0 + f : b,
-                      ok);
-      }
-    }
+    stage_b<T, BMODE, kK>(bs, L::kSB, b, in0, in_rows, feat, f0, tid);
   };
 
   float acc[2][4][4];
@@ -243,6 +275,194 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t row = static_cast<int64_t>(blk) * kR + 32 * wm +
+                            16 * mt + g + 8 * (i >> 1);
+        const int f = f0 + wn * 32 + nt * 8 + 2 * t + (i & 1);
+        if (row < out_rows && f < feat) out[row * feat + f] = acc[mt][nt][i];
+      }
+}
+
+// --- spmm_dense_cells, bf16 compute mode -------------------------------------
+
+constexpr int kKB = 64;  // contraction slice staged per step (bf16 mode)
+
+// A warp's fragments of mma.m16n8k16 (bf16, row.col) through ldmatrix: four
+// 8 x 8 matrices of 16-bit values, lane l giving the address of row l % 8
+// of matrix l / 8; with .trans each matrix arrives transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a · b, bf16 products (exact) summed in fp32. Fragments (lane = 4 g
+// + t; two bf16 a register, the lower k in the low half): A [16 x 16]:
+// a0 (g, 2t..), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..);
+// B [16 x 8]: b0 (2t.., g), b1 (2t + 8.., g); C as in m16n8k8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bf16 values as one fragment register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// Dynamic shared memory of dense_cells_bf16_kernel<TRANSPOSE>: a ring of
+// A slices (forward: cell rows [kR][kKB + 8]; transpose: cell rows k0 ..
+// k0 + kKB, [kKB][kC + 8]) and B slices ([kKB][kFT + 8]), bf16. Each row
+// is 16-byte aligned and 4 banks from the next (see the file's comment).
+template <bool TRANSPOSE>
+struct CellsBf16Smem {
+  static constexpr int kSA = TRANSPOSE ? kC + 8 : kKB + 8;
+  static constexpr int kABytes = (TRANSPOSE ? kKB : kR) * kSA * 2;
+  static constexpr int kSB = kFT + 8;
+  static constexpr int kBBytes = kKB * kSB * 2;
+  static constexpr int kBytes = kStages * (kABytes + kBBytes);
+};
+
+// dense_cells_kernel's work in the bf16 compute mode: bf16 cells, a bf16
+// B, one mma.m16n8k16 pass a product; the same CTAs, ring and output.
+template <bool TRANSPOSE, int BMODE>
+__global__ void __launch_bounds__(kThreads, 2)
+    dense_cells_bf16_kernel(const __nv_bfloat16* __restrict__ cells,
+                            const int* __restrict__ blk_ptr,
+                            const int* __restrict__ order,
+                            const int* __restrict__ win,
+                            const __nv_bfloat16* __restrict__ b,
+                            float* __restrict__ out, int out_rows,
+                            int in_rows, int feat) {
+  using L = CellsBf16Smem<TRANSPOSE>;
+  using bf16 = __nv_bfloat16;
+  constexpr int kSlices = kC / kKB;  // k slices per cell
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const ring_a = reinterpret_cast<bf16*>(smem);
+  bf16* const ring_b = reinterpret_cast<bf16*>(smem + kStages * L::kABytes);
+  const int blk = blockIdx.x;
+  const int f0 = blockIdx.y * kFT;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int wm = warp / 2, wn = warp % 2;  // warp tile: rows 32 wm, cols 32 wn
+  const int p0 = blk_ptr[blk];
+  const int nsteps = (blk_ptr[blk + 1] - p0) * kSlices;
+  const int ldb = BMODE == kBFlat ? feat : L::kSB;  // B's row stride in smem
+
+  // step s: cell p0 + s / kSlices, contraction k0 .. k0 + kKB
+  auto issue = [&](int s) {
+    const int p = p0 + s / kSlices;
+    const int k0 = (s % kSlices) * kKB;
+    const int c = order != nullptr ? order[p] : p;
+    const bf16* cell = cells + static_cast<int64_t>(c) * kCell;
+    const int64_t in0 = static_cast<int64_t>(win[c]) * kC + k0;
+    bf16* as = ring_a + (s % kStages) * (L::kABytes / 2);
+    bf16* bs = ring_b + (s % kStages) * (L::kBBytes / 2);
+    // the A slice: 128 x 64 values, 1024 copies of 16 bytes
+#pragma unroll
+    for (int it = 0; it < kR * kKB / 8 / kThreads; ++it) {
+      const int e = tid + it * kThreads;
+      if (!TRANSPOSE) {
+        const int r = e / (kKB / 8), q = (e % (kKB / 8)) * 8;
+        cp_async16(as + r * L::kSA + q, cell + r * kC + k0 + q, 16);
+      } else {
+        const int k = e / (kC / 8), q = (e % (kC / 8)) * 8;
+        cp_async16(as + k * L::kSA + q, cell + (k0 + k) * kC + q, 16);
+      }
+    }
+    stage_b<bf16, BMODE, kKB>(bs, L::kSB, b, in0, in_rows, feat, f0, tid);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const int li = lane >> 3, lj = lane & 7;  // lane's matrix, row in it
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // step s landed; step s - 1's stage is free
+    if (s + kStages - 1 < nsteps) issue(s + kStages - 1);
+    cp_async_commit();
+
+    const bf16* as = ring_a + (s % kStages) * (L::kABytes / 2);
+    const bf16* bs = ring_b + (s % kStages) * (L::kBBytes / 2);
+#pragma unroll
+    for (int kk = 0; kk < kKB; kk += 16) {
+      uint32_t a[2][4], bf[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = 32 * wm + 16 * mt;
+        if (!TRANSPOSE) {
+          // matrix li: rows r + 8 (li & 1) .., k kk + 8 (li >> 1) ..
+          ldmatrix_x4(a[mt], as + (r + (lane & 15)) * L::kSA + kk +
+                                 (lane >> 4) * 8);
+        } else {
+          // A(r, k) = staged[k][r], each matrix transposed on load
+          ldmatrix_x4_trans(a[mt], as + (kk + lj + (li >> 1) * 8) * L::kSA +
+                                       r + (li & 1) * 8);
+        }
+      }
+      // every n-tile, unconditionally (B is zero past F, or, flat, feeds
+      // only columns past F): a product under a branch the compiler cannot
+      // prove uniform costs a warp barrier each
+      if constexpr (BMODE == kBFlat) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const bf16* col = bs + wn * 32 + nt * 8 + g;
+          const int k = kk + 2 * t;
+          bf[nt][0] = pack_bf16(col[k * ldb], col[(k + 1) * ldb]);
+          bf[nt][1] = pack_bf16(col[(k + 8) * ldb], col[(k + 9) * ldb]);
+        }
+      } else {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          // matrices: k kk + 8 (li & 1) .., n-tile 2 np + (li >> 1)
+          uint32_t r4[4];
+          ldmatrix_x4_trans(r4, bs + (kk + (lane & 15)) * ldb + wn * 32 +
+                                    np * 16 + (lane >> 4) * 8);
+          bf[2 * np][0] = r4[0];
+          bf[2 * np][1] = r4[1];
+          bf[2 * np + 1][0] = r4[2];
+          bf[2 * np + 1][1] = r4[3];
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], bf[nt]);
+    }
+  }
+
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -511,6 +731,64 @@ int launch_cells(int device, const float* cells, const int* blk_ptr,
                                       transpose, s);
 }
 
+template <bool TRANSPOSE, int BMODE>
+int launch_cells_bf16_variant(const void* cells, const int* blk_ptr,
+                              const int* order, const int* win, const void* b,
+                              float* out, int num_blocks, int out_rows,
+                              int in_rows, int feat, cudaStream_t s) {
+  constexpr int smem = CellsBf16Smem<TRANSPOSE>::kBytes;
+  auto kernel = dense_cells_bf16_kernel<TRANSPOSE, BMODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_blocks, (feat + kFT - 1) / kFT);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(cells), blk_ptr, order, win,
+      static_cast<const __nv_bfloat16*>(b), out, out_rows, in_rows, feat);
+  return cudaGetLastError();
+}
+
+template <int BMODE>
+int launch_cells_bf16_mode(const void* cells, const int* blk_ptr,
+                           const int* order, const int* win, const void* b,
+                           float* out, int num_blocks, int out_rows,
+                           int in_rows, int feat, int transpose,
+                           cudaStream_t s) {
+  if (transpose)
+    return launch_cells_bf16_variant<true, BMODE>(
+        cells, blk_ptr, order, win, b, out, num_blocks, out_rows, in_rows,
+        feat, s);
+  return launch_cells_bf16_variant<false, BMODE>(
+      cells, blk_ptr, order, win, b, out, num_blocks, out_rows, in_rows,
+      feat, s);
+}
+
+// The bf16 mode's launch: B's staging chosen as in launch_cells.
+int launch_cells_bf16(int device, const void* cells, const int* blk_ptr,
+                      const int* order, const int* win, const void* b,
+                      float* out, int num_blocks, int out_rows, int in_rows,
+                      int feat, int transpose, void* stream) {
+  if (num_blocks <= 0 || feat <= 0 || out_rows <= 0 || in_rows <= 0 ||
+      !aligned(cells, 16))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool b16 = aligned(b, 16);
+  if (b16 && feat % 8 == 0)
+    return launch_cells_bf16_mode<kBRows>(cells, blk_ptr, order, win, b, out,
+                                          num_blocks, out_rows, in_rows, feat,
+                                          transpose, s);
+  if (b16 && feat <= kFT)
+    return launch_cells_bf16_mode<kBFlat>(cells, blk_ptr, order, win, b, out,
+                                          num_blocks, out_rows, in_rows, feat,
+                                          transpose, s);
+  return launch_cells_bf16_mode<kBElem>(cells, blk_ptr, order, win, b, out,
+                                        num_blocks, out_rows, in_rows, feat,
+                                        transpose, s);
+}
+
 template <typename T, bool VEC16>
 int launch_sddmm_variant(const int* cell_rb, const int* cell_cw,
                          const void* d1, const void* d2, float* out,
@@ -554,20 +832,31 @@ extern "C" {
 // out [out_rows, F] fp32, every row written: for each output block
 // (num_blocks of 128 rows) the sum over its cells p in [blk_ptr[blk],
 // blk_ptr[blk+1]) of A(cell) @ B[win[cell] * 128 : +128], cell = order[p]
-// (order NULL: p), A = the cell [128, 128] fp32 or, with transpose != 0,
-// its transpose. B [in_rows, F] in `dtype` (0 fp32, 1 bf16); B rows past
-// in_rows count as 0. Returns a cudaError_t.
-int dg_spmm_dense_cells(int dtype, int device, const float* cells,
-                        const int* blk_ptr, const int* order, const int* win,
-                        const void* b, float* out, int num_blocks,
-                        int out_rows, int in_rows, int feat, int transpose,
-                        void* stream) {
+// (order NULL: p), A = the cell [128, 128] or, with transpose != 0, its
+// transpose; B [in_rows, F], rows past in_rows counting as 0. The cells in
+// `cells_dtype`: fp32 (3xTF32) with B in `dtype` (0 fp32, 1 bf16), or
+// bf16 (the bf16 compute mode, dense_cells_bf16_kernel) with a bf16 B.
+// Returns a cudaError_t (cudaErrorInvalidValue for bf16 cells with an
+// fp32 B).
+int dg_spmm_dense_cells(int cells_dtype, int dtype, int device,
+                        const void* cells, const int* blk_ptr,
+                        const int* order, const int* win, const void* b,
+                        float* out, int num_blocks, int out_rows, int in_rows,
+                        int feat, int transpose, void* stream) {
+  if (cells_dtype == kBFloat16)
+    return dtype == kBFloat16
+               ? launch_cells_bf16(device, cells, blk_ptr, order, win, b, out,
+                                   num_blocks, out_rows, in_rows, feat,
+                                   transpose, stream)
+               : cudaErrorInvalidValue;
+  if (cells_dtype != kFloat32) return cudaErrorInvalidValue;
+  const float* fcells = static_cast<const float*>(cells);
   if (dtype == kFloat32)
-    return launch_cells<float>(device, cells, blk_ptr, order, win, b, out,
+    return launch_cells<float>(device, fcells, blk_ptr, order, win, b, out,
                                num_blocks, out_rows, in_rows, feat,
                                transpose, stream);
   if (dtype == kBFloat16)
-    return launch_cells<__nv_bfloat16>(device, cells, blk_ptr, order, win,
+    return launch_cells<__nv_bfloat16>(device, fcells, blk_ptr, order, win,
                                        b, out, num_blocks, out_rows, in_rows,
                                        feat, transpose, stream);
   return cudaErrorInvalidValue;

@@ -10,9 +10,20 @@ and `::sddmm_cells`. Both multiply on the tensor cores, fp32 as 3xTF32
 (fp32-accurate); `sddmm_cells` gives each CTA a chunk of consecutive cells
 (`cells_per_cta`).
 
+`compute_dtype` is the JAX functions' argument. float32 (the default)
+multiplies the fp32 cells at fp32 accuracy, whatever dense's dtype.
+bfloat16, the bf16 compute mode, rounds the inputs to bf16 (the cells,
+unless their bf16 twin `Storage.tier_values(compute_dtype=bfloat16)[
+"cells_bf16"]` is passed, and dense; d1 and d2), multiplies bf16 by bf16
+(exact in fp32) and sums in fp32: the SpMM then runs the bf16-cell
+kernel (`dense_cells_bf16_kernel`: bf16 `mma.sync.m16n8k16`), which reads
+half the cell bytes; the plain versions round the same way and multiply
+in float32.
+
 Routing as in `spmm_csr.py`: the plain version for tensors on the CPU, the
 kernel (or an exception) for tensors on a CUDA device. `LAUNCHES` counts
-kernel launches.
+kernel launches, the SpMM's bf16-cell variant under
+"spmm_dense_cells_bf16".
 """
 
 import ctypes
@@ -24,7 +35,8 @@ import torch
 from dgsparse_tpu_torch.core.planner import DenseCellPlan
 from dgsparse_tpu_torch.kernels import _launch, reference
 
-LAUNCHES = {"spmm_dense_cells": 0, "sddmm_cells": 0}
+LAUNCHES = {"spmm_dense_cells": 0, "spmm_dense_cells_bf16": 0,
+            "sddmm_cells": 0}
 
 
 def reset_launch_counts() -> None:
@@ -38,18 +50,28 @@ def _lib():
 
     lib = _build.load("spmm_cells")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dg_spmm_dense_cells.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i,
-                                        i, p]
+    lib.dg_spmm_dense_cells.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i,
+                                        i, i, p]
     lib.dg_spmm_dense_cells.restype = i
     lib.dg_sddmm_cells.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, p]
     lib.dg_sddmm_cells.restype = i
     return lib
 
 
-def _check_cells(plan: DenseCellPlan, cells: torch.Tensor) -> None:
+def check_compute_dtype(compute_dtype) -> bool:
+    """True for the bf16 compute mode, False for float32; raises for any
+    other dtype."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {compute_dtype}")
+    return compute_dtype == torch.bfloat16
+
+
+def _check_cells(plan: DenseCellPlan, cells: torch.Tensor,
+                 dtype=torch.float32) -> None:
     shape = (plan.num_cells, plan.row_block, plan.col_window)
-    if tuple(cells.shape) != shape or cells.dtype != torch.float32:
-        raise ValueError(f"cells must be float32 {shape}, got "
+    if tuple(cells.shape) != shape or cells.dtype != dtype:
+        raise ValueError(f"cells must be {dtype} {shape}, got "
                          f"{cells.dtype} {tuple(cells.shape)}")
 
 
@@ -60,29 +82,42 @@ def _io_rows(plan: DenseCellPlan, transpose: bool):
     return plan.num_cols, plan.num_rows
 
 
+def _bf16(*ts):
+    """The tensors rounded to bf16 (those that are not already)."""
+    return [t.to(torch.bfloat16) for t in ts]
+
+
 # --- spmm_dense_cells --------------------------------------------------------
 
 def spmm_dense_cells_plain(plan: DenseCellPlan, cells: torch.Tensor,
-                           dense: torch.Tensor,
-                           transpose: bool = False) -> torch.Tensor:
-    """Plain PyTorch `spmm_dense_cells` (bmm and index_add_)."""
-    return reference.spmm_dense_cells(cells, plan.cell_rb, plan.cell_cw,
-                                      dense, plan.num_rows, plan.num_cols,
-                                      transpose)
+                           dense: torch.Tensor, transpose: bool = False,
+                           compute_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch `spmm_dense_cells` (bmm and index_add_, float32); in
+    bf16 mode on the cells and dense rounded to bf16."""
+    if check_compute_dtype(compute_dtype):
+        cells, dense = _bf16(cells, dense)
+    return reference.spmm_dense_cells(cells.float(), plan.cell_rb,
+                                      plan.cell_cw, dense, plan.num_rows,
+                                      plan.num_cols, transpose)
 
 
 def spmm_dense_cells_cuda(plan: DenseCellPlan, cells: torch.Tensor,
-                          dense: torch.Tensor,
-                          transpose: bool = False) -> torch.Tensor:
+                          dense: torch.Tensor, transpose: bool = False,
+                          compute_dtype=torch.float32) -> torch.Tensor:
     """The kernel: float32 out [M, F] = Σ cells @ dense[window] per row
     block (dense [N, F]), or with `transpose` out [N, F] = Σ cellsᵀ @
     dense[block] per column window (dense [M, F]); blocks no cell visits
-    are 0. Raises unless every tensor is on one CUDA device with the types
-    it takes."""
+    are 0. float32 mode takes float32 cells; bf16 mode rounds fp32 cells
+    and dense to bf16 (bf16 cells, the storage's twin, as they are) and
+    runs the bf16-cell variant. Raises unless every tensor is on one CUDA
+    device with the types it takes."""
+    bf16 = check_compute_dtype(compute_dtype)
+    if bf16:
+        cells, dense = _bf16(cells, dense)
     _launch.check_device(dense.device, cells=cells, dense=dense,
                          cell_rb=plan.cell_rb, t_order=plan.t_order)
     _launch.check_dense("dense", dense)
-    _check_cells(plan, cells)
+    _check_cells(plan, cells, compute_dtype)
     in_rows, out_rows = _io_rows(plan, transpose)
     if dense.shape[0] != in_rows:
         raise ValueError(f"dense has {dense.shape[0]} rows, expected "
@@ -98,22 +133,25 @@ def spmm_dense_cells_cuda(plan: DenseCellPlan, cells: torch.Tensor,
     else:
         ptr, order, win = plan.fwd_ptr, None, plan.cell_cw
     err = _lib().dg_spmm_dense_cells(
-        _launch.DTYPE_CODE[dense.dtype], dense.device.index or 0,
-        cells.data_ptr(), ptr.data_ptr(), order, win.data_ptr(),
-        dense.data_ptr(), out.data_ptr(), ptr.shape[0] - 1, out_rows,
-        in_rows, feat, int(transpose), _launch.stream(dense.device))
+        _launch.DTYPE_CODE[cells.dtype], _launch.DTYPE_CODE[dense.dtype],
+        dense.device.index or 0, cells.data_ptr(), ptr.data_ptr(), order,
+        win.data_ptr(), dense.data_ptr(), out.data_ptr(), ptr.shape[0] - 1,
+        out_rows, in_rows, feat, int(transpose),
+        _launch.stream(dense.device))
     _launch.raise_on(err, "spmm_dense_cells")
-    LAUNCHES["spmm_dense_cells"] += 1
+    LAUNCHES["spmm_dense_cells_bf16" if bf16 else "spmm_dense_cells"] += 1
     return out
 
 
 def spmm_dense_cells(plan: DenseCellPlan, cells: torch.Tensor,
-                     dense: torch.Tensor,
-                     transpose: bool = False) -> torch.Tensor:
+                     dense: torch.Tensor, transpose: bool = False,
+                     compute_dtype=torch.float32) -> torch.Tensor:
     """Dense-cell SpMM: the plain version on the CPU, the kernel on CUDA."""
     if dense.device.type == "cpu":
-        return spmm_dense_cells_plain(plan, cells, dense, transpose)
-    return spmm_dense_cells_cuda(plan, cells, dense, transpose)
+        return spmm_dense_cells_plain(plan, cells, dense, transpose,
+                                      compute_dtype)
+    return spmm_dense_cells_cuda(plan, cells, dense, transpose,
+                                 compute_dtype)
 
 
 # --- sddmm_cells -------------------------------------------------------------
@@ -142,18 +180,28 @@ def _check_sddmm(plan: DenseCellPlan, d1, d2) -> None:
 
 
 def sddmm_cells_plain(plan: DenseCellPlan, d1: torch.Tensor,
-                      d2: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch `sddmm_cells` (one bmm)."""
+                      d2: torch.Tensor,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch `sddmm_cells` (one float32 bmm); in bf16 mode on d1
+    and d2 rounded to bf16."""
     _check_sddmm(plan, d1, d2)
+    if check_compute_dtype(compute_dtype):
+        d1, d2 = _bf16(d1, d2)
     return reference.sddmm_cells(plan.cell_rb, plan.cell_cw, d1, d2,
                                  plan.row_block, plan.col_window)
 
 
 def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
-                     d2: torch.Tensor) -> torch.Tensor:
+                     d2: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
     """The kernel: float32 [ncells * R * C], per cell the block d1[rb] @
-    d2[cw]ᵀ (rows past M or N count as 0). Raises unless every tensor is
-    on one CUDA device with the types it takes."""
+    d2[cw]ᵀ (rows past M or N count as 0). bf16 mode needs no kernel of
+    its own: it rounds d1 and d2 to bf16, and the kernel multiplies bf16
+    operands in one exact TF32 pass (`csrc/spmm_cells.cu`), so the cast is
+    all of the mode. Raises unless every tensor is on one CUDA device with
+    the types it takes."""
+    if check_compute_dtype(compute_dtype):
+        d1, d2 = _bf16(d1, d2)
     _launch.check_device(d1.device, d1=d1, d2=d2, cell_rb=plan.cell_rb)
     _launch.check_dense("d1", d1)
     _launch.check_dense("d2", d2)
@@ -177,13 +225,13 @@ def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
     return out
 
 
-def sddmm_cells(plan: DenseCellPlan, d1: torch.Tensor,
-                d2: torch.Tensor) -> torch.Tensor:
+def sddmm_cells(plan: DenseCellPlan, d1: torch.Tensor, d2: torch.Tensor,
+                compute_dtype=torch.float32) -> torch.Tensor:
     """Dense-cell SDDMM: the plain version on the CPU, the kernel on
     CUDA."""
     if d1.device.type == "cpu":
-        return sddmm_cells_plain(plan, d1, d2)
-    return sddmm_cells_cuda(plan, d1, d2)
+        return sddmm_cells_plain(plan, d1, d2, compute_dtype)
+    return sddmm_cells_cuda(plan, d1, d2, compute_dtype)
 
 
 # --- cell materialization ----------------------------------------------------

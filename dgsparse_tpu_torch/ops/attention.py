@@ -33,6 +33,14 @@ or backward: every per-edge array it makes belongs to one tier (cells
 [ncells, R, C], BELL [T * E], residue [res nnz], the non-cell dots and
 the CSC gather [nd nnz]).
 
+`compute_dtype` (JAX's argument, `ops/attention.py:266-299`): float32 by
+default; bfloat16 runs the forward's `spmm_hybrid` and the backward's d_x
+transpose in the bf16 compute mode (`ops/hybrid.py`): the forward
+aggregates a bf16 [x, 1], so the denominator column sums bf16-rounded
+weights as in JAX, and its cell weights are written as bf16 for the call;
+d_x's transpose takes a bf16 u. d_s_row, d_s_col and the `sddmm_cells`
+of (u, x) stay float32, as in JAX.
+
 The shift is loose by at most range(s_col): a row whose true maximum
 logit lies more than ~87 below its bound underflows to a zero
 denominator and gives 0 (the JAX package's documented caveat).
@@ -45,6 +53,7 @@ from torch.nn import functional as F
 
 from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
 from dgsparse_tpu_torch.core.transform import gather_rows
+from dgsparse_tpu_torch.kernels.spmm_cells import check_compute_dtype
 from dgsparse_tpu_torch.ops import slot as S
 from dgsparse_tpu_torch.ops.hybrid import spmm_hybrid, spmm_hybrid_t
 
@@ -82,7 +91,8 @@ def _weights(st: Storage, s_row, s_col, shift, slope):
 class _HybridAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, s_row, s_col, x, st: Storage, slope: float):
+    def forward(ctx, s_row, s_col, x, st: Storage, slope: float,
+                compute_dtype):
         sr, sc = s_row.float(), s_col.float()
         # the per-row upper bound of the logits, outside autograd
         shift = F.leaky_relu(sr + sc.max(), slope)
@@ -90,11 +100,20 @@ class _HybridAttention(torch.autograd.Function):
         f = x.shape[1]
         xd = torch.cat([x.float(), x.new_ones(x.shape[0], 1,
                                               dtype=torch.float32)], 1)
-        nd = spmm_hybrid(st, S.forward_tiers(w_c, w_b, w_r), xd)
+        if compute_dtype == torch.bfloat16:
+            # the cells' weights as the bf16 pass reads them, half the
+            # bytes, and the fp32 ones freed before the SpMM
+            tiers = S.forward_tiers(None, w_b, w_r)
+            tiers["cells_bf16"] = None if w_c is None else w_c.to(
+                torch.bfloat16)
+        else:
+            tiers = S.forward_tiers(w_c, w_b, w_r)
         del w_c, w_b, w_r
+        nd = spmm_hybrid(st, tiers, xd, compute_dtype=compute_dtype)
+        del tiers
         denom = torch.clamp(nd[:, f], min=S._TINY)
         out = nd[:, :f] / denom[:, None]
-        ctx.st, ctx.slope = st, slope
+        ctx.st, ctx.slope, ctx.compute_dtype = st, slope, compute_dtype
         ctx.save_for_backward(s_row, s_col, x, shift, denom, out)
         return out.to(x.dtype)
 
@@ -112,9 +131,9 @@ class _HybridAttention(torch.autograd.Function):
         d_x = d_s_row = d_s_col = None
         if ctx.needs_input_grad[2]:
             d_x = spmm_hybrid_t(st, S.transpose_tiers(st, w_c, w_b, w_r),
-                                u).to(x.dtype)
+                                u, ctx.compute_dtype).to(x.dtype)
         if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
-            return None, None, d_x, None, None
+            return None, None, d_x, None, None, None
 
         def dleaky(pos):
             return torch.where(pos, 1.0, slope)
@@ -140,12 +159,13 @@ class _HybridAttention(torch.autograd.Function):
             d_s_col = spmm_hybrid_t(st, S.transpose_tiers(st, dz_c, dz_b,
                                                           dz_r),
                                     ones_m)[:, 0].to(s_col.dtype)
-        return d_s_row, d_s_col, d_x, None, None
+        return d_s_row, d_s_col, d_x, None, None, None
 
 
 def gat_attention(sparse: SparseTensor, s_row: torch.Tensor,
                   s_col: torch.Tensor, x: torch.Tensor,
-                  negative_slope: float = 0.2) -> torch.Tensor:
+                  negative_slope: float = 0.2,
+                  compute_dtype=torch.float32) -> torch.Tensor:
     """Softmax attention aggregation over the edges of `sparse`: out[r] =
     sum_c alpha_rc x[c], alpha = softmax over r's edges of LeakyReLU(
     s_row[r] + s_col[c]). s_row [M], s_col [N], x [N, F]; returns [M, F]
@@ -153,7 +173,10 @@ def gat_attention(sparse: SparseTensor, s_row: torch.Tensor,
     the tensor's values are ignored, and duplicate edges each attend.
 
     A storage with a hybrid plan runs the fused slot-space route (no CSR
-    edge-order intermediate); any other storage `_edge_space_attention`."""
+    edge-order intermediate), its SpMMs in `compute_dtype` (float32 or
+    bfloat16, the bf16 compute mode; see the module docstring); any other
+    storage `_edge_space_attention`, which, as JAX's, ignores it."""
+    check_compute_dtype(compute_dtype)
     m, n = sparse.sparse_sizes()
     if s_row.shape != (m,) or s_col.shape != (n,) or x.dim() != 2 \
             or x.shape[0] != n:
@@ -164,7 +187,7 @@ def gat_attention(sparse: SparseTensor, s_row: torch.Tensor,
     if st.ell_plan() is not None:
         return _HybridAttention.apply(s_row.contiguous(), s_col.contiguous(),
                                       x.contiguous(), st,
-                                      float(negative_slope))
+                                      float(negative_slope), compute_dtype)
     return _edge_space_attention(sparse, s_row, s_col, x, negative_slope)
 
 

@@ -19,9 +19,12 @@ SUM/MEAN under AUTO or PALLAS_ROW_TILE runs the three tiers instead
 (`ops/hybrid.py`, as the JAX package does on the TPU, `ops/spmm.py:77-93,
 167-171`): the forward is `spmm_hybrid` and `d_dense` the hybrid
 transpose `spmm_hybrid_t`, over the tier values the storage caches;
-`d_values` stays the CSR SDDMM. XLA_SEGMENT, PALLAS_EDGE_TILE and
-PALLAS_BELL keep the CSR kernel, as do the multi-head and semiring
-callers of `aggregate`.
+`d_values` stays the CSR SDDMM. As in JAX (`ops/spmm.py:84-93,
+236-247`), a bf16 `dense` runs the forward's tiers in the bf16 compute mode
+and a bf16 `g` the transpose's (`ops/hybrid.py`: the cells' bf16 twin on
+the bf16-cell kernel); the result keeps dense's dtype. XLA_SEGMENT,
+PALLAS_EDGE_TILE and PALLAS_BELL keep the CSR kernel, as do the multi-head
+and semiring callers of `aggregate`.
 
 `_SpMMMaxMin` (MAX/MIN, any semiring compute) runs
 `kernels/spmm_maxmin.py::spmm_maxmin`, which also returns the winning CSR
@@ -71,6 +74,12 @@ def transpose_values(values, st: Storage):
     return gather_rows(values, st.csr2csc()).contiguous()
 
 
+def _mode(x: torch.Tensor):
+    """The hybrid tiers' compute dtype for an operand x (JAX's rule): the
+    bf16 compute mode for a bf16 x, else float32."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+
+
 class _SpMM(torch.autograd.Function):
     """out [M, H, F]: per head h, the SpMM of the structure with values
     [:, h] (or ones for values None) and dense [N, H, F][:, h]. One
@@ -85,7 +94,8 @@ class _SpMM(torch.autograd.Function):
         ctx.save_for_backward(values, dense)
         n, h, f = dense.shape
         if tiers is not None:
-            out = spmm_hybrid(st, tiers, dense.reshape(n, f), reduce)
+            out = spmm_hybrid(st, tiers, dense.reshape(n, f), reduce,
+                              _mode(dense))
         else:
             out = csr_spmm(st.rowptr(), st.col(), values,
                            dense.reshape(n, h * f), reduce,
@@ -107,7 +117,7 @@ class _SpMM(torch.autograd.Function):
                                  coo_row=st.coo_row()).to(values.dtype)
         if ctx.needs_input_grad[1]:
             if ctx.tiers is not None:
-                d_dense = spmm_hybrid_t(st, ctx.tiers, g)
+                d_dense = spmm_hybrid_t(st, ctx.tiers, g, _mode(g))
             else:
                 d_dense = csr_spmm(st.colptr(), st.row(),
                                    transpose_values(values, st), g,
@@ -215,7 +225,10 @@ def spmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
     tiers = None
     if st.ell_plan() is not None and reduce in (ReduceOp.SUM, ReduceOp.MEAN) \
             and algorithm in (Algorithm.AUTO, Algorithm.PALLAS_ROW_TILE):
-        tiers = st.tier_values(ones=values is None)
+        # bf16 mode's cell passes read the blocks' bf16 twin, made here at
+        # the first such call (a bf16 cotangent comes with a bf16 dense)
+        tiers = st.tier_values(ones=values is None,
+                               compute_dtype=_mode(dense))
     # the route run: the hybrid tiers, or the CSR (sum/mean or max/min)
     # kernel
     metrics.record("spmm", alg=("PALLAS_ROW_TILE" if tiers is not None

@@ -308,8 +308,10 @@ def test_spmm_matches_jax_hybrid_and_xla(reduce, has_value):
 
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 def test_spmm_bf16_matches_the_csr_route(reduce):
-    # bf16 features: the cells convert on load and every tier sums in
-    # float32; held to the CSR route at 1e-2 of the terms' absolute sum
+    # bf16 features run the hybrid tiers in the bf16 compute mode (the
+    # cells rounded to bf16, `tests/test_torch_bf16_hybrid.py`) and every
+    # tier sums in float32; held to the CSR route at 1e-2 of the terms'
+    # absolute sum
     p, _, (_, _, v) = _pair(seed=32)
     (x,) = _dense(33, (N, 24))
     xb = torch.from_numpy(x).bfloat16()

@@ -237,7 +237,8 @@ def test_sddmm_launch_counts_and_empty_inputs(cuda):
                                "sddmm_csr": 1, "spmm_maxmin": 0,
                                "spmm_maxmin_d_dense": 0,
                                "spmm_maxmin_d_values": 0,
-                               "spmm_dense_cells": 0, "sddmm_cells": 0,
+                               "spmm_dense_cells": 0,
+                               "spmm_dense_cells_bf16": 0, "sddmm_cells": 0,
                                "spmm_bell": 0, "spconv_pairs": 0,
                                "spconv_dw": 0}
     empty = torch.zeros(4, dtype=torch.int32, device=cuda)
@@ -660,6 +661,96 @@ def test_spmm_dense_cells_matches_plain(cuda, feat, transpose, dtype):
     assert torch.equal(out, again)             # no atomics: repeatable
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("feat", [7, 41, 64])
+def test_bf16_cells_variant_matches_plain(cuda, feat, transpose):
+    # the bf16 compute mode: the storage's bf16 twin of the cells times a
+    # bf16 B on the bf16-cell variant, against the plain version, which
+    # rounds the same way (a bf16 product is exact in float32), at 1e-5 of
+    # the terms' absolute sum
+    from dgsparse_tpu_torch.kernels import spmm_cells
+
+    bf16 = torch.bfloat16
+    st = _hybrid(cuda).storage
+    plan = st.ell_plan().cells
+    tiers = st.tier_values(compute_dtype=bf16)
+    twin = tiers["cells_bf16"]
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    x = torch.randn(1500, feat, generator=g, device=cuda)
+    reset_launch_counts()
+    out = spmm_cells.spmm_dense_cells_cuda(plan, twin, x, transpose, bf16)
+    counts = launch_counts()
+    assert (counts["spmm_dense_cells_bf16"], counts["spmm_dense_cells"]) \
+        == (1, 0)
+    ref = spmm_cells.spmm_dense_cells_plain(plan, twin, x, transpose, bf16)
+    abs_sum = spmm_cells.spmm_dense_cells_plain(
+        plan, twin.float().abs(), x.to(bf16).float().abs(), transpose)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (1500, feat)
+    assert_sum_close(out, ref, abs_sum, TOLS["float32"])
+    if not transpose:
+        assert not out[640:768].any()          # the block without a cell
+    again = spmm_cells.spmm_dense_cells_cuda(plan, twin, x, transpose, bf16)
+    assert torch.equal(out, again)             # no atomics: repeatable
+    # the fp32 blocks rounded by the wrapper, a bf16 x: the same products
+    same = spmm_cells.spmm_dense_cells_cuda(plan, tiers["cells"], x.to(bf16),
+                                            transpose, bf16)
+    assert torch.equal(out, same)
+
+
+def test_bf16_cells_refuse_mismatched_dtypes(cuda):
+    from dgsparse_tpu_torch.kernels import _launch, spmm_cells
+
+    st = _hybrid(cuda).storage
+    plan = st.ell_plan().cells
+    twin = st.tier_values(compute_dtype=torch.bfloat16)["cells_bf16"]
+    x = torch.ones(1500, 8, device=cuda)
+    with pytest.raises(ValueError):        # bf16 cells in the float32 mode
+        spmm_cells.spmm_dense_cells_cuda(plan, twin, x)
+    with pytest.raises(ValueError):
+        spmm_cells.spmm_dense_cells_cuda(plan, twin, x,
+                                         compute_dtype=torch.float16)
+    # the C entry itself refuses bf16 cells with an fp32 B
+    out = torch.empty(1500, 8, device=cuda)
+    err = spmm_cells._lib().dg_spmm_dense_cells(
+        1, 0, x.device.index or 0, twin.data_ptr(), plan.fwd_ptr.data_ptr(),
+        None, plan.cell_cw.data_ptr(), x.data_ptr(), out.data_ptr(),
+        plan.fwd_ptr.shape[0] - 1, 1500, 1500, 8, 0,
+        _launch.stream(x.device))
+    assert err == 1                        # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("feat", [16, 41])
+def test_gat_attention_bf16_mode_matches_plain(cuda, feat, monkeypatch):
+    # gat_attention(compute_dtype=bfloat16) through the tier kernels
+    # against the same call on their plain versions: the forward's cells
+    # and d_x's run the bf16-cell variant, d_s_row's and d_s_col's the fp32
+    # kernel; the residue's bf16 output rounding may round one sum of each
+    # side to neighbouring bf16 values, so 1e-2 of the largest magnitude
+    sp = _hybrid(cuda, has_value=False)
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    inputs = [torch.randn(*s, generator=g, device=cuda).requires_grad_()
+              for s in ((1500,), (1500,), (1500, feat))]
+    ct = torch.randn(1500, feat, generator=g, device=cuda)
+
+    def run():
+        out = pt.gat_attention(sp, *inputs, compute_dtype=torch.bfloat16)
+        return out.detach(), torch.autograd.grad(out, inputs, ct)
+
+    reset_launch_counts()
+    out, grads = run()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"csr_spmm": 4, "spmm_dense_cells": 2,
+                      "spmm_dense_cells_bf16": 2, "spmm_bell": 2,
+                      "sddmm_cells": 1, "sddmm_csr": 1}
+    _plain_kernels(monkeypatch)
+    ref, ref_grads = run()
+    assert torch.isfinite(out).all()
+    for a, b in zip((out, *grads), (ref, *ref_grads)):
+        torch.testing.assert_close(a, b, rtol=1e-2,
+                                   atol=1e-2 * b.abs().max().item())
+
+
 def _heavy_bell(cuda):
     """A BELL plan whose long rows (LONG_ROW_SLOTS slots or more) take the
     kernel's warp-a-row path: (plan, slot values, degrees)."""
@@ -800,10 +891,14 @@ def test_hybrid_spmm_and_grads_match_the_csr_route(cuda, reduce, has_value,
     assert out.dtype == x.dtype and gx.dtype == x.dtype
     assert_sum_close(out, ref, abs_out, TOLS[dtype])
     assert_sum_close(gx, gref, abs_grad, TOLS[dtype])
-    assert (hyb["spmm_dense_cells"], hyb["spmm_bell"], hyb["csr_spmm"]) \
-        == (2, 1, 2)
-    assert (csr["spmm_dense_cells"], csr["spmm_bell"], csr["csr_spmm"]) \
-        == (0, 0, 2)
+    # a bf16 x runs the bf16 compute mode: its cells on the bf16 variant
+    cells, other = "spmm_dense_cells_bf16", "spmm_dense_cells"
+    if dtype == "float32":
+        cells, other = other, cells
+    assert (hyb[cells], hyb[other], hyb["spmm_bell"], hyb["csr_spmm"]) \
+        == (2, 0, 1, 2)
+    assert (csr[cells], csr[other], csr["spmm_bell"], csr["csr_spmm"]) \
+        == (0, 0, 0, 2)
 
 
 def test_hybrid_sddmm_matches_the_csr_kernel(cuda):
