@@ -174,6 +174,21 @@ exits non-zero without a result line:
      sddmm_cells in bf16 mode (a cast, no kernel of its own), beside their
      bounds (bytes, or operations at bf16's 989 TFLOP/s); and the path's
      ops in both modes with their peak memory.
+ 7c. gspmm hybrid (`phase_gspmm_hybrid`): on the Reddit-scale storage at
+     F = 64 and 41, every SUM/MEAN op of the semiring grid (MUL, DIV, ADD,
+     SUB, copy_u), which runs its weighted SpMM on the hybrid tiers
+     (`ops/gspmm.py`), forward and forward + backward (d_dense, and
+     d_values where there are values), each call's launches exact (the
+     forward spmm_dense_cells 1, spmm_bell 1, csr_spmm 1; the backward one
+     more spmm_dense_cells and csr_spmm, and sddmm_csr 1 for MUL and DIV;
+     DIV's per-call tier build one segment_sum_csr), held to the CSR route
+     (the same storage without its plan) at 1e-5 of the terms' absolute
+     sum, MUL bitwise equal to `spmm`, and a bf16 x (MUL, F = 64) on the
+     bf16-cell variant against the fp32 x at 1e-2; CUDA-event times (best
+     of two turns of 3 after 1) of each op on both routes, forward and
+     with the backward, cuSPARSE over the full CSR for MUL, DIV's tier
+     build alone, and the forward's peak memory above resident for MUL,
+     ADD and DIV at F = 64.
   8. profile: the time of the per-edge gather of an [N, 4] fp32 table,
      contiguous and column-major; torch.profiler over 3 training steps
      each of gcn-arxiv, gat-arxiv and gin-max-arxiv after 2 warm-up
@@ -246,7 +261,8 @@ exits non-zero without a result line:
      scaled; `tune_report` on the arxiv storage; the file deleted.
 Then one JSON line of per-kernel results (csr_spmm's launches by path
 include the esc, dist and tune paths; spmm_dense_cells_bf16, the bf16-cell
-variant, counts the "bf16_hybrid" path of phase 7b), the card's name and
+variant, counts the "bf16_hybrid" path of phase 7b; the "gspmm_hybrid" path
+is phase 7c's), the card's name and
 power limit, and as
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -350,6 +366,13 @@ HYBRID_FEATS = (1, 41, 64, 130)
 REDDIT_FEATS = (64, 41)
 # gat_attention's widths a head at Reddit scale (gat-reddit's 16 and 41)
 ATTENTION_FEATS = (16, 41)
+# the semiring grid's SUM/MEAN computes ("copy_u": a storage without values)
+GSPMM_COMPUTES = ("mul", "div", "add", "sub", "copy_u")
+# one SUM/MEAN gspmm on a hybrid storage: the forward's three tiers; its
+# backward's d_dense transpose (cells, non-cell CSC), and d_values' SDDMM
+# over every edge for MUL and DIV (ADD/SUB's is autograd of a row sum)
+GSPMM_FORWARD = {"spmm_dense_cells": 1, "spmm_bell": 1, "csr_spmm": 1}
+GSPMM_BACKWARD = {"spmm_dense_cells": 1, "csr_spmm": 1}
 # the max/min kernel phase: the compute ops (None: copy_u) and widths
 MAXMIN_COMPUTES = (None, "add", "sub", "mul", "div")
 MAXMIN_FEATS = {"p2p": (32,), "arxiv": (128, 256)}
@@ -2531,6 +2554,228 @@ def phase_bf16_hybrid(torch, cuda, graphs):
     return results, errs, launches
 
 
+def _gspmm_name(reduce, compute):
+    if compute == "copy_u":
+        return f"copy_u_{reduce}"
+    return f"u_{compute}_e_{reduce}"
+
+
+def _gspmm_launches(compute, backward, bf16=False):
+    """The exact launches of one SUM/MEAN gspmm on a hybrid storage, over
+    KERNEL_NAMES and segment_sum_csr (DIV's per-call tier build)."""
+    want = {**_NONE, "segment_sum_csr": int(compute == "div")}
+    for part in (GSPMM_FORWARD, GSPMM_BACKWARD if backward else {}):
+        for k, v in part.items():
+            want[k] += v
+    if backward and compute in ("mul", "div"):
+        want["sddmm_csr"] += 1
+    if bf16:
+        want["spmm_dense_cells_bf16"] = want["spmm_dense_cells"]
+        want["spmm_dense_cells"] = 0
+    return want
+
+
+def phase_gspmm_hybrid(torch, cuda, reddit):
+    """SUM/MEAN gspmm on the Reddit-scale hybrid storage (phase 7c): every
+    op of the grid at F = 64 and 41, forward and with the backward, with
+    exact launches a call; against the CSR route; its times beside the CSR
+    route, cuSPARSE and DIV's tier build; peak memory. Returns the
+    launches of the driven runs."""
+    import dgsparse_tpu_torch as pt
+    from dgsparse_tpu_torch.core import planner
+    from dgsparse_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dgsparse_tpu_torch.ops import gspmm as G
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    t0 = time.perf_counter()
+    st = reddit.storage
+    hp, m, n = st.ell_plan(), st.num_rows, st.num_cols
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    names = KERNEL_NAMES + ("segment_sum_csr",)
+    # the CSR route: the same storage without its plan, every tensor
+    # shared (`build_plans=False` would sort 114 M edges again)
+    csr = pt.SparseTensor._wrap(st._replace(
+        hybrid=None, tier_vals=None, tier_ones=None, tier_key=None,
+        slot_maps=None), True)
+
+    def launched(before):
+        now = launch_counts()
+        return {k: now[k] - before[k] for k in names}
+
+    def forward(sp, x, reduce, compute):
+        return getattr(G, _gspmm_name(reduce, compute))(sp, x)
+
+    def fwd_bwd(sp, v, x, ct, reduce, compute):
+        xt = x.detach().requires_grad_()
+        out = getattr(G, _gspmm_name(reduce, compute))(sp, xt)
+        inputs = [xt] if compute == "copy_u" else [xt, v]
+        return (out.detach(),) + torch.autograd.grad(out, inputs, ct)
+
+    def check(got, ref, abs_sum, tol):
+        torch.cuda.synchronize()
+        return assert_sum_close(got, ref, abs_sum, tol)
+
+    # the ones' tiers (ADD, SUB, copy_u) and the tiers of a values tensor
+    # that requires grad, built before any count
+    tb = time.perf_counter()
+    ones = st.tier_values(ones=True)
+    torch.cuda.synchronize()
+    log(f"[gspmm] reddit ({m} nodes, {st.nnz} nnz, "
+        f"{hp.cells.num_cells} cells): the ones' tiers hold "
+        f"{_device_bytes(ones)} B on the card, ready in "
+        f"{time.perf_counter() - tb:.2f} s (built on the host here, or "
+        f"kept from an earlier phase)")
+    v = st.values().detach().requires_grad_()
+    hg, cg = reddit.set_values(v), csr.set_values(v)
+    hg.storage.tier_values()
+    va = st.values().abs().requires_grad_()
+    ca = csr.set_values(va)
+
+    path = dict.fromkeys(names, 0)
+    worst = {}
+    for f in REDDIT_FEATS:
+        x = torch.randn(n, f, generator=gen, device=cuda)
+        ct = torch.randn(m, f, generator=gen, device=cuda)
+        # (1) the driven run, counted: each op forward, then forward +
+        # backward, its launches exact a call
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        runs = {}
+        for reduce in ("sum", "mean"):
+            for compute in GSPMM_COMPUTES:
+                before = launch_counts()
+                forward(reddit, x, reduce, compute)
+                got = launched(before)
+                before = launch_counts()
+                runs[reduce, compute] = fwd_bwd(hg, v, x, ct, reduce, compute)
+                got_bwd = launched(before)
+                for what, counts, want in (
+                        ("forward", got, _gspmm_launches(compute, False)),
+                        ("forward + backward", got_bwd,
+                         _gspmm_launches(compute, True))):
+                    if counts != want:
+                        raise AssertionError(
+                            f"gspmm {_gspmm_name(reduce, compute)} F={f} "
+                            f"{what}: launches {counts}, expected {want}")
+        if f == 64:         # a bf16 dense: the tiers' bf16 compute mode
+            before = launch_counts()
+            forward(reddit, x.to(torch.bfloat16), "sum", "mul")
+            got = launched(before)
+            before = launch_counts()
+            bf = fwd_bwd(hg, v, x.to(torch.bfloat16),
+                         ct.to(torch.bfloat16), "sum", "mul")
+            got_bwd = launched(before)
+            if got != _gspmm_launches("mul", False, True) or \
+                    got_bwd != _gspmm_launches("mul", True, True):
+                raise AssertionError(f"gspmm bf16 mul F={f}: launches "
+                                     f"{got} / {got_bwd}")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k in names:
+            path[k] += counts[k]
+        # (2) against the CSR route at 1e-5 of the terms' absolute sum
+        # (the CSR route on |v|, |x|, |ct|, SUB as ADD); MUL bitwise
+        # equal to spmm on the hybrid storage
+        for (reduce, compute), got in list(runs.items()):
+            ref = fwd_bwd(cg, v, x, ct, reduce, compute)
+            sums = fwd_bwd(ca, va, x.abs(), ct.abs(), reduce,
+                           "add" if compute == "sub" else compute)
+            for i, what in enumerate(("out", "d_dense", "d_values")[
+                    :len(got)]):
+                if not torch.isfinite(got[i]).all():
+                    raise AssertionError(f"gspmm {reduce} {compute} F={f}: "
+                                         f"{what} not finite")
+                e = check(got[i], ref[i], sums[i].abs(), TOL["float32"])
+                worst[what] = max(worst.get(what, 0.0), e)
+            del runs[reduce, compute]
+        if not torch.equal(pt.gspmm(reddit, x, "sum", "mul"),
+                           pt.spmm(reddit, x, "sum")) or not torch.equal(
+                pt.gspmm(reddit, x, "mean", "mul"),
+                pt.spmm(reddit, x, "mean")):
+            raise AssertionError(f"gspmm mul F={f} is not spmm bitwise")
+        if f == 64:
+            ref = fwd_bwd(hg, v, x, ct, "sum", "mul")
+            sums = fwd_bwd(ca, va, x.abs(), ct.abs(), "sum", "mul")
+            if bf[0].dtype != torch.bfloat16 or bf[1].dtype != torch.bfloat16:
+                raise AssertionError(f"gspmm bf16: {bf[0].dtype} output")
+            e16 = max(check(bf[i], ref[i], sums[i].abs(), 1e-2)
+                      for i in range(3))
+            log(f"[gspmm] reddit u_mul_e_sum F={f}, bf16 x vs fp32 x, "
+                f"forward, d_dense, d_values: max_abs_err {e16:.3e} (1e-2 "
+                f"of the terms' absolute sum)")
+            del ref, sums, bf
+        # (3) times: each op's forward and forward + backward on both
+        # routes (CUDA events, best of two turns of 3 after 1); cuSPARSE
+        # over the full CSR for MUL
+        full = torch.sparse_csr_tensor(st.rowptr(), st.col(), st.values(),
+                                       size=(m, n))
+        for reduce in ("sum", "mean"):
+            for compute in GSPMM_COMPUTES:
+                kw = dict(reduce=reduce, compute=compute)
+                fns = {
+                    "hybrid": (functools.partial(forward, reddit, **kw),
+                               (x,)),
+                    "csr": (functools.partial(forward, csr, **kw), (x,)),
+                    "hybrid_bwd": (functools.partial(fwd_bwd, hg, **kw),
+                                   (v, x, ct)),
+                    "csr_bwd": (functools.partial(fwd_bwd, cg, **kw),
+                                (v, x, ct))}
+                if reduce == "sum" and compute == "mul":
+                    fns["library"] = (torch.matmul, (full, x))
+                ms = _time_turns(fns, warmup=1, iters=3)
+                label = f"{_gspmm_name(reduce, compute)} F={f}"
+                log(f"[numbers] gspmm reddit {label}: forward hybrid "
+                    f"{ms['hybrid']:.3f} ms, CSR {ms['csr']:.3f} ms "
+                    f"({ms['csr'] / ms['hybrid']:.2f}x); forward + backward "
+                    f"hybrid {ms['hybrid_bwd']:.3f} ms, CSR "
+                    f"{ms['csr_bwd']:.3f} ms "
+                    f"({ms['csr_bwd'] / ms['hybrid_bwd']:.2f}x)"
+                    + (f"; cuSPARSE {ms['library']:.3f} ms"
+                       if "library" in ms else ""))
+        # DIV's tier build alone (1/v into the cells, BELL, residue and
+        # non-cell CSC), and the same with the gathers' edge ids uploaded
+        # from the host on each call, as tier_values did before it kept
+        # them on the card
+        def build_uploading_ids(w):
+            hp.__dict__.pop("_tier_ids", None)
+            return planner.tier_values(hp, w, cuda)
+
+        recip = 1.0 / st.values()
+        ms = _time_turns({
+            "build": (lambda w: planner.tier_values(hp, w, cuda), (recip,)),
+            "uploading_ids": (build_uploading_ids, (recip,))},
+            warmup=1, iters=3)
+        log(f"[numbers] gspmm reddit F={f}: DIV's tier build alone (1/v "
+            f"into the cells, BELL, residue and non-cell CSC) "
+            f"{ms['build']:.3f} ms; uploading its edge ids on each call "
+            f"{ms['uploading_ids']:.3f} ms")
+        if f == 64:
+            peak = {}
+            for compute in ("mul", "add", "div"):
+                for route, sp in (("hybrid", reddit), ("csr", csr)):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    out = forward(sp, x, "sum", compute)
+                    torch.cuda.synchronize()
+                    peak[compute, route] = \
+                        torch.cuda.max_memory_allocated() - base
+                    del out
+            log(f"[numbers] gspmm reddit F={f} forward, peak above resident "
+                f"(hybrid / CSR route): " + ", ".join(
+                    f"{c} {peak[c, 'hybrid']} / {peak[c, 'csr']} B"
+                    for c in ("mul", "add", "div")))
+    log(f"[gspmm] reddit, every SUM/MEAN op of the grid on the hybrid tiers "
+        f"at F in {REDDIT_FEATS}: vs the CSR route max_abs_err "
+        f"{ {k: f'{e:.3e}' for k, e in worst.items()} } (1e-5 of the terms' "
+        f"absolute sum); u_mul_e_sum and u_mul_e_mean bitwise equal to "
+        f"spmm; launches exact a call; DIV's tier builds "
+        f"(segment_sum_csr) {path['segment_sum_csr']}; the path's launches "
+        f"{ {k: c for k, c in path.items() if c} }")
+    log(f"[gspmm] phase {time.perf_counter() - t0:.1f} s")
+    return {k: path[k] for k in KERNEL_NAMES}
+
+
 def _grid(torch, feats, coords, shape):
     """feats [n, C] at the voxels `coords` (batch 0) of a dense
     [1, C, X, Y, Z] float32 grid, zero elsewhere."""
@@ -3982,6 +4227,7 @@ def _run(torch, cuda, tune_dir) -> int:
                                                              graphs)
         times.update(bf16_times)
         errs.update(bf16_errs)
+        gspmm_path = phase_gspmm_hybrid(torch, cuda, graphs["reddit"][0])
         times.update(phase_spconv_numbers(torch, cuda, graphs["unet-60k"]))
         phase_profile(torch, cuda, graphs)
         utilities = phase_utilities(torch, cuda, graphs)
@@ -4013,6 +4259,11 @@ def _run(torch, cuda, tune_dir) -> int:
                 ("csr_spmm", "bf16_hybrid", bf16_path),
                 ("sddmm_cells", "bf16_hybrid", bf16_path),
                 ("sddmm_csr", "bf16_hybrid", bf16_path),
+                ("spmm_dense_cells", "gspmm_hybrid", gspmm_path),
+                ("spmm_dense_cells_bf16", "gspmm_hybrid", gspmm_path),
+                ("spmm_bell", "gspmm_hybrid", gspmm_path),
+                ("csr_spmm", "gspmm_hybrid", gspmm_path),
+                ("sddmm_csr", "gspmm_hybrid", gspmm_path),
                 ("spconv_pairs", "serving", serving),
                 ("spconv_pairs", "training", training),
                 ("spconv_dw", "training", training),
@@ -4039,6 +4290,7 @@ def _run(torch, cuda, tune_dir) -> int:
 
     by_path = {"serving": serving, "training": training,
                "sddmm": sddmm_path, "bf16_hybrid": bf16_path,
+               "gspmm_hybrid": gspmm_path,
                "utilities": utilities, "esc": esc, "bf16": bf16,
                "dist": dist, "tune": tuned}
 

@@ -378,27 +378,23 @@ def tier_values(plan: HybridPlan, values, device) -> dict:
     host (`materialize_cells_np`, bit-equal to the JAX planner's cache); a
     tensor on its device, through the sorted slot order
     (`kernels.spmm_cells.materialize_cells`, the segment-sum kernel on
-    CUDA)."""
+    CUDA) and gathers by the edge ids of `_tier_ids`. A tensor's tiers
+    hold no autograd history (`gspmm`'s DIV builds them for 1/values on
+    every call; its `d_values` flows through the CSR SDDMM)."""
     out = {"cells": None, "cells_bf16": None, "bell": None, "res": None,
            "nd_t": None}
     if isinstance(values, torch.Tensor):
         from dgsparse_tpu_torch.kernels.spmm_cells import materialize_cells
 
         v = values.detach().float().reshape(-1)
-        device = v.device
-
-        def take(ids):
-            return v[torch.from_numpy(ids).to(device).long()]
-
+        ids = _tier_ids(plan, v.device)
         if plan.cells is not None:
             out["cells"] = materialize_cells(plan.cells, v)
         if plan.bell is not None:
-            ep = plan.bell.eperm
-            out["bell"] = torch.where(
-                torch.from_numpy(ep >= 0).to(device),
-                take(np.maximum(ep, 0)), 0.0)
-        out["res"] = take(plan.res.ids)
-        out["nd_t"] = take(plan.nd_t.ids)
+            out["bell"] = torch.where(ids["bell_valid"],
+                                      v.index_select(0, ids["bell"]), 0.0)
+        out["res"] = v.index_select(0, ids["res"])
+        out["nd_t"] = v.index_select(0, ids["nd_t"])
         return out
 
     def put(arr):
@@ -417,6 +413,28 @@ def tier_values(plan: HybridPlan, values, device) -> dict:
         out["res"] = put(vals[plan.res.ids])
         out["nd_t"] = put(vals[plan.nd_t.ids])
     return out
+
+
+def _tier_ids(plan: HybridPlan, device) -> dict:
+    """The edge ids `tier_values` gathers a values tensor by, int32 on
+    `device`: "res" and "nd_t" (the residue's and the non-cell CSC's
+    edges), "bell" (each BELL slot's edge, 0 on padding) and "bell_valid"
+    (the real slots). Uploaded once per plan and device and kept, as
+    `kernels.spmm_cells._slot_segments` keeps the cells' slot order: a
+    per-call build (`gspmm`'s DIV tiers) would otherwise copy them from
+    the host on every call, ~46 M ids at Reddit scale."""
+    cache = plan.__dict__.setdefault("_tier_ids", {})
+    key = str(device)
+    if key not in cache:
+        with torch.inference_mode(False):
+            ids = {"res": _dev(plan.res.ids, device),
+                   "nd_t": _dev(plan.nd_t.ids, device)}
+            if plan.bell is not None:
+                ep = plan.bell.eperm
+                ids["bell"] = _dev(np.maximum(ep, 0), device)
+                ids["bell_valid"] = torch.from_numpy(ep >= 0).to(device)
+        cache[key] = ids
+    return cache[key]
 
 
 def with_bf16_cells(tiers: dict) -> dict:

@@ -13,11 +13,22 @@ No kernel of its own: every op rides the two SpMM autograd Functions of
 - SUM/MEAN decompose as `_hybrid_sum_mean` (`ops/gspmm.py:220-261`) does:
   MUL is the values-weighted SpMM, DIV the SpMM weighted by 1/values, and
   ADD/SUB the unweighted SpMM plus or minus the row sum (row mean for
-  MEAN) of the values, Σ(u[c] ± e) = Σ u[c] ± Σ e. Their backward is the
-  CSR kernel over the CSC view with weights 1, values or 1/values
-  (`ops/gspmm.py:133-143`), and for the values the SDDMM (MUL, DIV, with
-  autograd's -1/v² for DIV) or the row sum of g gathered per edge (ADD,
-  SUB, autograd of the `index_add`).
+  MEAN) of the values, Σ(u[c] ± e) = Σ u[c] ± Σ e; copy_u (no values) is
+  the unweighted SpMM. Their backward is the SpMM's (`d_dense` over the
+  transpose with weights 1, values or 1/values), and for the values the
+  SDDMM (MUL, DIV, with autograd's -1/v² for DIV) or the row sum of g
+  gathered per edge (ADD, SUB, autograd of the `index_add`).
+  On a storage with a hybrid plan, SUM/MEAN run that SpMM on the hybrid
+  tiers, as JAX routes a `HybridPlan` to `_hybrid_sum_mean`
+  (`ops/gspmm.py:324-328`; the tuner is not consulted): the forward is
+  `ops/hybrid.py::spmm_hybrid` and `d_dense` its transpose
+  `spmm_hybrid_t`, `d_values` the CSR SDDMM. MUL and copy_u take the
+  storage's cached tiers for its values or for ones (JAX's `st.vslot()`),
+  ADD/SUB the ones' cached tiers (JAX's `ones_vslot`), and DIV tiers
+  gathered for 1/values on every call (JAX's `vslot=None`). A bf16 dense
+  runs the tiers in the bf16 compute mode, as `spmm` does
+  (`ops/spmm.py:84-93`); the result keeps dense's dtype. Without a plan
+  every SUM/MEAN op runs the CSR kernel.
 Slot-space values (`values=SlotValues`, `ops/slot.py`) cover the same
 grid as `dgsparse_tpu/ops/gspmm.py:284-316`: MUL runs `spmm_slots`, DIV
 runs it on `_sv_reciprocal`, ADD/SUB run it on `_sv_ones` plus or minus
@@ -29,8 +40,9 @@ from typing import Optional
 
 import torch
 
-from dgsparse_tpu_torch.core.formats import SparseTensor
-from dgsparse_tpu_torch.ops.spmm import aggregate
+from dgsparse_tpu_torch.core import planner
+from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
+from dgsparse_tpu_torch.ops.spmm import _mode, aggregate
 from dgsparse_tpu_torch.ops.types import (ComputeOp, ReduceOp, as_compute,
                                           as_reduce)
 from dgsparse_tpu_torch.utils import metrics
@@ -58,22 +70,52 @@ def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
     if vals is not None:
         vals = vals.float()
     x = dense.contiguous().unsqueeze(1)
-    if reduce in (ReduceOp.MAX, ReduceOp.MIN) or vals is None \
-            or compute == ComputeOp.MUL:
+    if reduce in (ReduceOp.MAX, ReduceOp.MIN):
         w = None if vals is None else vals.unsqueeze(1)
         return aggregate(w, x, st, reduce, compute).squeeze(1)
-    if compute == ComputeOp.DIV:
-        return aggregate((1.0 / vals).unsqueeze(1), x, st,
-                         reduce).squeeze(1)
-    base = aggregate(None, x, st, reduce).squeeze(1)
+    # SUM / MEAN: one weighted SpMM (values, 1/values, or none), plus or
+    # minus the values' row sum for ADD / SUB
+    if vals is None or compute == ComputeOp.MUL:
+        w = vals
+    elif compute == ComputeOp.DIV:
+        w = 1.0 / vals
+    else:
+        w = None
+    tiers = _hybrid_tiers(st, dense, reduce, w,
+                          cached=vals is None or compute != ComputeOp.DIV)
+    out = aggregate(None if w is None else w.unsqueeze(1), x, st, reduce,
+                    tiers=tiers).squeeze(1)
+    if vals is None or compute in (ComputeOp.MUL, ComputeOp.DIV):
+        return out
     e_row = torch.zeros(st.num_rows, dtype=vals.dtype,
                         device=vals.device).index_add(
                             0, st.coo_row().long(), vals)
     if reduce == ReduceOp.MEAN:
         deg = st.rowptr()[1:] - st.rowptr()[:-1]
         e_row = e_row / torch.clamp(deg, min=1).to(e_row.dtype)
-    e_row = e_row.to(base.dtype)[:, None]
-    return base + e_row if compute == ComputeOp.ADD else base - e_row
+    e_row = e_row.to(out.dtype)[:, None]
+    return out + e_row if compute == ComputeOp.ADD else out - e_row
+
+
+def _hybrid_tiers(st: Storage, dense: torch.Tensor, reduce: ReduceOp, w,
+                  cached: bool):
+    """The hybrid tier values of the SpMM weighted by w (None: ones) in
+    dense's compute mode, or None without a hybrid plan: the storage's
+    cached tiers for its values or for ones where `cached`, else tiers
+    gathered for w on this call. Records the route as `spmm` does."""
+    hp = st.ell_plan()
+    if hp is None:
+        return None
+    mode = _mode(dense)
+    if cached:
+        tiers = st.tier_values(ones=w is None, compute_dtype=mode)
+    else:
+        tiers = planner.tier_values(hp, w, st.device)
+        if mode == torch.bfloat16:
+            planner.with_bf16_cells(tiers)
+    metrics.record("spmm", alg="PALLAS_ROW_TILE", reduce=reduce.value,
+                   nnz=st.nnz, feat=dense.shape[1], cached_values=cached)
+    return tiers
 
 
 def _gspmm_slots(sparse: SparseTensor, dense: torch.Tensor,
@@ -139,6 +181,11 @@ def _make_u_e(compute: ComputeOp, reduce: ReduceOp):
 
 def _make_copy_u(reduce: ReduceOp):
     def op(sparse: SparseTensor, dense: torch.Tensor) -> torch.Tensor:
+        if reduce in (ReduceOp.SUM, ReduceOp.MEAN):
+            # the ones' hybrid tiers, kept by the caller's storage, which
+            # the copy without values shares; built on the copy, they
+            # would be rebuilt on every call
+            sparse.storage.tier_values(ones=True)
         return gspmm(sparse.set_values(None), dense, reduce, ComputeOp.MUL)
 
     op.__name__ = f"copy_u_{reduce.value}"

@@ -23,8 +23,9 @@ transpose `spmm_hybrid_t`, over the tier values the storage caches;
 236-247`), a bf16 `dense` runs the forward's tiers in the bf16 compute mode
 and a bf16 `g` the transpose's (`ops/hybrid.py`: the cells' bf16 twin on
 the bf16-cell kernel); the result keeps dense's dtype. XLA_SEGMENT,
-PALLAS_EDGE_TILE and PALLAS_BELL keep the CSR kernel, as do the multi-head
-and semiring callers of `aggregate`.
+PALLAS_EDGE_TILE and PALLAS_BELL keep the CSR kernel, as does the
+multi-head caller of `aggregate`; the semiring caller (`ops/gspmm.py`)
+passes tiers for SUM/MEAN on a hybrid storage, as JAX's does.
 
 `_SpMMMaxMin` (MAX/MIN, any semiring compute) runs
 `kernels/spmm_maxmin.py::spmm_maxmin`, which also returns the winning CSR
@@ -84,8 +85,9 @@ class _SpMM(torch.autograd.Function):
     """out [M, H, F]: per head h, the SpMM of the structure with values
     [:, h] (or ones for values None) and dense [N, H, F][:, h]. One
     `csr_spmm` launch serves every head; `spmm` is the case H = 1. With
-    `tiers`, the storage's cached hybrid tier values for these values
-    (H = 1), the hybrid tiers run instead."""
+    `tiers`, the hybrid tier values for these values (H = 1: the
+    storage's cached ones, or `gspmm`'s for 1/values), the hybrid tiers
+    run instead."""
 
     @staticmethod
     def forward(ctx, values, dense, st: Storage, reduce: ReduceOp,

@@ -1009,6 +1009,125 @@ def test_hybrid_kernels_refuse_bad_inputs(cuda):
         spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x, path="warp")
 
 
+# SUM/MEAN gspmm on a hybrid storage: one forward runs the three tiers, the
+# backward adds d_dense's transpose (cells, non-cell CSC) and, for MUL and
+# DIV, d_values' SDDMM over every edge; DIV gathers its 1/values tiers on
+# every call (one segment sum for the cells)
+GSPMM_FORWARD = {"spmm_dense_cells": 1, "spmm_bell": 1, "csr_spmm": 1}
+GSPMM_BACKWARD = {"spmm_dense_cells": 1, "csr_spmm": 1}
+GSPMM_COUNTED = ("spmm_dense_cells", "spmm_dense_cells_bf16", "spmm_bell",
+                 "csr_spmm", "sddmm_csr", "sddmm_cells", "segment_sum_csr")
+
+
+def _gspmm_launches(compute, backward, bf16=False):
+    want = dict.fromkeys(GSPMM_COUNTED, 0)
+    for part in (GSPMM_FORWARD, GSPMM_BACKWARD if backward else {}):
+        for k, v in part.items():
+            want[k] += v
+    if backward and compute in ("mul", "div"):
+        want["sddmm_csr"] = 1
+    if compute == "div":
+        want["segment_sum_csr"] = 1
+    if bf16:
+        want["spmm_dense_cells_bf16"] = want.pop("spmm_dense_cells")
+        want["spmm_dense_cells"] = 0
+    return want
+
+
+def _gspmm_inputs(seed=7, feat=24):
+    """The small hybrid graph with values |v| in [0.5, 2] (DIV divides by
+    them), x [N, feat] and a cotangent, as numpy."""
+    from dgsparse_tpu_torch.utils.testing import hybrid_csr
+
+    rowptr, col, _ = hybrid_csr(seed=seed)
+    n = len(rowptr) - 1
+    rng = np.random.default_rng(seed)
+    vals = (rng.uniform(0.5, 2.0, len(col))
+            * rng.choice([-1.0, 1.0], len(col))).astype(np.float32)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    ct = rng.standard_normal((n, feat)).astype(np.float32)
+    return rowptr, col, vals, x, ct
+
+
+def _gspmm_grid_case(device, inputs, compute, reduce, dtype="float32",
+                     build_plans=True):
+    """out, d_dense, d_values (None for copy_u) of one grid op on `device`,
+    and the launches of its forward alone and of its forward + backward."""
+    from dgsparse_tpu_torch.ops import gspmm as G
+
+    rowptr, col, vals, x, ct = inputs
+    n = len(rowptr) - 1
+    adj = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(vals),
+                                   sparse_sizes=(n, n), device=device,
+                                   build_plans=build_plans)
+    assert (adj.storage.ell_plan() is not None) == build_plans
+    vt = torch.from_numpy(vals).to(device).requires_grad_()
+    sp = adj.set_values(vt)
+    sp.storage.tier_values(ones=True)       # both cached tiers, built
+    sp.storage.tier_values()
+    name = (f"copy_u_{reduce}" if compute == "copy_u"
+            else f"u_{compute}_e_{reduce}")
+    xt = torch.from_numpy(x).to(device).to(getattr(torch, dtype))
+    reset_launch_counts()
+    getattr(G, name)(sp, xt)
+    forward = {k: launch_counts()[k] for k in GSPMM_COUNTED}
+    xt.requires_grad_()
+    reset_launch_counts()
+    out = getattr(G, name)(sp, xt)
+    (out.float() * torch.from_numpy(ct).to(device)).sum().backward()
+    both = {k: launch_counts()[k] for k in GSPMM_COUNTED}
+    return out.detach(), xt.grad, vt.grad, forward, both
+
+
+def _gspmm_abs_sums(inputs, compute, reduce):
+    """The terms' absolute sums of out, d_dense and d_values: the CPU's
+    plain CSR route on |v|, |x| and |ct|, SUB taken as ADD."""
+    rowptr, col, vals, x, ct = inputs
+    out, dx, dv, *_ = _gspmm_grid_case(
+        "cpu", (rowptr, col, np.abs(vals), np.abs(x), np.abs(ct)),
+        "add" if compute == "sub" else compute, reduce, build_plans=False)
+    return out, dx.abs(), None if dv is None else dv.abs()
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("compute", ["mul", "div", "add", "sub", "copy_u"])
+def test_hybrid_gspmm_grid_matches_the_cpu(cuda, compute, reduce):
+    inputs = _gspmm_inputs()
+    out, dx, dv, forward, both = _gspmm_grid_case(cuda, inputs, compute,
+                                                  reduce)
+    torch.cuda.synchronize()
+    assert forward == _gspmm_launches(compute, False)
+    assert both == _gspmm_launches(compute, True)
+    ref, rdx, rdv, *_ = _gspmm_grid_case("cpu", inputs, compute, reduce)
+    a_out, a_dx, a_dv = _gspmm_abs_sums(inputs, compute, reduce)
+    assert torch.isfinite(out).all() and torch.isfinite(dx).all()
+    assert_sum_close(out.cpu(), ref, a_out, TOLS["float32"])
+    assert_sum_close(dx.cpu(), rdx, a_dx, TOLS["float32"])
+    if compute == "copy_u":
+        assert dv is None and rdv is None
+    else:
+        assert_sum_close(dv.cpu(), rdv, a_dv, TOLS["float32"])
+
+
+def test_hybrid_gspmm_mul_is_spmm_bitwise_and_bf16_runs_its_mode(cuda):
+    adj = _hybrid(cuda, seed=8)
+    x = torch.randn(1500, 41, generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda)
+    for reduce in ("sum", "mean"):
+        assert torch.equal(pt.gspmm(adj, x, reduce, "mul"),
+                           pt.spmm(adj, x, reduce))
+    inputs = _gspmm_inputs()
+    out, dx, _, forward, both = _gspmm_grid_case(cuda, inputs, "mul", "sum",
+                                                 "bfloat16")
+    assert forward == _gspmm_launches("mul", False, bf16=True)
+    assert both == _gspmm_launches("mul", True, bf16=True)
+    ref, rdx, *_ = _gspmm_grid_case(cuda, inputs, "mul", "sum")
+    a_out, a_dx, _ = _gspmm_abs_sums(inputs, "mul", "sum")
+    assert out.dtype == dx.dtype == torch.bfloat16
+    assert_sum_close(out.cpu(), ref.cpu(), a_out, TOLS["bfloat16"])
+    assert_sum_close(dx.cpu(), rdx.cpu(), a_dx, TOLS["bfloat16"])
+
+
 # --- spconv: spconv_pairs and spconv_dw --------------------------------------
 #
 # On seeded voxel clouds: a two-batch submanifold plan, a strided plan and
