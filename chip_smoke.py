@@ -142,7 +142,11 @@ exits non-zero without a result line:
      (all of it standalone, the BELL rows read and written into out); the
      whole hybrid SpMM against its old composition (BELL into a fresh
      output, then `out +=`; bitwise equal), csr_spmm and cuSPARSE over the
-     full CSR. On the 60,000-voxel cloud (bench_spconv's SubM at
+     full CSR. segment_sum_csr at the cell materialisation of the
+     Reddit-scale storage (its dense-tier values, F = 1) and at a p2p
+     sorted_segment_sum (F = 32), beside its plain version and
+     torch.segment_reduce(data, "sum", offsets=rowptr). On the
+     60,000-voxel cloud (bench_spconv's SubM at
      32->32 and 64->64, and the four convs of "unet-60k"): spconv_pairs
      forward and dX and spconv_dw beside their plain versions and the
      dense cuDNN call over the densified grid (conv3d, conv_transpose3d
@@ -164,16 +168,24 @@ exits non-zero without a result line:
      cells times a bf16 B), forward and transpose, against its plain
      version at 1e-5 of the terms' absolute sum and bitwise against a
      second call, on a small clustered graph (F in {1, 41, 64, 130}) and
-     at Reddit scale (F = 64, 41), the twin's bytes logged; the slice's
+     at Reddit scale (F = 64, 41), the twin's bytes logged; the same for
+     sddmm_cells' bf16 kernel (sddmm_cells_bf16_kernel) on bf16 d1 and d2,
+     also against the fp32 kernel's TF32 template it replaced
+     (path="tf32") at 1e-5 scaled; the slice's
      path at Reddit scale with the counts set to 0 just before it: `spmm`
-     forward + d_dense at F = 64 and 41 with an fp32 and a bf16 x, and
+     forward + d_dense at F = 64 and 41 with an fp32 and a bf16 x,
      gat_attention forward + backward one head at F = 16 and 41 in both
-     modes, exact launches by variant, bf16 mode against fp32 mode at
-     1e-2; CUDA-event times of the bf16-cell kernel beside the fp32-mode
-     kernel, its plain version and torch.bmm over the bf16 blocks, and of
-     sddmm_cells in bf16 mode (a cast, no kernel of its own), beside their
-     bounds (bytes, or operations at bf16's 989 TFLOP/s); and the path's
-     ops in both modes with their peak memory.
+     modes, and `sddmm` of bf16 d1 and d2 at F = 64 and 41 (1
+     sddmm_cells_bf16, 1 sddmm_csr each), exact launches by variant, bf16
+     against fp32 at 1e-2; CUDA-event times of the bf16-cell kernel beside
+     the fp32-mode kernel, its plain version and torch.bmm over the bf16
+     blocks, and of the bf16 sddmm_cells kernel (on bf16 operands and with
+     the cast from fp32) beside the TF32 template, the fp32-mode kernel,
+     its plain version and torch.bmm over the gathered bf16 blocks with
+     out_dtype=float32 (the same function; bf16 out beside it) and the
+     blocks' bytes zeroed (the card's rate for the store alone), beside
+     their bounds (bytes, or operations at bf16's 989 TFLOP/s); and the
+     path's ops in both modes with their peak memory.
  7c. gspmm hybrid (`phase_gspmm_hybrid`): on the Reddit-scale storage at
      F = 64 and 41, every SUM/MEAN op of the semiring grid (MUL, DIV, ADD,
      SUB, copy_u), which runs its weighted SpMM on the hybrid tiers
@@ -260,10 +272,11 @@ exits non-zero without a result line:
      metrics show them), each width against the other route at 1e-5
      scaled; `tune_report` on the arxiv storage; the file deleted.
 Then one JSON line of per-kernel results (csr_spmm's launches by path
-include the esc, dist and tune paths; spmm_dense_cells_bf16, the bf16-cell
-variant, counts the "bf16_hybrid" path of phase 7b; the "gspmm_hybrid" path
-is phase 7c's), the card's name and
-power limit, and as
+include the esc, dist and tune paths; spmm_dense_cells_bf16 and
+sddmm_cells_bf16, the bf16 variants, count the "bf16_hybrid" path of phase
+7b; the "gspmm_hybrid" path is phase 7c's, and segment_sum_csr launches
+there, in DIV's tier builds; every path counts every kernel), the card's
+name and power limit, and as
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
@@ -311,10 +324,11 @@ RATE_NAMES = {FP32_FLOPS: "fp32 FFMA 67 TFLOP/s",
 KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin", "spmm_cells", "spmm_bell",
            "spconv")
 # the wrappers the main paths launch, as `kernels.launch_counts` names them
-KERNEL_NAMES = ("csr_spmm", "sddmm_csr", "spmm_maxmin",
+KERNEL_NAMES = ("csr_spmm", "segment_sum_csr", "sddmm_csr", "spmm_maxmin",
                 "spmm_maxmin_d_dense", "spmm_maxmin_d_values",
                 "spmm_dense_cells", "spmm_dense_cells_bf16", "spmm_bell",
-                "sddmm_cells", "spconv_pairs", "spconv_dw")
+                "sddmm_cells", "sddmm_cells_bf16", "spconv_pairs",
+                "spconv_dw")
 _NONE = dict.fromkeys(KERNEL_NAMES, 0)
 # kernel launches per training step: the forward and d_dense of both
 # layers, plus d_values of both layers where the edge values are
@@ -339,6 +353,9 @@ ATTENTION_LAUNCHES_BF16 = {**ATTENTION_LAUNCHES, "spmm_dense_cells": 2,
 SPMM_LAUNCHES = {"csr_spmm": 2, "spmm_dense_cells": 2, "spmm_bell": 1}
 SPMM_LAUNCHES_BF16 = {"csr_spmm": 2, "spmm_dense_cells_bf16": 2,
                       "spmm_bell": 1}
+# one hybrid sddmm of bf16 d1 and d2: the cells' blocks on the bf16
+# variant, the non-cell edges on the CSR SDDMM
+SDDMM_LAUNCHES_BF16 = {"sddmm_cells_bf16": 1, "sddmm_csr": 1}
 # a GAT on a hybrid storage of 2^21 or more edges ("gat-hybrid") runs one
 # gat_attention a head: 4 in its first layer, 1 in its second
 GAT_HEADS = 5
@@ -1859,6 +1876,57 @@ def phase_numbers(torch, cuda, runs, graphs):
         _log_sddmm(results, label, m, nnz, ms, S, feat, 1)
     results.update(_maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p,
                                    col_p2p))
+    results.update(_segment_sum_numbers(torch, cuda, gen,
+                                        graphs["reddit"][0].storage,
+                                        rowptr_p2p, col_p2p.numel()))
+    return results
+
+
+def _segment_sum_numbers(torch, cuda, gen, reddit, rowptr_p2p, nnz_p2p):
+    """segment_sum_csr (phase 7) at the two shapes it serves: the cell
+    materialisation of the Reddit storage's dense-tier values (F = 1, one
+    segment a distinct slot: the sum in DIV's per-call tier build) and a
+    sorted_segment_sum of p2p's edge rows by row (F = 32); beside its
+    plain version, torch.segment_reduce(data, "sum", offsets=rowptr) (held
+    to the kernel at 1e-5 of the terms' absolute sum) and the bound."""
+    from dgsparse_tpu_torch.kernels import spmm_cells as C
+    from dgsparse_tpu_torch.kernels import spmm_csr as K
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    plan = reddit.ell_plan().cells
+    rowptr, _, eperm = C._slot_segments(plan, cuda)
+    cells = reddit.values().float()[eperm].unsqueeze(1).contiguous()
+    cases = [("reddit cell materialisation F=1", rowptr, cells),
+             ("p2p-synthetic sorted_segment_sum F=32", rowptr_p2p,
+              torch.randn(nnz_p2p, 32, generator=gen, device=cuda))]
+    results = {"segment_sum_csr": {}}
+    for label, rowptr, data in cases:
+        segs, (rows, feat) = rowptr.numel() - 1, data.shape
+        out = K.segment_sum_csr_cuda(rowptr, data)
+        abs_sum = K.segment_sum_csr_plain(rowptr, data.abs())
+        e = assert_sum_close(out, K.segment_sum_csr_plain(rowptr, data),
+                             abs_sum, TOL["float32"])
+        e_lib = assert_sum_close(
+            torch.segment_reduce(data, "sum", offsets=rowptr), out, abs_sum,
+            TOL["float32"])
+        ms = _time_turns({
+            "kernel": (K.segment_sum_csr_cuda, (rowptr, data)),
+            "plain": (K.segment_sum_csr_plain, (rowptr, data)),
+            "library": (lambda d, r: torch.segment_reduce(d, "sum", offsets=r),
+                        (data, rowptr))})
+        ms.update(bound(4 * ((segs + 1) + rows * feat + segs * feat),
+                        rows * feat))
+        ms["library_call"] = ('torch.segment_reduce(data, "sum", '
+                              'offsets=rowptr)')
+        ms["path"] = K.spmm_path(feat, 1, 4, 16)
+        results["segment_sum_csr"][label] = ms
+        log(f"[numbers] segment_sum_csr {label} ({rows} rows into {segs} "
+            f"segments, fp32, path {ms['path']}): kernel "
+            f"{ms['kernel'] * 1e3:.2f} us, plain {ms['plain'] * 1e3:.2f} us, "
+            f"{ms['library_call']} {ms['library'] * 1e3:.2f} us, bound "
+            f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}); "
+            f"{ms['bound'] / ms['kernel']:.3f} of the bound; max_abs_err vs "
+            f"plain {e:.3e}, the library call vs the kernel {e_lib:.3e}")
     return results
 
 
@@ -2379,7 +2447,38 @@ def phase_bf16_hybrid(torch, cuda, graphs):
     m = len(rowptr) - 1
     small = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(vals),
                                      sparse_sizes=(m, m), device=cuda)
+    # ... and sddmm_cells_bf16_kernel (bf16 d1, d2; exact products) against
+    # its plain version at 1e-5 of the terms' absolute sum, bitwise equal
+    # to a second call, and against the float32 kernel's TF32 template on
+    # the same operands (path="tf32", the mapping it replaces) at 1e-5
+    sddmm_errs = []
+
+    def sddmm_cases(tag, st, feats):
+        plan = st.ell_plan().cells
+        worst, worst_old = [], []
+        for f in feats:
+            d1 = randn(plan.num_rows, f).to(bf16)
+            d2 = randn(plan.num_cols, f).to(bf16)
+            out = C.sddmm_cells_cuda(plan, d1, d2)
+            abs_sum = C.sddmm_cells_plain(plan, d1.float().abs(),
+                                          d2.float().abs())
+            sddmm_errs.append(check(out, C.sddmm_cells_plain(plan, d1, d2),
+                                    abs_sum, TOL["float32"]))
+            worst.append(sddmm_errs[-1])
+            worst_old.append(check(
+                out, C.sddmm_cells_cuda(plan, d1, d2, path="tf32"), abs_sum,
+                TOL["float32"]))
+            if not torch.equal(out, C.sddmm_cells_cuda(plan, d1, d2)):
+                raise AssertionError(f"bf16 sddmm_cells {tag} F={f}: a "
+                                     "second call differs")
+            del out, abs_sum
+        log(f"[bf16] sddmm_cells bf16 kernel vs its plain version, {tag}, F "
+            f"in {feats}: max_abs_err {max(worst):.3e} (1e-5 of the terms' "
+            f"absolute sum), bitwise repeatable; vs the TF32 template "
+            f"{max(worst_old):.3e}")
+
     kernel_cases("small clustered graph", small.storage, HYBRID_FEATS)
+    sddmm_cases("small clustered graph", small.storage, HYBRID_FEATS)
     adj, _, _ = graphs["reddit"]
     st = adj.storage
     torch.cuda.synchronize()
@@ -2393,10 +2492,12 @@ def phase_bf16_hybrid(torch, cuda, graphs):
         f"{torch.cuda.memory_allocated() - before} B more, "
         f"{torch.cuda.memory_allocated()} B resident")
     kernel_cases("reddit", st, REDDIT_FEATS)
+    sddmm_cases("reddit", st, REDDIT_FEATS)
 
     # (3) the slice's path at Reddit scale, counted: spmm forward + d_dense
     # at F = 64 and 41 with an fp32 and a bf16 x, gat_attention forward +
-    # backward one head at F = 16 and 41 in both modes
+    # backward one head at F = 16 and 41 in both modes, sddmm of bf16 d1
+    # and d2 at F = 64 and 41
     m, n = st.num_rows, st.num_cols
     a_abs = adj.set_values(st.values().abs())
 
@@ -2413,6 +2514,8 @@ def phase_bf16_hybrid(torch, cuda, graphs):
     attn_cases = {f: ([randn(m).requires_grad_(), randn(n).requires_grad_(),
                        randn(n, f).requires_grad_()], randn(m, f))
                   for f in ATTENTION_FEATS}
+    sddmm_operands = {f: (randn(m, f).to(bf16), randn(n, f).to(bf16))
+                      for f in REDDIT_FEATS}
     torch.cuda.synchronize()
     reset_launch_counts()
     runs = {}
@@ -2422,13 +2525,15 @@ def phase_bf16_hybrid(torch, cuda, graphs):
     for f, (inputs, ct) in attn_cases.items():
         for cd in (torch.float32, bf16):
             runs["attention", f, cd] = attention_step(inputs, ct, cd)
+    for f, (d1b, d2b) in sddmm_operands.items():
+        runs["sddmm", f] = pt.sddmm(adj, d1b, d2b)
     torch.cuda.synchronize()
     launches = _counts()
     k = len(REDDIT_FEATS)
     j = len(ATTENTION_FEATS)
     expect("the bf16 path", launches, (k, SPMM_LAUNCHES),
            (k, SPMM_LAUNCHES_BF16), (j, ATTENTION_LAUNCHES),
-           (j, ATTENTION_LAUNCHES_BF16))
+           (j, ATTENTION_LAUNCHES_BF16), (k, SDDMM_LAUNCHES_BF16))
     for f, (x, ct) in spmm_cases.items():
         (o32, g32), (o16, g16) = (runs["spmm", f, dt]
                                   for dt in (torch.float32, bf16))
@@ -2451,14 +2556,29 @@ def phase_bf16_hybrid(torch, cuda, graphs):
         log(f"[bf16] reddit gat_attention one head F={f}, bf16 mode vs fp32 "
             f"mode: forward max_abs_err {e:.3e} (1e-2 of the terms' "
             f"absolute sum), gradients {g:.3e} (1e-2 of the largest)")
+    for f, (d1b, d2b) in sddmm_operands.items():
+        out = runs["sddmm", f]
+        if out.dtype != bf16 or out.shape != (st.nnz,) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"bf16 sddmm F={f}: {out.dtype} "
+                                 f"{tuple(out.shape)} output")
+        # the same products in float32 (bf16 values are exact there): the
+        # bf16 result differs by its output rounding
+        e = check(out, pt.sddmm(adj, d1b.float(), d2b.float()),
+                  pt.sddmm(adj, d1b.float().abs(), d2b.float().abs()), 1e-2)
+        log(f"[bf16] reddit sddmm F={f} of bf16 d1, d2 ({st.nnz} edges, "
+            f"bf16 out) vs the same values in float32: max_abs_err {e:.3e} "
+            f"(1e-2 of the terms' absolute sum)")
     log(f"[bf16] the path's launches: "
         f"{ {k: v for k, v in launches.items() if v} }")
     del runs
 
     # (4) times (CUDA events, best of two turns): the bf16-cell kernel
     # beside the fp32-mode kernel, its plain version and torch.bmm over
-    # the bf16 blocks; sddmm_cells in bf16 mode; the path's ops in both
-    # modes, with their peak memory
+    # the bf16 blocks; sddmm_cells' bf16 kernel beside the TF32 template it
+    # replaces, the fp32-mode kernel, its plain version and torch.bmm with
+    # fp32 and bf16 out; the path's ops in both modes, with their peak
+    # memory
     hp = st.ell_plan()
     plan, twin, cells = hp.cells, tiers["cells_bf16"], tiers["cells"]
     cell_flops = 2.0 * plan.num_cells * 128 * 128
@@ -2494,26 +2614,59 @@ def phase_bf16_hybrid(torch, cuda, graphs):
                 f"the bound")
         d1, d2 = randn(m, f), randn(n, f)
         d1b, d2b = d1.to(bf16), d2.to(bf16)
-        ms = _time_turns({
+        a = _bf16_blocks(torch, d1b, 128, plan.cell_rb)
+        b = _bf16_blocks(torch, d2b, 128, plan.cell_cw).transpose(1, 2)
+        fns = {
             "kernel": (C.sddmm_cells_cuda, (plan, d1b, d2b, bf16)),
             "kernel_with_cast": (C.sddmm_cells_cuda, (plan, d1, d2, bf16)),
+            "old_mapping": (functools.partial(C.sddmm_cells_cuda,
+                                              path="tf32"),
+                            (plan, d1b, d2b)),
             "fp32_mode": (C.sddmm_cells_cuda, (plan, d1, d2)),
             "plain": (C.sddmm_cells_plain, (plan, d1b, d2b, bf16)),
-            "library": (torch.bmm, (
-                _bf16_blocks(torch, d1b, 128, plan.cell_rb),
-                _bf16_blocks(torch, d2b, 128, plan.cell_cw).transpose(1, 2)))})
+            "library_bf16_out": (torch.bmm, (a, b)),
+            # the card's rate for the store alone: the blocks' bytes zeroed
+            "write_only": (torch.Tensor.zero_, (
+                torch.empty(plan.cell_slots, device=cuda),))}
+        # the same function, fp32 blocks from bf16 operands: bmm's
+        # out_dtype overload (aten::bmm.dtype), held to the kernel
+        call = ("torch.bmm(gathered bf16 d1 blocks, gathered bf16 d2 "
+                "blocksᵀ, out_dtype=torch.float32)")
+        try:
+            lib_out = torch.bmm(a, b, out_dtype=torch.float32)
+        except (RuntimeError, TypeError) as exc:
+            log(f"[numbers] {call} refused ({str(exc).splitlines()[0]}); "
+                f"the library call is the bf16-out bmm, half the store")
+            fns["library"] = fns.pop("library_bf16_out")
+            call = ("torch.bmm(gathered bf16 d1 blocks, gathered bf16 d2 "
+                    "blocksᵀ), bf16 out (out_dtype refused)")
+        else:
+            e = check(lib_out.reshape(-1), C.sddmm_cells_cuda(plan, d1b, d2b),
+                      C.sddmm_cells_cuda(plan, d1b.abs(), d2b.abs()), 1e-4)
+            log(f"[numbers] {call} vs the kernel: max_abs_err {e:.3e} (1e-4 "
+                f"of the terms' absolute sum)")
+            del lib_out
+            fns["library"] = (functools.partial(
+                torch.bmm, out_dtype=torch.float32), (a, b))
+        ms = _time_turns(fns)
         ms.update(bound(2 * (d1.numel() + d2.numel()) + 4 * plan.cell_slots,
                         cell_flops * f, BF16_FLOPS))
-        ms["library_call"] = ("torch.bmm(gathered bf16 d1 blocks, gathered "
-                              "bf16 d2 blocksᵀ), bf16 out")
+        ms["library_call"] = call
         results["sddmm_cells_bf16"][f"reddit F={f}"] = ms
+        bf16_out = ms.get("library_bf16_out")
         log(f"[numbers] sddmm_cells bf16 mode reddit F={f}: kernel on bf16 "
             f"d1, d2 {ms['kernel'] * 1e3:.2f} us (with the cast from fp32 "
-            f"{ms['kernel_with_cast'] * 1e3:.2f}), fp32 mode "
-            f"{ms['fp32_mode'] * 1e3:.2f} us, plain {ms['plain'] * 1e3:.2f} "
-            f"us, torch.bmm {ms['library'] * 1e3:.2f} us, bound "
-            f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}); "
-            f"{ms['bound'] / ms['kernel']:.3f} of the bound")
+            f"{ms['kernel_with_cast'] * 1e3:.2f}), old mapping (the fp32 "
+            f"kernel's TF32 template) {ms['old_mapping'] * 1e3:.2f} us, fp32 "
+            f"mode {ms['fp32_mode'] * 1e3:.2f} us, plain "
+            f"{ms['plain'] * 1e3:.2f} us, {call} {ms['library'] * 1e3:.2f} us"
+            + ("" if bf16_out is None else
+               f", torch.bmm with bf16 out {bf16_out * 1e3:.2f} us")
+            + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}); "
+            f"{ms['bound'] / ms['kernel']:.3f} of the bound; the blocks' "
+            f"{4 * plan.cell_slots} B zeroed (zero_, the store alone) "
+            f"{ms['write_only'] * 1e3:.2f} us")
+        del a, b
     for f, (x, ct) in spmm_cases.items():
         fns = {dt: (spmm_step, (x.to(dt), ct.to(dt)))
                for dt in (torch.float32, bf16)}
@@ -2547,10 +2700,11 @@ def phase_bf16_hybrid(torch, cuda, graphs):
             f"{ms[bf16]:.3f} ms; peak above resident {peak[torch.float32]} "
             f"/ {peak[bf16]} B")
     log(f"[bf16] phase {time.perf_counter() - t0:.1f} s")
-    # the variant computes in the bf16 mode only: its one error, against
+    # the variants compute in the bf16 mode only: each one's error, against
     # its plain version, under both keys
-    e = max(kernel_errs)
-    errs = {"spmm_dense_cells_bf16": {"float32": e, "bfloat16": e}}
+    errs = {name: dict.fromkeys(("float32", "bfloat16"), max(e))
+            for name, e in (("spmm_dense_cells_bf16", kernel_errs),
+                            ("sddmm_cells_bf16", sddmm_errs))}
     return results, errs, launches
 
 
@@ -2562,7 +2716,7 @@ def _gspmm_name(reduce, compute):
 
 def _gspmm_launches(compute, backward, bf16=False):
     """The exact launches of one SUM/MEAN gspmm on a hybrid storage, over
-    KERNEL_NAMES and segment_sum_csr (DIV's per-call tier build)."""
+    KERNEL_NAMES (segment_sum_csr: DIV's per-call tier build)."""
     want = {**_NONE, "segment_sum_csr": int(compute == "div")}
     for part in (GSPMM_FORWARD, GSPMM_BACKWARD if backward else {}):
         for k, v in part.items():
@@ -2591,7 +2745,6 @@ def phase_gspmm_hybrid(torch, cuda, reddit):
     st = reddit.storage
     hp, m, n = st.ell_plan(), st.num_rows, st.num_cols
     gen = torch.Generator(device=cuda).manual_seed(16)
-    names = KERNEL_NAMES + ("segment_sum_csr",)
     # the CSR route: the same storage without its plan, every tensor
     # shared (`build_plans=False` would sort 114 M edges again)
     csr = pt.SparseTensor._wrap(st._replace(
@@ -2600,7 +2753,7 @@ def phase_gspmm_hybrid(torch, cuda, reddit):
 
     def launched(before):
         now = launch_counts()
-        return {k: now[k] - before[k] for k in names}
+        return {k: now[k] - before[k] for k in KERNEL_NAMES}
 
     def forward(sp, x, reduce, compute):
         return getattr(G, _gspmm_name(reduce, compute))(sp, x)
@@ -2631,7 +2784,7 @@ def phase_gspmm_hybrid(torch, cuda, reddit):
     va = st.values().abs().requires_grad_()
     ca = csr.set_values(va)
 
-    path = dict.fromkeys(names, 0)
+    path = dict.fromkeys(KERNEL_NAMES, 0)
     worst = {}
     for f in REDDIT_FEATS:
         x = torch.randn(n, f, generator=gen, device=cuda)
@@ -2671,7 +2824,7 @@ def phase_gspmm_hybrid(torch, cuda, reddit):
                                      f"{got} / {got_bwd}")
         torch.cuda.synchronize()
         counts = launch_counts()
-        for k in names:
+        for k in KERNEL_NAMES:
             path[k] += counts[k]
         # (2) against the CSR route at 1e-5 of the terms' absolute sum
         # (the CSR route on |v|, |x|, |ct|, SUB as ADD); MUL bitwise
@@ -2773,7 +2926,7 @@ def phase_gspmm_hybrid(torch, cuda, reddit):
         f"(segment_sum_csr) {path['segment_sum_csr']}; the path's launches "
         f"{ {k: c for k, c in path.items() if c} }")
     log(f"[gspmm] phase {time.perf_counter() - t0:.1f} s")
-    return {k: path[k] for k in KERNEL_NAMES}
+    return path
 
 
 def _grid(torch, feats, coords, shape):
@@ -4258,12 +4411,14 @@ def _run(torch, cuda, tune_dir) -> int:
                 ("spmm_bell", "bf16_hybrid", bf16_path),
                 ("csr_spmm", "bf16_hybrid", bf16_path),
                 ("sddmm_cells", "bf16_hybrid", bf16_path),
+                ("sddmm_cells_bf16", "bf16_hybrid", bf16_path),
                 ("sddmm_csr", "bf16_hybrid", bf16_path),
                 ("spmm_dense_cells", "gspmm_hybrid", gspmm_path),
                 ("spmm_dense_cells_bf16", "gspmm_hybrid", gspmm_path),
                 ("spmm_bell", "gspmm_hybrid", gspmm_path),
                 ("csr_spmm", "gspmm_hybrid", gspmm_path),
                 ("sddmm_csr", "gspmm_hybrid", gspmm_path),
+                ("segment_sum_csr", "gspmm_hybrid", gspmm_path),
                 ("spconv_pairs", "serving", serving),
                 ("spconv_pairs", "training", training),
                 ("spconv_dw", "training", training),
@@ -4304,6 +4459,13 @@ def _run(torch, cuda, tune_dir) -> int:
             "dgsparse_tpu/kernels/pallas_spmm.py:103", paths("csr_spmm"),
             errs["csr_spmm"], times["csr_spmm"], "arxiv conv1 F=256", card),
         _kernel_entry(
+            "segment_sum_csr", "dgsparse_tpu_torch/csrc/spmm_csr.cu",
+            "dgsparse_tpu/kernels/pallas_spmm.py:103 (segment_matmul as "
+            "dgsparse_tpu/ops/segment.py:56 sorted_segment_sum runs it)",
+            paths("segment_sum_csr"), errs["segment_sum_csr"],
+            times["segment_sum_csr"], "reddit cell materialisation F=1",
+            card, main="gspmm_hybrid"),
+        _kernel_entry(
             "sddmm_csr", "dgsparse_tpu_torch/csrc/sddmm_csr.cu",
             "dgsparse_tpu/kernels/pallas_sddmm.py:44", paths("sddmm_csr"),
             errs["sddmm_csr"], times["sddmm_csr"],
@@ -4341,6 +4503,13 @@ def _run(torch, cuda, tune_dir) -> int:
             "sddmm_cells", "dgsparse_tpu_torch/csrc/spmm_cells.cu",
             "dgsparse_tpu/kernels/pallas_sddmm.py:125", paths("sddmm_cells"),
             errs["sddmm_cells"], times["sddmm_cells"], "reddit F=64", card),
+        _kernel_entry(
+            "sddmm_cells_bf16", "dgsparse_tpu_torch/csrc/spmm_cells.cu",
+            "dgsparse_tpu/kernels/pallas_sddmm.py:125 "
+            "(compute_dtype=bfloat16)",
+            paths("sddmm_cells_bf16"), errs["sddmm_cells_bf16"],
+            times["sddmm_cells_bf16"], "reddit F=64", card,
+            main="bf16_hybrid"),
         _kernel_entry(
             "spconv_pairs", "dgsparse_tpu_torch/csrc/spconv.cu",
             "dgsparse_tpu/kernels/pallas_spconv.py:147",

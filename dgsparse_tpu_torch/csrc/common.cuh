@@ -62,13 +62,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
+// 4 bytes to `dst`, of which the first `bytes` (0 or 4) come from `src`;
+// both 4-byte aligned, `src` valid even when `bytes` is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
 // One element to `dst`: *src where `valid`, else zero. fp32 goes through a
 // 4-byte cp.async; a 2-byte bf16 has none, so it is loaded and stored.
 __device__ __forceinline__ void cp_async_elem(float* dst, const float* src,
                                               bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
+  cp_async4(dst, src, valid ? 4 : 0);
 }
 __device__ __forceinline__ void cp_async_elem(__nv_bfloat16* dst,
                                               const __nv_bfloat16* src,

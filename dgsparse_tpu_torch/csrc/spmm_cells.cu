@@ -74,8 +74,36 @@
 // (stores straight from the fragments, 32-byte pieces of 16 rows each, were
 // slower), and the other CTA on the SM multiplies meanwhile.
 //
+// sddmm_cells' bf16 compute mode (`pallas_sddmm.py:125 sddmm_cells` with
+// compute_dtype=bfloat16: bf16 d1 and d2, exact products, fp32 sums and
+// fp32 blocks) has a kernel of its own, sddmm_cells_bf16_kernel. The fp32
+// block store bounds it harder still: the inputs halve, the 415 MB of
+// blocks do not (at Reddit scale F = 64 ~475 MB in all, 142 us at
+// 3.35 TB/s; 13.3 GFLOP, 13 us at bf16's 989 TFLOP/s). So the design keeps
+// the store path above (the staging tiles, the streaming stores, two CTAs
+// an SM) and makes everything before it cheap enough to hide behind the
+// other CTA's stores: products on bf16 mma.sync.m16n8k16, one pass per 16
+// features where the fp32 template, instantiated for bf16, ran TF32
+// m16n8k8 on widened values in two; fragments by ldmatrix (d1's rows are
+// A's rows and d2's rows B's columns, both k-contiguous, so no .trans),
+// from rows padded to 64 + 8 bf16 (144 bytes, an odd multiple of 16:
+// ldmatrix's 8 rows on distinct banks); a step is one cell's 64-feature
+// slice (one step a cell at F <= 64, a barrier a cell, not four), d2
+// through a two-stage cp.async ring and d1 into the other of two buffers
+// with the same step's copies where its row block changes. (A ring three
+// steps deep, two cells ahead, ran no faster on an H100: what the loads
+// cost beside the stores is their traffic, not their wait.) Ragged widths
+// keep 16-byte copies: 128 rows of F bf16 are 256 F bytes, so a row block
+// starts on a 16-byte boundary whatever F is; F = 41's rows (82 bytes) are
+// copied as the aligned 16-byte pieces that cover them and shifted into
+// place in shared memory (`repack_tile`), k zero-padded to a multiple of
+// 16 (48). Only a base pointer off 16 bytes takes element copies (4-byte
+// cp.async where it allows, else loads).
+//
 // Offsets indexed by cell * 16384 or by row * F are 64-bit: at Reddit
 // scale the cell array holds ~1.04e8 floats.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -482,11 +510,13 @@ constexpr int kSK = 16;       // d2 features staged per step
 constexpr int kD1F = 64;      // d1 features resident (a feature chunk)
 constexpr int kSddmmStages = 3;
 
+constexpr int kSO = 64 + 8;    // row stride of a warp's staging tile (fp32)
+
 // Dynamic shared memory of sddmm_cells_kernel<T>: the row block's d1 chunk
 // [kR][kD1F + pad], as it lies in memory (fp32 is split as its fragments
 // are loaded); a ring of d2 slices [kC][kSK + pad] and, for fp32, the
-// remainders of the slice in use; and each warp's staging tile [16][64 +
-// 8] fp32 for the block store. The pads (16 bytes) keep rows 16-byte
+// remainders of the slice in use; and each warp's staging tile [16][kSO]
+// fp32 for the block store. The pads (16 bytes) keep rows 16-byte
 // aligned and the fragment loads on 32 distinct banks; the staging tile's
 // row stride (72, 8 banks apart) keeps its 8-byte writes on distinct
 // banks. fp32: 112,640 bytes, two CTAs an SM.
@@ -496,7 +526,6 @@ struct SddmmSmem {
   static constexpr int kPad = 16 / sizeof(T);
   static constexpr int kSA = kD1F + kPad;
   static constexpr int kSB = kSK + kPad;
-  static constexpr int kSO = 64 + 8;
   static constexpr int kABytes = kR * kSA * sizeof(T);
   static constexpr int kBBytes = kC * kSB * sizeof(T);
   static constexpr int kSmallB = kABytes + kSddmmStages * kBBytes;
@@ -531,6 +560,38 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
       cp_async_elem(dst + r * ld + c, ok ? src + row * feat + f0 + c : src,
                     ok);
     }
+  }
+}
+
+// A finished [128, 128] block out from the accumulators of sddmm_cells_kernel
+// and sddmm_cells_bf16_kernel (a warp's 32 x 64 tile at `o`, rows kC
+// apart), 16 rows at a time through the warp's staging tile `st` [16][kSO]:
+// a store instruction then covers two rows' 256 contiguous bytes, whole
+// 128-byte lines, with the streaming hint.
+__device__ __forceinline__ void store_block(const float (&acc)[2][2][4][4],
+                                            float* st, float* o, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* c = acc[h][mt][nt];
+        const int col = 32 * h + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(st + g * kSO + col) =
+            make_float2(c[0], c[1]);
+        *reinterpret_cast<float2*>(st + (g + 8) * kSO + col) =
+            make_float2(c[2], c[3]);
+      }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = 2 * i + lane / 16, col = (lane % 16) * 4;
+      store_streaming(o + (16 * mt + row) * kC + col,
+                      *reinterpret_cast<const float4*>(st + row * kSO + col));
+    }
+    __syncwarp();
   }
 }
 
@@ -638,37 +699,263 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 
     if (j == slices - 1) {
-      // the block out, 16 rows of the warp's tile at a time through its
-      // staging tile: a store instruction then covers two rows' 256
-      // contiguous bytes, whole 128-byte lines
-      const int g = lane >> 2, t = lane & 3;
-      float* st = reinterpret_cast<float*>(smem + L::kStage) +
-                  warp * 16 * L::kSO;
-      float* o = out + static_cast<int64_t>(p) * kCell +
-                 (32 * wm) * kC + 64 * wn;
+      store_block(acc,
+                  reinterpret_cast<float*>(smem + L::kStage) +
+                      warp * 16 * kSO,
+                  out + static_cast<int64_t>(p) * kCell + (32 * wm) * kC +
+                      64 * wn,
+                  lane);
+      zero();
+    }
+  }
+}
+
+// --- sddmm_cells, bf16 compute mode ------------------------------------------
+
+constexpr int kBK = 64;         // features a step: d2's slice, d1's chunk
+constexpr int kBS = kBK + 8;    // staged row stride, bf16: 144 bytes
+constexpr int kBPieces = kBS / 8;  // 16-byte pieces a staged row holds
+
+// How sddmm_cells_bf16_kernel stages a tile (128 rows, features f0 .. f0 +
+// kp) of d1 or d2 into rows of kBS bf16, zero past the matrix and past F:
+//   kTileRows, rows on 16-byte boundaries (base aligned, F % 8 == 0):
+//     16-byte cp.async copies straight into the rows;
+//   kTileFlat, base aligned, F % 8 != 0: the 128 rows lie back to back from
+//     a 16-byte boundary (256 F bytes), so each row's features lie in at
+//     most 9 aligned 16-byte pieces of the flat matrix; those are copied
+//     (16-byte cp.async), and `repack_tile` then shifts each row to its
+//     start and zeroes what lies past F;
+//   kTilePairs, base 4-byte aligned, F even: 4-byte cp.async copies of two
+//     values; kTileElem, otherwise: synchronous 2-byte loads.
+enum TileMode : int { kTileRows, kTileFlat, kTilePairs, kTileElem };
+
+template <int MODE>
+__device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int64_t r0, int nrows,
+                                                int feat, int f0, int kp,
+                                                int tid) {
+  if constexpr (MODE == kTileRows) {
+    const int q = kp / 8;
+    for (int e = tid; e < kR * q; e += kThreads) {
+      const int r = e / q, c = (e % q) * 8;
+      const int64_t row = r0 + r;
+      const bool ok = row < nrows && f0 + c < feat;  // a piece is all or none
+      cp_async16(dst + r * kBS + c, ok ? src + row * feat + f0 + c : src,
+                 ok ? 16 : 0);
+    }
+  } else if constexpr (MODE == kTileFlat) {
+    const int64_t end = static_cast<int64_t>(nrows) * feat;
+    const int cols = min(kBK, feat - f0);
+    for (int e = tid; e < kR * kBPieces; e += kThreads) {
+      const int r = e / kBPieces, i = e % kBPieces;
+      const int64_t first = (r0 + r) * feat + f0;  // the row's first value
+      if (i * 8 >= static_cast<int>(first % 8) + cols) continue;  // unused
+      const int64_t at = first / 8 * 8 + 8 * i;
+      const int64_t left = r0 + r < nrows ? end - at : 0;
+      const int n = left <= 0 ? 0 : left >= 8 ? 16 : 2 * static_cast<int>(left);
+      cp_async16(dst + r * kBS + 8 * i, n ? src + at : src, n);
+    }
+  } else if constexpr (MODE == kTilePairs) {
+    const int q = kp / 2;
+    for (int e = tid; e < kR * q; e += kThreads) {
+      const int r = e / q, k = (e % q) * 2;
+      const int64_t row = r0 + r;
+      const bool ok = row < nrows && f0 + k < feat;  // F even: both or none
+      cp_async4(dst + r * kBS + k, ok ? src + row * feat + f0 + k : src,
+                ok ? 4 : 0);
+    }
+  } else {
+    for (int e = tid; e < kR * kp; e += kThreads) {
+      const int r = e / kp, k = e % kp;
+      const int64_t row = r0 + r;
+      const bool ok = row < nrows && f0 + k < feat;
+      cp_async_elem(dst + r * kBS + k, ok ? src + row * feat + f0 + k : src,
+                    ok);
+    }
+  }
+}
+
+// kTileFlat's second half, in place: row r of `t` holds its features from
+// value (row * F + f0) % 8 on; each 16-byte unit of the first kp values is
+// rebuilt from the five words that cover it (a funnel shift by 0 or 16
+// bits), values past F or rows past nrows as real zeros (0 x NaN is NaN).
+// The shifted rows overlap their sources: every thread reads its units,
+// then a barrier, then writes them. The caller synchronises after.
+__device__ __forceinline__ void repack_tile(__nv_bfloat16* t, int64_t r0,
+                                            int nrows, int feat, int f0,
+                                            int kp, int tid) {
+  constexpr int kUnits = kR * kBK / 8 / kThreads;  // at most, a thread
+  const int q = kp / 8, cols = min(kBK, feat - f0);
+  const uint32_t* t32 = reinterpret_cast<const uint32_t*>(t);
+  uint32_t w[kUnits][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+  for (int it = 0; it < kUnits; ++it) {
+    const int e = tid + it * kThreads;
+    if (e >= kR * q) break;
+    const int r = e / q, u = e % q;
+    const int64_t row = r0 + r;
+    const int off = static_cast<int>((row * feat + f0) % 8) + 8 * u;
+    const uint32_t* s = t32 + r * (kBS / 2) + off / 2;
+    const int sh = (off & 1) * 16;
+    uint32_t x[5];
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < 5; ++i) x[i] = s[i];
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const float* c = acc[h][mt][nt];
-            const int col = 32 * h + 8 * nt + 2 * t;
-            *reinterpret_cast<float2*>(st + g * L::kSO + col) =
-                make_float2(c[0], c[1]);
-            *reinterpret_cast<float2*>(st + (g + 8) * L::kSO + col) =
-                make_float2(c[2], c[3]);
-          }
-        __syncwarp();
+    for (int i = 0; i < 4; ++i) {
+      const int k = 8 * u + 2 * i;
+      const uint32_t keep = row >= nrows ? 0u
+                            : k + 1 < cols ? 0xffffffffu
+                            : k < cols     ? 0x0000ffffu
+                                           : 0u;
+      w[it][i] = __funnelshift_r(x[i], x[i + 1], sh) & keep;
+    }
+  }
+  __syncthreads();
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int row = 2 * i + lane / 16, col = (lane % 16) * 4;
-          store_streaming(o + (16 * mt + row) * kC + col,
-                          *reinterpret_cast<const float4*>(st + row * L::kSO +
-                                                           col));
+  for (int it = 0; it < kUnits; ++it) {
+    const int e = tid + it * kThreads;
+    if (e >= kR * q) break;
+    *reinterpret_cast<uint4*>(t + (e / q) * kBS + (e % q) * 8) =
+        make_uint4(w[it][0], w[it][1], w[it][2], w[it][3]);
+  }
+}
+
+// Dynamic shared memory of sddmm_cells_bf16_kernel: two d1 tiles (the one
+// in use and the next row block's, loaded a step ahead), a two-stage ring
+// of d2 tiles, [kR][kBS] bf16 each, and each warp's staging tile for the
+// store: 110,592 bytes, two CTAs an SM.
+struct SddmmBf16Smem {
+  static constexpr int kTile = kR * kBS;  // values
+  static constexpr int kStage = 4 * kTile * 2;
+  static constexpr int kBytes = kStage + kThreads / kWarp * 16 * kSO * 4;
+};
+
+// sddmm_cells_kernel's work in the bf16 compute mode (bf16 d1 and d2): per
+// cell p of the chunk the fp32 block d1[rb[p] * 128 : +128] @
+// d2[cw[p] * 128 : +128]ᵀ. A step is one cell's 64-feature slice; its d2
+// tile streams through a two-stage cp.async ring, and d1's tile is loaded
+// (into the other of two buffers, with the same step's copies) only where
+// the row block or the slice changes. 8 warps, 4 x 2, each a 32 x 64 tile
+// of the block in registers, fed by ldmatrix (A = d1's rows, B = d2's rows,
+// both k-contiguous, so neither is transposed) into bf16 mma.m16n8k16.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads, 2)
+    sddmm_cells_bf16_kernel(const int* __restrict__ cell_rb,
+                            const int* __restrict__ cell_cw,
+                            const __nv_bfloat16* __restrict__ d1,
+                            const __nv_bfloat16* __restrict__ d2,
+                            float* __restrict__ out, int num_cells,
+                            int num_rows, int num_cols, int feat, int chunk) {
+  using L = SddmmBf16Smem;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const a_buf = reinterpret_cast<bf16*>(smem);
+  bf16* const b_ring = a_buf + 2 * L::kTile;
+  const int p0 = blockIdx.x * chunk;
+  const int slices = (feat + kBK - 1) / kBK;  // per cell
+  const int nsteps = (min(p0 + chunk, num_cells) - p0) * slices;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int wm = warp / 2, wn = warp % 2;  // rows 32 wm, columns 64 wn
+
+  // step s: cell p0 + s / slices, features (s % slices) * kBK + [0, kp)
+  auto new_a = [&](int s) {  // uniform: d1's row block or slice changes
+    return s == 0 || slices > 1 ||
+           cell_rb[p0 + s / slices] != cell_rb[p0 + (s - 1) / slices];
+  };
+  auto kp_of = [&](int s) {
+    return (min(kBK, feat - (s % slices) * kBK) + 15) / 16 * 16;
+  };
+  int a_issued = 1;  // the d1 buffer of the latest load
+  auto issue = [&](int s) {
+    const int p = p0 + s / slices, f0 = (s % slices) * kBK, kp = kp_of(s);
+    if (new_a(s)) {
+      a_issued ^= 1;
+      stage_tile_bf16<MODE>(a_buf + a_issued * L::kTile, d1,
+                            static_cast<int64_t>(cell_rb[p]) * kR, num_rows,
+                            feat, f0, kp, tid);
+    }
+    stage_tile_bf16<MODE>(b_ring + (s & 1) * L::kTile, d2,
+                          static_cast<int64_t>(cell_cw[p]) * kC, num_cols,
+                          feat, f0, kp, tid);
+  };
+
+  float acc[2][2][4][4];  // [half][m-tile][n-tile][fragment]
+  auto zero = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[h][mt][nt][i] = 0.f;
+  };
+  zero();
+
+  if (nsteps > 0) issue(0);
+  cp_async_commit();
+  const int li = lane >> 3, lj = lane & 7;  // lane's matrix, row in it
+  int a_cur = 1;
+  for (int s = 0; s < nsteps; ++s) {
+    const int p = p0 + s / slices, j = s % slices, kp = kp_of(s);
+    const bool fresh = new_a(s);
+    if (fresh) a_cur ^= 1;
+    cp_async_wait<0>();
+    __syncthreads();  // step s landed; step s - 1's tiles are free
+    if (s + 1 < nsteps) issue(s + 1);
+    cp_async_commit();
+
+    bf16* as = a_buf + a_cur * L::kTile;
+    bf16* bs = b_ring + (s & 1) * L::kTile;
+    if constexpr (MODE == kTileFlat) {
+      repack_tile(bs, static_cast<int64_t>(cell_cw[p]) * kC, num_cols, feat,
+                  j * kBK, kp, tid);
+      if (fresh)
+        repack_tile(as, static_cast<int64_t>(cell_rb[p]) * kR, num_rows,
+                    feat, j * kBK, kp, tid);
+      __syncthreads();
+    }
+    // k steps of 16 up to kp, which depends on the step alone: the
+    // products sit under no thread-dependent branch
+    for (int kk = 0; kk < kp; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        // matrices: rows 32 wm + 16 mt + 8 (li & 1) .., k kk + 8 (li >> 1)
+        ldmatrix_x4(a[mt], as + (32 * wm + 16 * mt + (lane & 15)) * kBS +
+                               kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t b[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          // matrices: n-tile 2 np + (li >> 1), k kk + 8 (li & 1); d2's
+          // rows are B's columns, so b0 and b1 load untransposed
+          uint32_t r4[4];
+          ldmatrix_x4(r4, bs + (64 * wn + 32 * h + 16 * np + 8 * (li >> 1) +
+                                lj) * kBS +
+                              kk + 8 * (li & 1));
+          b[2 * np][0] = r4[0];
+          b[2 * np][1] = r4[1];
+          b[2 * np + 1][0] = r4[2];
+          b[2 * np + 1][1] = r4[3];
         }
-        __syncwarp();
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[h][mt][nt], a[mt], b[nt]);
       }
+    }
+
+    if (j == slices - 1) {
+      store_block(acc,
+                  reinterpret_cast<float*>(smem + L::kStage) +
+                      warp * 16 * kSO,
+                  out + static_cast<int64_t>(p) * kCell + (32 * wm) * kC +
+                      64 * wn,
+                  lane);
       zero();
     }
   }
@@ -825,6 +1112,48 @@ int launch_sddmm(int device, const int* cell_rb, const int* cell_cw,
                                         chunk, s);
 }
 
+template <int MODE>
+int launch_sddmm_bf16_variant(const int* cell_rb, const int* cell_cw,
+                              const void* d1, const void* d2, float* out,
+                              int num_cells, int num_rows, int num_cols,
+                              int feat, int chunk, cudaStream_t s) {
+  constexpr int smem = SddmmBf16Smem::kBytes;
+  auto kernel = sddmm_cells_bf16_kernel<MODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(num_cells + chunk - 1) / chunk, kThreads, smem, s>>>(
+      cell_rb, cell_cw, static_cast<const __nv_bfloat16*>(d1),
+      static_cast<const __nv_bfloat16*>(d2), out, num_cells, num_rows,
+      num_cols, feat, chunk);
+  return cudaGetLastError();
+}
+
+// The bf16 mode's launch: the staging (TileMode) the operands' pointers
+// and F allow, the same for d1 and d2.
+int launch_sddmm_bf16(int device, const int* cell_rb, const int* cell_cw,
+                      const void* d1, const void* d2, float* out,
+                      int num_cells, int num_rows, int num_cols, int feat,
+                      int chunk, void* stream) {
+  if (num_cells <= 0 || feat <= 0 || chunk <= 0 || !aligned(out, 16))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto mode) {
+    return launch_sddmm_bf16_variant<decltype(mode)::value>(
+        cell_rb, cell_cw, d1, d2, out, num_cells, num_rows, num_cols, feat,
+        chunk, s);
+  };
+  if (aligned(d1, 16) && aligned(d2, 16))
+    return feat % 8 == 0
+               ? launch(std::integral_constant<int, kTileRows>())
+               : launch(std::integral_constant<int, kTileFlat>());
+  if (aligned(d1, 4) && aligned(d2, 4) && feat % 2 == 0)
+    return launch(std::integral_constant<int, kTilePairs>());
+  return launch(std::integral_constant<int, kTileElem>());
+}
+
 }  // namespace
 
 extern "C" {
@@ -864,7 +1193,8 @@ int dg_spmm_dense_cells(int cells_dtype, int dtype, int device,
 
 // out [num_cells * 128 * 128] fp32: per cell t the block
 // d1[cell_rb[t] * 128 + r] . d2[cell_cw[t] * 128 + c] for r, c < 128, over
-// F features of d1 [num_rows, F] and d2 [num_cols, F] in `dtype`; rows
+// F features of d1 [num_rows, F] and d2 [num_cols, F] in `dtype` (fp32:
+// sddmm_cells_kernel on 3xTF32; bf16: sddmm_cells_bf16_kernel); rows
 // past num_rows / num_cols count as 0. A CTA takes `chunk` consecutive
 // cells; cells of one row block next to each other share its staged d1
 // (any order is right). Returns a cudaError_t.
@@ -877,10 +1207,24 @@ int dg_sddmm_cells(int dtype, int device, const int* cell_rb,
                                num_cells, num_rows, num_cols, feat, chunk,
                                stream);
   if (dtype == kBFloat16)
-    return launch_sddmm<__nv_bfloat16>(device, cell_rb, cell_cw, d1, d2,
-                                       out, num_cells, num_rows, num_cols,
-                                       feat, chunk, stream);
+    return launch_sddmm_bf16(device, cell_rb, cell_cw, d1, d2, out,
+                             num_cells, num_rows, num_cols, feat, chunk,
+                             stream);
   return cudaErrorInvalidValue;
+}
+
+// dg_sddmm_cells on bf16 d1 and d2 through the fp32 kernel's template
+// (sddmm_cells_kernel<bf16>: TF32 m16n8k8 on widened values, 16 features
+// a step), the mapping the bf16 mode had before its own kernel; kept so
+// that a run can time the two side by side. No route of the library
+// calls it.
+int dg_sddmm_cells_tf32(int device, const int* cell_rb, const int* cell_cw,
+                        const void* d1, const void* d2, float* out,
+                        int num_cells, int num_rows, int num_cols, int feat,
+                        int chunk, void* stream) {
+  return launch_sddmm<__nv_bfloat16>(device, cell_rb, cell_cw, d1, d2, out,
+                                     num_cells, num_rows, num_cols, feat,
+                                     chunk, stream);
 }
 
 }  // extern "C"

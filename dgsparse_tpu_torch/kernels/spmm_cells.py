@@ -15,19 +15,22 @@ multiplies the fp32 cells at fp32 accuracy, whatever dense's dtype.
 bfloat16, the bf16 compute mode, rounds the inputs to bf16 (the cells,
 unless their bf16 twin `Storage.tier_values(compute_dtype=bfloat16)[
 "cells_bf16"]` is passed, and dense; d1 and d2), multiplies bf16 by bf16
-(exact in fp32) and sums in fp32: the SpMM then runs the bf16-cell
-kernel (`dense_cells_bf16_kernel`: bf16 `mma.sync.m16n8k16`), which reads
-half the cell bytes; the plain versions round the same way and multiply
-in float32.
+(exact in fp32) and sums in fp32. Each kernel has a variant of its own
+for it, on bf16 `mma.sync.m16n8k16` with `ldmatrix` fragments: the SpMM's
+`dense_cells_bf16_kernel`, which reads half the cell bytes, and the
+SDDMM's `sddmm_cells_bf16_kernel`, which also runs for bf16 d1 and d2 in
+float32 mode (the cast is then a no-op). The plain versions round the same
+way and multiply in float32.
 
 Routing as in `spmm_csr.py`: the plain version for tensors on the CPU, the
 kernel (or an exception) for tensors on a CUDA device. `LAUNCHES` counts
-kernel launches, the SpMM's bf16-cell variant under
-"spmm_dense_cells_bf16".
+kernel launches, the bf16 variants under "spmm_dense_cells_bf16" and
+"sddmm_cells_bf16".
 """
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,7 +39,7 @@ from dgsparse_tpu_torch.core.planner import DenseCellPlan
 from dgsparse_tpu_torch.kernels import _launch, reference
 
 LAUNCHES = {"spmm_dense_cells": 0, "spmm_dense_cells_bf16": 0,
-            "sddmm_cells": 0}
+            "sddmm_cells": 0, "sddmm_cells_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +58,8 @@ def _lib():
     lib.dg_spmm_dense_cells.restype = i
     lib.dg_sddmm_cells.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, p]
     lib.dg_sddmm_cells.restype = i
+    lib.dg_sddmm_cells_tf32.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.dg_sddmm_cells_tf32.restype = i
     return lib
 
 
@@ -156,7 +161,7 @@ def spmm_dense_cells(plan: DenseCellPlan, cells: torch.Tensor,
 
 # --- sddmm_cells -------------------------------------------------------------
 
-CTAS_PER_SM = 2      # sddmm_cells_kernel's occupancy (its shared memory)
+CTAS_PER_SM = 2      # both SDDMM kernels' occupancy (their shared memory)
 
 
 @functools.cache
@@ -192,14 +197,19 @@ def sddmm_cells_plain(plan: DenseCellPlan, d1: torch.Tensor,
 
 
 def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
-                     d2: torch.Tensor,
-                     compute_dtype=torch.float32) -> torch.Tensor:
+                     d2: torch.Tensor, compute_dtype=torch.float32,
+                     path: Optional[str] = None) -> torch.Tensor:
     """The kernel: float32 [ncells * R * C], per cell the block d1[rb] @
-    d2[cw]ᵀ (rows past M or N count as 0). bf16 mode needs no kernel of
-    its own: it rounds d1 and d2 to bf16, and the kernel multiplies bf16
-    operands in one exact TF32 pass (`csrc/spmm_cells.cu`), so the cast is
-    all of the mode. Raises unless every tensor is on one CUDA device with
-    the types it takes."""
+    d2[cw]ᵀ (rows past M or N count as 0). bf16 mode rounds d1 and d2 to
+    bf16; bf16 operands, in either mode, run `sddmm_cells_bf16_kernel`
+    (counted as "sddmm_cells_bf16"), float32 ones the 3xTF32 kernel.
+    `path="tf32"`, which no route of the library passes, runs bf16
+    operands through the float32 kernel's template instead (TF32 products
+    of the widened values), the mapping the mode had before its own
+    kernel, so that a run can time both. Raises unless every tensor is on
+    one CUDA device with the types it takes."""
+    if path not in (None, "tf32"):
+        raise ValueError(f"path must be None or 'tf32', got {path!r}")
     if check_compute_dtype(compute_dtype):
         d1, d2 = _bf16(d1, d2)
     _launch.check_device(d1.device, d1=d1, d2=d2, cell_rb=plan.cell_rb)
@@ -207,6 +217,9 @@ def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
     _launch.check_dense("d2", d2)
     if d1.dtype != d2.dtype:
         raise TypeError(f"d1 is {d1.dtype} and d2 {d2.dtype}; they must match")
+    bf16 = d1.dtype == torch.bfloat16
+    if path == "tf32" and not bf16:
+        raise TypeError("path='tf32' takes bf16 d1 and d2")
     _check_sddmm(plan, d1, d2)
     if plan.num_cells == 0 or d1.shape[1] == 0:
         return torch.zeros(plan.cell_slots, dtype=torch.float32,
@@ -214,14 +227,18 @@ def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
     out = torch.empty(plan.cell_slots, dtype=torch.float32,
                       device=d1.device)
     index = d1.device.index or 0
-    err = _lib().dg_sddmm_cells(
-        _launch.DTYPE_CODE[d1.dtype], index, plan.cell_rb.data_ptr(),
-        plan.cell_cw.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-        out.data_ptr(), plan.num_cells, plan.num_rows, plan.num_cols,
-        d1.shape[1], cells_per_cta(plan.num_cells, _sm_count(index)),
-        _launch.stream(d1.device))
+    args = (index, plan.cell_rb.data_ptr(), plan.cell_cw.data_ptr(),
+            d1.data_ptr(), d2.data_ptr(), out.data_ptr(), plan.num_cells,
+            plan.num_rows, plan.num_cols, d1.shape[1],
+            cells_per_cta(plan.num_cells, _sm_count(index)),
+            _launch.stream(d1.device))
+    if path == "tf32":
+        err = _lib().dg_sddmm_cells_tf32(*args)
+    else:
+        err = _lib().dg_sddmm_cells(_launch.DTYPE_CODE[d1.dtype], *args)
     _launch.raise_on(err, "sddmm_cells")
-    LAUNCHES["sddmm_cells"] += 1
+    LAUNCHES["sddmm_cells_bf16" if bf16 and path is None
+             else "sddmm_cells"] += 1
     return out
 
 

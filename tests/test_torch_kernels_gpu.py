@@ -239,8 +239,8 @@ def test_sddmm_launch_counts_and_empty_inputs(cuda):
                                "spmm_maxmin_d_values": 0,
                                "spmm_dense_cells": 0,
                                "spmm_dense_cells_bf16": 0, "sddmm_cells": 0,
-                               "spmm_bell": 0, "spconv_pairs": 0,
-                               "spconv_dw": 0}
+                               "sddmm_cells_bf16": 0, "spmm_bell": 0,
+                               "spconv_pairs": 0, "spconv_dw": 0}
     empty = torch.zeros(4, dtype=torch.int32, device=cuda)
     out = sddmm_csr.sddmm_csr(empty, empty[:0], torch.ones(3, 8, device=cuda),
                               torch.ones(5, 8, device=cuda))
@@ -860,6 +860,105 @@ def test_sddmm_cells_chunks_split_and_span_row_blocks(cuda, chunk, dtype,
     assert_sum_close(out, ref, abs_sum, TOLS[dtype])
 
 
+def _bf16_operand(cuda, g, rows, feat, offset):
+    """A bf16 [rows, F] operand `offset` values into its storage (1: off
+    16 and 4 bytes, the element copies; 2: off 16 bytes only, the 4-byte
+    copies where F is even), the storage's values past it NaN: the kernel
+    must read none of them."""
+    base = torch.full((rows * feat + offset + 16,), float("nan"),
+                      device=cuda)
+    base[offset:offset + rows * feat] = torch.randn(rows * feat, generator=g,
+                                                    device=cuda)
+    return base.to(torch.bfloat16)[offset:offset + rows * feat].view(rows,
+                                                                      feat)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("feat", [1, 5, 8, 16, 41, 48, 64, 72, 130])
+def test_sddmm_cells_bf16_kernel_matches_plain(cuda, feat, offset):
+    # sddmm_cells_bf16_kernel: every staging (16-byte rows at F % 8 == 0,
+    # the flat 16-byte pieces otherwise, 4-byte and 2-byte element copies
+    # off 16 bytes), one or three 64-feature slices a cell, 1500 rows (the
+    # last row block holds 92); against its plain version at 1e-5 of the
+    # terms' absolute sum, bitwise repeatable, and against the fp32
+    # kernel's TF32 template it replaced (path="tf32")
+    from dgsparse_tpu_torch.kernels import spmm_cells
+
+    plan = _hybrid(cuda).storage.ell_plan().cells
+    g = torch.Generator(device=cuda).manual_seed(feat * 3 + offset)
+    d1 = _bf16_operand(cuda, g, 1500, feat, offset)
+    d2 = _bf16_operand(cuda, g, 1500, feat, offset)
+    reset_launch_counts()
+    out = spmm_cells.sddmm_cells_cuda(plan, d1, d2)
+    counts = launch_counts()
+    assert (counts["sddmm_cells_bf16"], counts["sddmm_cells"]) == (1, 0)
+    ref = spmm_cells.sddmm_cells_plain(plan, d1, d2)
+    abs_sum = spmm_cells.sddmm_cells_plain(plan, d1.float().abs(),
+                                           d2.float().abs())
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (plan.cell_slots,)
+    assert torch.isfinite(out).all()
+    assert_sum_close(out, ref, abs_sum, TOLS["float32"])
+    assert torch.equal(out, spmm_cells.sddmm_cells_cuda(plan, d1, d2))
+    # the bf16 mode's cast from float32 operands: the same products
+    assert torch.equal(out, spmm_cells.sddmm_cells_cuda(
+        plan, d1.float(), d2.float(), torch.bfloat16))
+    assert launch_counts()["sddmm_cells"] == 0
+    old = spmm_cells.sddmm_cells_cuda(plan, d1, d2, path="tf32")
+    torch.cuda.synchronize()
+    assert launch_counts()["sddmm_cells"] == 1
+    assert_sum_close(out, old, abs_sum, TOLS["float32"])
+
+
+@pytest.mark.parametrize("chunk", [2, 5, 24])
+@pytest.mark.parametrize("feat", [41, 72])
+def test_sddmm_cells_bf16_chunks_split_and_span_row_blocks(cuda, feat, chunk,
+                                                           monkeypatch):
+    # as the float32 test below: a chunk of 2 splits a row block's run of
+    # cells (d1 staged anew), 5 and 24 span several; F = 72 stages d1
+    # every step (two slices a cell)
+    from dgsparse_tpu_torch.kernels import spmm_cells
+
+    plan = _hybrid(cuda).storage.ell_plan().cells
+    monkeypatch.setattr(spmm_cells, "cells_per_cta", lambda n, sms: chunk)
+    g = torch.Generator(device=cuda).manual_seed(chunk + feat)
+    d1 = torch.randn(1500, feat, generator=g, device=cuda).bfloat16()
+    d2 = torch.randn(1500, feat, generator=g, device=cuda).bfloat16()
+    out = spmm_cells.sddmm_cells_cuda(plan, d1, d2)
+    ref = spmm_cells.sddmm_cells_plain(plan, d1, d2)
+    abs_sum = spmm_cells.sddmm_cells_plain(plan, d1.float().abs(),
+                                           d2.float().abs())
+    torch.cuda.synchronize()
+    assert_sum_close(out, ref, abs_sum, TOLS["float32"])
+
+
+def test_public_sddmm_of_bf16_operands_runs_the_bf16_kernel(cuda):
+    # the public sddmm of bf16 d1, d2 on a hybrid storage: the cells on
+    # sddmm_cells_bf16_kernel, the other edges on the CSR SDDMM; its bf16
+    # result is the hybrid route's float32 sums rounded, and those agree
+    # with the CSR kernel over every edge at 1e-5 scaled
+    from dgsparse_tpu_torch.ops.hybrid import sddmm_hybrid
+
+    adj = _hybrid(cuda, seed=3)
+    st = adj.storage
+    g = torch.Generator(device=cuda).manual_seed(5)
+    d1 = torch.randn(1500, 41, generator=g, device=cuda).bfloat16()
+    d2 = torch.randn(1500, 41, generator=g, device=cuda).bfloat16()
+    reset_launch_counts()
+    out = pt.sddmm(adj, d1, d2)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"sddmm_cells_bf16": 1, "sddmm_csr": 1}
+    sums = sddmm_hybrid(st, d1, d2)
+    assert out.dtype == torch.bfloat16 and torch.equal(out,
+                                                       sums.bfloat16())
+    ref = sddmm_csr.sddmm_csr_cuda(st.rowptr(), st.col(), d1,
+                                   d2).reshape(-1)
+    abs_sum = sddmm_csr.sddmm_csr_cuda(st.rowptr(), st.col(), d1.abs(),
+                                       d2.abs()).reshape(-1)
+    torch.cuda.synchronize()
+    assert_sum_close(sums, ref, abs_sum, TOLS["float32"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("has_value", [True, False])
@@ -995,6 +1094,11 @@ def test_hybrid_kernels_refuse_bad_inputs(cuda):
                                          x)
     with pytest.raises(TypeError):
         spmm_cells.sddmm_cells_cuda(hp.cells, x, x.bfloat16())
+    with pytest.raises(TypeError):         # the TF32 template: bf16 only
+        spmm_cells.sddmm_cells_cuda(hp.cells, x, x, path="tf32")
+    with pytest.raises(ValueError):
+        spmm_cells.sddmm_cells_cuda(hp.cells, x.bfloat16(), x.bfloat16(),
+                                    path="tile")
     with pytest.raises(ValueError):
         spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"][:5], x)
     with pytest.raises(ValueError):
