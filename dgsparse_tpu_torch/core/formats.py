@@ -14,6 +14,7 @@ hash `_tune_key` that keys the tuner's cache (`utils/tune.py`), with the
 JAX recipe, so both packages key a structure alike.
 """
 
+import contextlib
 import hashlib
 import time
 from typing import Optional, Tuple
@@ -23,6 +24,7 @@ import torch
 
 from dgsparse_tpu_torch.core import planner as P
 from dgsparse_tpu_torch.core import transform as T
+from dgsparse_tpu_torch.utils import metrics
 
 
 def _host(x) -> np.ndarray:
@@ -97,6 +99,64 @@ def _move(obj, device):
     return obj.to(device) if hasattr(obj, "to") else obj
 
 
+def _host_csr(rowptr, col, values, row, sparse_sizes):
+    """(rowptr, col, values, num_cols) of a storage's input on the host,
+    sorted by row from COO `row` where no rowptr is given, and checked
+    (`_check_csr`); values stay a tensor, permuted with the columns."""
+    col_np = _index_host(col)
+    nnz = len(col_np)
+    vals = None if values is None else torch.as_tensor(values)
+
+    if rowptr is None:
+        if row is None:
+            raise ValueError("either rowptr or row must be given")
+        row_np = _index_host(row)
+        if sparse_sizes is None:
+            num_rows = int(row_np.max()) + 1 if nnz else 0
+        else:
+            num_rows = int(sparse_sizes[0])
+        perm = np.argsort(row_np, kind="stable")
+        counts = np.zeros(num_rows + 1, np.int64)
+        np.add.at(counts, row_np + 1, 1)
+        rowptr_np = np.cumsum(counts).astype(np.int32)
+        col_np = col_np[perm]
+        if vals is not None:
+            vals = vals[torch.as_tensor(perm, device=vals.device)]
+    else:
+        rowptr_np = _index_host(rowptr)
+
+    num_rows = len(rowptr_np) - 1
+    if sparse_sizes is not None:
+        if int(sparse_sizes[0]) != num_rows:
+            raise ValueError(
+                f"sparse_sizes[0]={sparse_sizes[0]} != rowptr rows "
+                f"{num_rows}")
+        num_cols = int(sparse_sizes[1])
+    else:
+        # reference derives N = col.max() + 1 (storage.py:33-41)
+        num_cols = int(col_np.max()) + 1 if nnz else 0
+    _check_csr(rowptr_np, col_np, num_cols, nnz)
+    if vals is not None and vals.shape[0] != nnz:
+        raise ValueError("values/col length mismatch")
+    return rowptr_np, col_np, vals, num_cols
+
+
+def _tier_build(ones: bool):
+    """The span of a tier-value build after construction, counted."""
+    metrics.count("tier_values.built")
+    return metrics.span("dgsparse.storage.tier_values", ones=ones)
+
+
+@contextlib.contextmanager
+def _phase(seconds: dict, name: str):
+    """One phase of a storage's construction: its host seconds into
+    `seconds[name]`, under the span `dgsparse.storage.build.<name>`."""
+    with metrics.span(f"dgsparse.storage.build.{name}"):
+        t0 = time.perf_counter()
+        yield
+        seconds[name] = time.perf_counter() - t0
+
+
 class Storage:
     """CSR arrays plus the CSC view, all built at construction.
 
@@ -108,7 +168,9 @@ class Storage:
     degree >= 16 also gets a `HybridPlan` when at least 30 % of its edges
     fall in filled cells: the gate of `dgsparse_tpu/core/formats.py:202-234`.
     The tiers' values are then cached for the values given here (or for
-    implicit ones); `build_seconds` times the construction's phases.
+    implicit ones); `build_seconds` times the construction's phases
+    (`host_check`, `csc`, `upload`, `hybrid_plan`, `tier_values`), each
+    also a child span of `dgsparse.storage.build`.
     """
 
     def __init__(
@@ -125,81 +187,51 @@ class Storage:
             raise ValueError("col is required")
         if device is None:
             device = _device_of(rowptr, col, values, row)
-        col_np = _index_host(col)
-        nnz = len(col_np)
-        vals = None if values is None else torch.as_tensor(values)
+        seconds = self.build_seconds = {}
+        with metrics.span("dgsparse.storage.build", nnz=len(col)):
+            with _phase(seconds, "host_check"):
+                rowptr_np, col_np, vals, num_cols = _host_csr(
+                    rowptr, col, values, row, sparse_sizes)
+            num_rows, nnz = len(rowptr_np) - 1, len(col_np)
+            with _phase(seconds, "csc"):
+                colptr, row_csc, perm = T.csr2csc_np(rowptr_np, col_np,
+                                                     num_cols, device)
+            with _phase(seconds, "upload"):
+                self._rowptr = _index_tensor(rowptr_np, device)
+                self._col = _index_tensor(col_np, device)
+                self._values = None if vals is None else vals.to(device)
+                self._colptr = _index_tensor(colptr, device)
+                self._row_csc = _index_tensor(row_csc, device)
+                self._csr2csc = _index_tensor(perm, device)
+                self._csc_slot = None   # csr2csc's inverse, on first use
+                self._coo_row = _index_tensor(T.expand_rowptr_np(rowptr_np),
+                                              device)
+                # per-edge col ids in CSC order: the transpose's segment ids
+                self._csc_col = _index_tensor(T.expand_rowptr_np(colptr),
+                                              device)
+                self._num_rows = num_rows
+                self._num_cols = num_cols
+                self._nnz = nnz
+                self._tune_key = structure_hash(num_rows, num_cols, nnz,
+                                                rowptr_np, col_np)
 
-        if rowptr is None:
-            if row is None:
-                raise ValueError("either rowptr or row must be given")
-            row_np = _index_host(row)
-            if sparse_sizes is None:
-                num_rows = int(row_np.max()) + 1 if nnz else 0
-            else:
-                num_rows = int(sparse_sizes[0])
-            perm = np.argsort(row_np, kind="stable")
-            counts = np.zeros(num_rows + 1, np.int64)
-            np.add.at(counts, row_np + 1, 1)
-            rowptr_np = np.cumsum(counts).astype(np.int32)
-            col_np = col_np[perm]
-            if vals is not None:
-                vals = vals[torch.as_tensor(perm, device=vals.device)]
-        else:
-            rowptr_np = _index_host(rowptr)
-
-        num_rows = len(rowptr_np) - 1
-        if sparse_sizes is not None:
-            if int(sparse_sizes[0]) != num_rows:
-                raise ValueError(
-                    f"sparse_sizes[0]={sparse_sizes[0]} != rowptr rows "
-                    f"{num_rows}")
-            num_cols = int(sparse_sizes[1])
-        else:
-            # reference derives N = col.max() + 1 (storage.py:33-41)
-            num_cols = int(col_np.max()) + 1 if nnz else 0
-        _check_csr(rowptr_np, col_np, num_cols, nnz)
-        if vals is not None and vals.shape[0] != nnz:
-            raise ValueError("values/col length mismatch")
-
-        t0 = time.perf_counter()
-        colptr, row_csc, perm = T.csr2csc_np(rowptr_np, col_np, num_cols,
-                                             device)
-        t1 = time.perf_counter()
-        self._rowptr = _index_tensor(rowptr_np, device)
-        self._col = _index_tensor(col_np, device)
-        self._values = None if vals is None else vals.to(device)
-        self._colptr = _index_tensor(colptr, device)
-        self._row_csc = _index_tensor(row_csc, device)
-        self._csr2csc = _index_tensor(perm, device)
-        self._csc_slot = None           # csr2csc's inverse, on first use
-        self._coo_row = _index_tensor(T.expand_rowptr_np(rowptr_np), device)
-        # per-edge col ids in CSC order: the transpose's segment ids
-        self._csc_col = _index_tensor(T.expand_rowptr_np(colptr), device)
-        self._num_rows = num_rows
-        self._num_cols = num_cols
-        self._nnz = nnz
-        self._tune_key = structure_hash(num_rows, num_cols, nnz, rowptr_np,
-                                        col_np)
-        t2 = time.perf_counter()
-        self.build_seconds = {"csc": t1 - t0, "upload": t2 - t1}
-
-        self._hybrid = self._tier_vals = self._tier_ones = None
-        self._tier_key = self._slot_maps = None
-        if build_plans and nnz >= 4096 and nnz / max(num_rows, 1) >= 16:
-            hyb = P.build_hybrid_plan(rowptr_np, col_np, num_cols,
-                                      device=device)
-            t3 = time.perf_counter()
-            self.build_seconds["hybrid_plan"] = t3 - t2
-            if hyb is not None and hyb.dense_fraction >= 0.3:
-                self._hybrid = hyb
-                if vals is None:
-                    self._tier_ones = P.tier_values(hyb, None, device)
-                else:
-                    self._tier_vals = P.tier_values(
-                        hyb, vals.detach().float().cpu().numpy(), device)
-                    self._tier_key = _values_key(self._values)
-                self.build_seconds["tier_values"] = \
-                    time.perf_counter() - t3
+            self._hybrid = self._tier_vals = self._tier_ones = None
+            self._tier_key = self._slot_maps = None
+            if build_plans and nnz >= 4096 and nnz / max(num_rows, 1) >= 16:
+                with _phase(seconds, "hybrid_plan"):
+                    hyb = P.build_hybrid_plan(rowptr_np, col_np, num_cols,
+                                              device=device)
+                if hyb is not None and hyb.dense_fraction >= 0.3:
+                    self._hybrid = hyb
+                    with _phase(seconds, "tier_values"):
+                        metrics.count("tier_values.built")
+                        if vals is None:
+                            self._tier_ones = P.tier_values(hyb, None, device)
+                        else:
+                            self._tier_vals = P.tier_values(
+                                hyb, vals.detach().float().cpu().numpy(),
+                                device)
+                            self._tier_key = _values_key(self._values)
 
     def _replace(self, **tensors) -> "Storage":
         """A copy with some tensors (and, via `_num_*`, sizes) replaced."""
@@ -243,17 +275,23 @@ class Storage:
         with torch.inference_mode(False):
             if ones:
                 if self._tier_ones is None:
-                    self._tier_ones = P.tier_values(self._hybrid, None,
-                                                    self.device)
+                    with _tier_build(ones=True):
+                        self._tier_ones = P.tier_values(self._hybrid, None,
+                                                        self.device)
+                else:
+                    metrics.count("tier_values.reused")
                 tiers = self._tier_ones
             else:
                 if self._values is None:
                     raise ValueError("the storage has no values")
                 key = _values_key(self._values)
                 if self._tier_vals is None or self._tier_key != key:
-                    self._tier_vals = P.tier_values(self._hybrid,
-                                                    self._values, self.device)
+                    with _tier_build(ones=False):
+                        self._tier_vals = P.tier_values(
+                            self._hybrid, self._values, self.device)
                     self._tier_key = key
+                else:
+                    metrics.count("tier_values.reused")
                 tiers = self._tier_vals
             if compute_dtype == torch.bfloat16:
                 P.with_bf16_cells(tiers)

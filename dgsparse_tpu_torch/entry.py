@@ -55,6 +55,7 @@ from dgsparse_tpu_torch.nn.gcn import GCN, get_gcn_dcsr_from_edge_index
 from dgsparse_tpu_torch.nn.gin import GIN
 from dgsparse_tpu_torch.nn.unet import PointCloudUNet
 from dgsparse_tpu_torch.ops.spconv import SparseConvTensor
+from dgsparse_tpu_torch.utils import metrics
 from dgsparse_tpu_torch.utils.testing import (clustered_graph, gcn_norm_csr,
                                               random_csr)
 
@@ -272,17 +273,27 @@ def build_trainer(config: str = "gcn-cora", seed: int = 0, device="cuda",
 def build_optimizer(model, lr: float = ADAM["lr"]) -> torch.optim.Adam:
     """Adam with optax's defaults, at lr 1e-2 (`bench_train.py:145`) unless
     given another."""
-    return torch.optim.Adam(model.parameters(), **{**ADAM, "lr": lr})
+    with metrics.span("dgsparse.setup.optimizer"):
+        return torch.optim.Adam(model.parameters(), **{**ADAM, "lr": lr})
 
 
 def train_step(model, opt, x, adj, y) -> torch.Tensor:
     """One step: forward, mean cross-entropy, backward, Adam update.
-    Returns the loss before the update (detached)."""
-    opt.zero_grad(set_to_none=True)
-    loss = F.cross_entropy(model(x, adj), y)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    Returns the loss before the update (detached). With tracing on, the
+    span `dgsparse.step` holds its phases' spans."""
+    with metrics.span("dgsparse.step"):
+        opt.zero_grad(set_to_none=True)
+        with metrics.span("dgsparse.step.forward"):
+            out = model(x, adj)
+        with metrics.span("dgsparse.step.loss"):
+            loss = F.cross_entropy(out, y)
+        # the logits are not saved for backward: free them before it
+        del out
+        with metrics.span("dgsparse.step.backward"):
+            loss.backward()
+        with metrics.span("dgsparse.step.optimizer"):
+            opt.step()
+        return loss.detach()
 
 
 def train(config: str = "gcn-cora", steps: int = 5, device="cuda",

@@ -6,7 +6,9 @@ headers, so a build takes seconds), written to
 `<hash>` covers the sources and the flags. A build writes to a temporary
 name and renames it into place, so concurrent processes never load a
 half-written file. There is no fallback: a missing nvcc or a failed build
-raises.
+raises. A process's first `load` of a library is the span
+`dgsparse.kernels.load.<name>`, tagged with whether it was built and
+nvcc's seconds (`Built.seconds`), and counted as built or cached.
 """
 
 import concurrent.futures
@@ -19,6 +21,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from dgsparse_tpu_torch.utils import metrics
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -98,5 +102,9 @@ def build_all(names) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The library built from `csrc/<name>.cu`, built on first use."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build(name).path))
+        with metrics.span(f"dgsparse.kernels.load.{name}") as sp:
+            built = build(name)
+            _LOADED[name] = ctypes.CDLL(str(built.path))
+            sp.tag(built=not built.cached, nvcc_s=built.seconds)
+        metrics.count("kernels.cached" if built.cached else "kernels.built")
     return _LOADED[name]

@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from dgsparse_tpu_torch.utils import metrics
+
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "dgsparse_host.cpp"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-shared")
@@ -93,10 +95,11 @@ def load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    try:
-        lib = ctypes.CDLL(str(build()))
-    except (OSError, RuntimeError, subprocess.SubprocessError):
-        return None
+    with metrics.span("dgsparse.native.load"):
+        try:
+            lib = ctypes.CDLL(str(build()))
+        except (OSError, RuntimeError, subprocess.SubprocessError):
+            return None
     i32, i64 = ctypes.c_int32, ctypes.c_int64
     lib.dg_csr2csc.argtypes = [_I32P, _I32P, i32, i32, i64, _I32P, _I32P,
                                _I32P]

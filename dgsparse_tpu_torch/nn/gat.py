@@ -31,6 +31,7 @@ from dgsparse_tpu_torch.ops.attention import gat_attention
 from dgsparse_tpu_torch.ops.edge_softmax import edge_softmax
 from dgsparse_tpu_torch.ops.spmm_mh import spmm_multihead
 from dgsparse_tpu_torch.ops.types import Algorithm
+from dgsparse_tpu_torch.utils import metrics
 
 # the slot-space branch's gate on the edge count (JAX's `1 << 21`); a
 # module constant so that tests can lower it
@@ -101,4 +102,6 @@ class GAT(nn.Module):
                             generator=generator)
 
     def forward(self, x: torch.Tensor, adj: SparseTensor) -> torch.Tensor:
-        return self.gat2(F.elu(self.gat1(x, adj)), adj)
+        with metrics.span("dgsparse.model.GAT.forward", nodes=x.shape[0],
+                          nnz=adj.nnz):
+            return self.gat2(F.elu(self.gat1(x, adj)), adj)

@@ -18,6 +18,7 @@ from dgsparse_tpu_torch.nn._flax import (  # noqa: F401  (load_flax_params)
     init_like_flax_dense, load_flax_params)
 from dgsparse_tpu_torch.ops.spmm import spmm_sum
 from dgsparse_tpu_torch.ops.types import Algorithm
+from dgsparse_tpu_torch.utils import metrics
 
 
 def gcn_norm_from_edge_index(
@@ -45,7 +46,8 @@ def get_gcn_dcsr_from_edge_index(edge_index, num_nodes: int,
                                  device=None) -> SparseTensor:
     """Normalized adjacency as a SparseTensor (reference
     get_gcn_dcsr_from_edge_index, dgsparse/nn/gcnconv.py:53-70)."""
-    rowptr, col, vals = gcn_norm_from_edge_index(edge_index, num_nodes)
+    with metrics.span("dgsparse.adjacency.gcn_norm", nodes=num_nodes):
+        rowptr, col, vals = gcn_norm_from_edge_index(edge_index, num_nodes)
     return SparseTensor.from_csr(rowptr, col, torch.from_numpy(vals),
                                  sparse_sizes=(num_nodes, num_nodes),
                                  device=device)
@@ -86,6 +88,8 @@ class GCN(nn.Module):
                              generator)
 
     def forward(self, x: torch.Tensor, adj: SparseTensor) -> torch.Tensor:
-        x = F.relu(self.conv1(x, adj))
-        x = F.dropout(x, self.dropout, training=self.training)
-        return self.conv2(x, adj)
+        with metrics.span("dgsparse.model.GCN.forward", nodes=x.shape[0],
+                          nnz=adj.nnz):
+            x = F.relu(self.conv1(x, adj))
+            x = F.dropout(x, self.dropout, training=self.training)
+            return self.conv2(x, adj)

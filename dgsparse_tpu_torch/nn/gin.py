@@ -19,6 +19,7 @@ from dgsparse_tpu_torch.core.formats import SparseTensor
 from dgsparse_tpu_torch.nn._flax import init_like_flax_dense
 from dgsparse_tpu_torch.ops.spmm import spmm
 from dgsparse_tpu_torch.ops.types import Algorithm
+from dgsparse_tpu_torch.utils import metrics
 
 AGGREGATORS = ("sum", "max", "mean")
 
@@ -90,7 +91,9 @@ class GIN(nn.Module):
         init_like_flax_dense(self.readout, generator)
 
     def forward(self, x: torch.Tensor, adj: SparseTensor) -> torch.Tensor:
-        for i in range(self.num_convs):
-            x = F.relu(getattr(self, f"gin{i}")(x, adj))
-            x = F.dropout(x, self.dropout, training=self.training)
-        return self.readout(x)
+        with metrics.span("dgsparse.model.GIN.forward", nodes=x.shape[0],
+                          nnz=adj.nnz):
+            for i in range(self.num_convs):
+                x = F.relu(getattr(self, f"gin{i}")(x, adj))
+                x = F.dropout(x, self.dropout, training=self.training)
+            return self.readout(x)

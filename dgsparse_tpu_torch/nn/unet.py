@@ -16,6 +16,7 @@ from dgsparse_tpu_torch.nn._flax import init_like_flax_dense
 from dgsparse_tpu_torch.nn.sparse_conv import (SparseConv3d, SparseConvBlock,
                                                SparseInverseConv3d)
 from dgsparse_tpu_torch.ops.spconv import SparseConvTensor, SpConvPlan
+from dgsparse_tpu_torch.utils import metrics
 
 
 class PointCloudUNet(nn.Module):
@@ -42,7 +43,9 @@ class PointCloudUNet(nn.Module):
     def forward(self, x: torch.Tensor, st: SparseConvTensor) -> torch.Tensor:
         """Logits [n, classes] for the voxel features x [n, in_channels] at
         the sites of `st` (whose rulebooks it caches)."""
-        e1 = self.enc1(st.replace(features=x))
-        d1 = self.enc2(self.down1(e1))
-        u1 = self.up1(d1.features, e1)
-        return self.head(torch.cat([u1.features, e1.features], -1))
+        with metrics.span("dgsparse.model.PointCloudUNet.forward",
+                          nodes=x.shape[0]):
+            e1 = self.enc1(st.replace(features=x))
+            d1 = self.enc2(self.down1(e1))
+            u1 = self.up1(d1.features, e1)
+            return self.head(torch.cat([u1.features, e1.features], -1))

@@ -56,6 +56,7 @@ from dgsparse_tpu_torch.core.transform import gather_rows
 from dgsparse_tpu_torch.kernels.spmm_cells import check_compute_dtype
 from dgsparse_tpu_torch.ops import slot as S
 from dgsparse_tpu_torch.ops.hybrid import spmm_hybrid, spmm_hybrid_t
+from dgsparse_tpu_torch.utils import metrics
 
 
 def _weights(st: Storage, s_row, s_col, shift, slope):
@@ -114,11 +115,19 @@ class _HybridAttention(torch.autograd.Function):
         denom = torch.clamp(nd[:, f], min=S._TINY)
         out = nd[:, :f] / denom[:, None]
         ctx.st, ctx.slope, ctx.compute_dtype = st, slope, compute_dtype
+        ctx.span = metrics.current()
         ctx.save_for_backward(s_row, s_col, x, shift, denom, out)
         return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
+        with metrics.backward_span(ctx.span, d_s_row=ctx.needs_input_grad[0],
+                                   d_s_col=ctx.needs_input_grad[1],
+                                   d_x=ctx.needs_input_grad[2]):
+            return _HybridAttention._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         s_row, s_col, x, shift, denom, out = ctx.saved_tensors
         st, slope = ctx.st, ctx.slope
         hp = st.ell_plan()
@@ -184,11 +193,25 @@ def gat_attention(sparse: SparseTensor, s_row: torch.Tensor,
             f"s_row {tuple(s_row.shape)}, s_col {tuple(s_col.shape)} and x "
             f"{tuple(x.shape)} must be [{m}], [{n}] and [{n}, F]")
     st = sparse.storage
-    if st.ell_plan() is not None:
-        return _HybridAttention.apply(s_row.contiguous(), s_col.contiguous(),
-                                      x.contiguous(), st,
-                                      float(negative_slope), compute_dtype)
-    return _edge_space_attention(sparse, s_row, s_col, x, negative_slope)
+    fused = st.ell_plan() is not None
+    metrics.record("gat_attention", route="fused" if fused else "edge",
+                   nnz=st.nnz, feat=x.shape[1])
+    with _span("fused" if fused else "edge", st, x, compute_dtype):
+        if fused:
+            return _HybridAttention.apply(
+                s_row.contiguous(), s_col.contiguous(), x.contiguous(), st,
+                float(negative_slope), compute_dtype)
+        return _edge_space_attention(sparse, s_row, s_col, x, negative_slope)
+
+
+def _span(route: str, st: Storage, x: torch.Tensor, compute_dtype):
+    """The forward span of `gat_attention` on `route`."""
+    if not metrics.enabled():
+        return metrics.NULL_SPAN
+    return metrics.span(
+        f"dgsparse.op.gat_attention.{route}.fwd", m=st.num_rows,
+        n=st.num_cols, nnz=st.nnz, f=x.shape[1], dtype=str(x.dtype)[6:],
+        compute_dtype=str(compute_dtype)[6:])
 
 
 def _edge_space_attention(sparse: SparseTensor, s_row, s_col, x,

@@ -6,12 +6,57 @@ is XLA segment ops, not a
 Pallas kernel, and so is this one in PyTorch: a row max, exp, a row sum.
 Numerically stable (max-shifted, the shift detached, which is exact for
 softmax); empty rows are a no-op.
+
+Its backward is autograd's, over the aten nodes of the forward. With
+tracing on (`utils/metrics.py`) and a gradient to compute, two identity
+autograd Functions bracket the op: `_OpenBackward` on the output opens
+its `.bwd` span when the cotangent arrives, before any of those nodes
+runs, and `_CloseBackward` on the logits closes it once their gradient
+is complete. With tracing off the graph is the op's alone.
 """
 
 import torch
 
 from dgsparse_tpu_torch.core.formats import SparseTensor
 from dgsparse_tpu_torch.core.transform import gather_rows
+from dgsparse_tpu_torch.utils import metrics
+
+
+class _Bracket:
+    """The `.bwd` span of one call, opened and closed by two nodes."""
+
+    def __init__(self, fwd):
+        self.fwd, self.open = fwd, None
+
+
+class _OpenBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bracket):
+        ctx.bracket = bracket
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        b = ctx.bracket
+        if b.open is None:
+            b.open = metrics.backward_span(b.fwd, d_logits=True)
+            b.open.__enter__()
+        return g, None
+
+
+class _CloseBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bracket):
+        ctx.bracket = bracket
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        b = ctx.bracket
+        if b.open is not None:
+            b.open.__exit__(None, None, None)
+            b.open = None
+        return g, None
 
 
 def _row_sums(x: torch.Tensor, row: torch.Tensor, m: int) -> torch.Tensor:
@@ -33,6 +78,25 @@ def edge_softmax(sparse: SparseTensor, logits: torch.Tensor) -> torch.Tensor:
     if isinstance(logits, SlotValues):
         return edge_softmax_slots(sparse, logits)
     st = sparse.storage
+    heads = logits.numel() // max(st.nnz, 1)
+    metrics.record("edge_softmax", nnz=st.nnz, heads=heads)
+    if not metrics.enabled():
+        return _edge_softmax(st, logits)
+    with metrics.span("dgsparse.op.edge_softmax.edge.fwd", m=st.num_rows,
+                      nnz=st.nnz, heads=heads, dtype=str(logits.dtype)[6:],
+                      d_logits=logits.requires_grad) as fwd:
+        bracket = None
+        if torch.is_grad_enabled() and logits.requires_grad:
+            bracket = _Bracket(fwd)
+            logits = _CloseBackward.apply(logits, bracket)
+        out = _edge_softmax(st, logits)
+        if bracket is not None:
+            out = _OpenBackward.apply(out, bracket)
+        return out
+
+
+def _edge_softmax(st, logits: torch.Tensor) -> torch.Tensor:
+    """The softmax of `edge_softmax` on the storage's CSR order."""
     row = st.coo_row()
     m = st.num_rows
     shape = (m,) + tuple(logits.shape[1:])

@@ -42,7 +42,7 @@ import torch
 
 from dgsparse_tpu_torch.core import planner
 from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
-from dgsparse_tpu_torch.ops.spmm import _mode, aggregate
+from dgsparse_tpu_torch.ops.spmm import _mode, aggregate, op_span
 from dgsparse_tpu_torch.ops.types import (ComputeOp, ReduceOp, as_compute,
                                           as_reduce)
 from dgsparse_tpu_torch.utils import metrics
@@ -57,7 +57,9 @@ def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
     tensor's own values (then compute always applies)."""
     reduce, compute = as_reduce(reduce), as_compute(compute)
     if values is not None:
-        return _gspmm_slots(sparse, dense, reduce, compute, values)
+        with op_span("gspmm", "slots", sparse.storage, values, dense, reduce,
+                     compute=compute.value):
+            return _gspmm_slots(sparse, dense, reduce, compute, values)
     maybe_validate(sparse)
     metrics.record("gspmm", reduce=reduce.value, compute=compute.value,
                    nnz=sparse.nnz, feat=dense.shape[-1])
@@ -72,7 +74,9 @@ def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
     x = dense.contiguous().unsqueeze(1)
     if reduce in (ReduceOp.MAX, ReduceOp.MIN):
         w = None if vals is None else vals.unsqueeze(1)
-        return aggregate(w, x, st, reduce, compute).squeeze(1)
+        with op_span("gspmm", "maxmin", st, vals, dense, reduce,
+                     compute=compute.value):
+            return aggregate(w, x, st, reduce, compute).squeeze(1)
     # SUM / MEAN: one weighted SpMM (values, 1/values, or none), plus or
     # minus the values' row sum for ADD / SUB
     if vals is None or compute == ComputeOp.MUL:
@@ -83,18 +87,20 @@ def gspmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
         w = None
     tiers = _hybrid_tiers(st, dense, reduce, w,
                           cached=vals is None or compute != ComputeOp.DIV)
-    out = aggregate(None if w is None else w.unsqueeze(1), x, st, reduce,
-                    tiers=tiers).squeeze(1)
-    if vals is None or compute in (ComputeOp.MUL, ComputeOp.DIV):
-        return out
-    e_row = torch.zeros(st.num_rows, dtype=vals.dtype,
-                        device=vals.device).index_add(
-                            0, st.coo_row().long(), vals)
-    if reduce == ReduceOp.MEAN:
-        deg = st.rowptr()[1:] - st.rowptr()[:-1]
-        e_row = e_row / torch.clamp(deg, min=1).to(e_row.dtype)
-    e_row = e_row.to(out.dtype)[:, None]
-    return out + e_row if compute == ComputeOp.ADD else out - e_row
+    with op_span("gspmm", "csr" if tiers is None else "hybrid", st, vals,
+                 dense, reduce, compute=compute.value):
+        out = aggregate(None if w is None else w.unsqueeze(1), x, st, reduce,
+                        tiers=tiers).squeeze(1)
+        if vals is None or compute in (ComputeOp.MUL, ComputeOp.DIV):
+            return out
+        e_row = torch.zeros(st.num_rows, dtype=vals.dtype,
+                            device=vals.device).index_add(
+                                0, st.coo_row().long(), vals)
+        if reduce == ReduceOp.MEAN:
+            deg = st.rowptr()[1:] - st.rowptr()[:-1]
+            e_row = e_row / torch.clamp(deg, min=1).to(e_row.dtype)
+        e_row = e_row.to(out.dtype)[:, None]
+        return out + e_row if compute == ComputeOp.ADD else out - e_row
 
 
 def _hybrid_tiers(st: Storage, dense: torch.Tensor, reduce: ReduceOp, w,

@@ -34,6 +34,7 @@ class _SDDMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, d1, d2, st: Storage, reduce: ReduceOp, hybrid: bool):
         ctx.st, ctx.reduce = st, reduce
+        ctx.span = metrics.current()
         ctx.save_for_backward(d1, d2)
         if hybrid:
             return sddmm_hybrid(st, d1, d2, reduce)
@@ -42,6 +43,12 @@ class _SDDMM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with metrics.backward_span(ctx.span, d_d1=ctx.needs_input_grad[0],
+                                   d_d2=ctx.needs_input_grad[1]):
+            return _SDDMM._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         d1, d2 = ctx.saved_tensors
         st = ctx.st
         g = g.float().contiguous()
@@ -87,8 +94,23 @@ def sddmm(sparse: SparseTensor, d1: torch.Tensor, d2: torch.Tensor,
     st = sparse.storage
     hp = st.ell_plan()
     hybrid = algorithm != "pallas" and hp is not None and hp.cells is not None
-    out = _SDDMM.apply(d1.contiguous(), d2.contiguous(), st, reduce, hybrid)
-    return out.to(torch.promote_types(d1.dtype, d2.dtype))
+    with sddmm_span("hybrid" if hybrid else "csr", st, d1, d2, reduce):
+        out = _SDDMM.apply(d1.contiguous(), d2.contiguous(), st, reduce,
+                           hybrid)
+        return out.to(torch.promote_types(d1.dtype, d2.dtype))
+
+
+def sddmm_span(route: str, st: Storage, d1: torch.Tensor, d2: torch.Tensor,
+               reduce: ReduceOp = ReduceOp.SUM):
+    """The forward span of an SDDMM (`sddmm`, `sddmm_slots`) on `route`,
+    with the tags its work count takes."""
+    if not metrics.enabled():
+        return metrics.NULL_SPAN
+    return metrics.span(
+        f"dgsparse.op.sddmm.{route}.fwd", m=st.num_rows, n=st.num_cols,
+        nnz=st.nnz, f=d1.shape[1], reduce=reduce.value,
+        dtype=str(d1.dtype)[6:], d_d1=d1.requires_grad,
+        d_d2=d2.requires_grad)
 
 
 def sddmm_coo(row: torch.Tensor, col: torch.Tensor, d1: torch.Tensor,

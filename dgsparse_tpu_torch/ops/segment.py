@@ -12,18 +12,21 @@ import torch
 
 from dgsparse_tpu_torch.core.transform import compress_rowids
 from dgsparse_tpu_torch.kernels.spmm_csr import segment_sum_csr
+from dgsparse_tpu_torch.utils import metrics
 
 
 class _SortedSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, ids, rowptr):
+        ctx.span = metrics.current()
         ctx.save_for_backward(ids)
         return segment_sum_csr(rowptr, data, coo_row=ids)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return g.index_select(0, ids.long()), None, None
+        with metrics.backward_span(ctx.span):
+            return g.index_select(0, ids.long()), None, None
 
 
 def sorted_segment_sum(data: torch.Tensor, segment_ids,
@@ -42,4 +45,7 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids,
         raise ValueError(
             f"segment_ids must be sorted ascending in [0, {num_segments})")
     rowptr = compress_rowids(ids, num_segments)
-    return _SortedSegmentSum.apply(data.contiguous(), ids, rowptr)
+    with metrics.span("dgsparse.op.sorted_segment_sum.csr.fwd",
+                      n=data.shape[0], segments=num_segments,
+                      f=data.shape[1]):
+        return _SortedSegmentSum.apply(data.contiguous(), ids, rowptr)

@@ -62,7 +62,10 @@ from dgsparse_tpu_torch.core.formats import SparseTensor, Storage
 from dgsparse_tpu_torch.kernels.sddmm_csr import sddmm_csr
 from dgsparse_tpu_torch.kernels.spmm_cells import sddmm_cells
 from dgsparse_tpu_torch.ops.hybrid import spmm_hybrid, spmm_hybrid_t
+from dgsparse_tpu_torch.ops.sddmm import _SDDMM, sddmm_span
+from dgsparse_tpu_torch.ops.spmm import aggregate, op_span
 from dgsparse_tpu_torch.ops.types import ReduceOp, as_reduce
+from dgsparse_tpu_torch.utils import metrics
 
 # a denominator floor well inside float32's normal range
 _TINY = 1e-30
@@ -207,6 +210,7 @@ class _SDDMMSlots(torch.autograd.Function):
     @staticmethod
     def forward(ctx, d1, d2, st: Storage):
         ctx.st = st
+        ctx.span = metrics.current()
         ctx.save_for_backward(d1, d2)
         cells, bell, ell = slot_dots(st, d1, d2)
         ctx.flags = (cells is not None, bell is not None, True)
@@ -214,6 +218,12 @@ class _SDDMMSlots(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        with metrics.backward_span(ctx.span, d_d1=ctx.needs_input_grad[0],
+                                   d_d2=ctx.needs_input_grad[1]):
+            return _SDDMMSlots._backward(ctx, *grads)
+
+    @staticmethod
+    def _backward(ctx, *grads):
         d1, d2 = ctx.saved_tensors
         st = ctx.st
         g_cells, g_bell, g_ell = _unpack(ctx.flags, grads)
@@ -238,17 +248,18 @@ def sddmm_slots(sparse: SparseTensor, d1: torch.Tensor,
         raise ValueError(
             f"d1 {tuple(d1.shape)} and d2 {tuple(d2.shape)} must be [{m}, F] "
             f"and [{n}, F]")
-    if _hybrid(sparse) is None:
-        from dgsparse_tpu_torch.ops.sddmm import _SDDMM
-
-        return SlotValues(None, None, _SDDMM.apply(
-            d1.contiguous(), d2.contiguous(), sparse.storage, ReduceOp.SUM,
-            False))
     st = sparse.storage
-    flags = (st.ell_plan().cells is not None, st.ell_plan().bell is not None,
-             True)
-    out = _SDDMMSlots.apply(d1.contiguous(), d2.contiguous(), st)
-    return SlotValues(*_unpack(flags, out))
+    hybrid = _hybrid(sparse) is not None
+    metrics.record("sddmm_slots", hybrid=hybrid, nnz=st.nnz,
+                   feat=d1.shape[1])
+    with sddmm_span("slots" if hybrid else "csr", st, d1, d2):
+        if not hybrid:
+            return SlotValues(None, None, _SDDMM.apply(
+                d1.contiguous(), d2.contiguous(), st, ReduceOp.SUM, False))
+        flags = (st.ell_plan().cells is not None,
+                 st.ell_plan().bell is not None, True)
+        out = _SDDMMSlots.apply(d1.contiguous(), d2.contiguous(), st)
+        return SlotValues(*_unpack(flags, out))
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +278,14 @@ def edge_softmax_slots(sparse: SparseTensor, sv: SlotValues) -> SlotValues:
 
         return SlotValues(None, None, edge_softmax(sparse, sv.ell))
     st = sparse.storage
+    metrics.record("edge_softmax_slots", nnz=st.nnz)
+    with metrics.span("dgsparse.op.edge_softmax.slots.fwd", m=st.num_rows,
+                      nnz=st.nnz, heads=1, dtype=str(sv.ell.dtype)[6:]):
+        return _edge_softmax_slots(st, hp, sv)
+
+
+def _edge_softmax_slots(st: Storage, hp, sv: SlotValues) -> SlotValues:
+    """`edge_softmax_slots` on a hybrid storage."""
     m = st.num_rows
     neg = float("-inf")
     res_rows = st.slot_map("res_rows")
@@ -316,6 +335,7 @@ class _SpMMSlots(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, cells, bell, ell, st: Storage):
         ctx.st = st
+        ctx.span = metrics.current()
         ctx.save_for_backward(x, cells, bell, ell)
         mult = cell_mult(st) if cells is not None else None
         w_cells = None if cells is None else cells.float() * mult
@@ -324,6 +344,12 @@ class _SpMMSlots(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with metrics.backward_span(ctx.span, d_dense=ctx.needs_input_grad[0],
+                                   d_values=any(ctx.needs_input_grad[1:4])):
+            return _SpMMSlots._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         x, cells, bell, ell = ctx.saved_tensors
         st = ctx.st
         g32 = g.float().contiguous()
@@ -361,17 +387,21 @@ def spmm_slots(sparse: SparseTensor, sv: SlotValues, x: torch.Tensor,
         return spmm(sparse.set_values(slots_to_edges(sparse, sv).float()),
                     x, reduce)
     st = sparse.storage
-    if _hybrid(sparse) is None:
-        from dgsparse_tpu_torch.ops.spmm import aggregate
-
-        out = aggregate(sv.ell.float().unsqueeze(1),
-                        x.contiguous().unsqueeze(1), st, reduce).squeeze(1)
+    hybrid = _hybrid(sparse) is not None
+    metrics.record("spmm_slots", hybrid=hybrid, reduce=reduce.value,
+                   nnz=st.nnz, feat=x.shape[1])
+    with op_span("spmm", "slots" if hybrid else "csr", st, sv.ell, x,
+                 reduce):
+        if not hybrid:
+            out = aggregate(sv.ell.float().unsqueeze(1),
+                            x.contiguous().unsqueeze(1), st,
+                            reduce).squeeze(1)
+            return out.to(x.dtype)
+        out = _SpMMSlots.apply(x, sv.cells, sv.bell, sv.ell, st)
+        if reduce == ReduceOp.MEAN:
+            deg = torch.clamp(st.rowptr()[1:] - st.rowptr()[:-1], min=1)
+            out = out / deg.to(out.dtype)[:, None]
         return out.to(x.dtype)
-    out = _SpMMSlots.apply(x, sv.cells, sv.bell, sv.ell, st)
-    if reduce == ReduceOp.MEAN:
-        deg = torch.clamp(st.rowptr()[1:] - st.rowptr()[:-1], min=1)
-        out = out / deg.to(out.dtype)[:, None]
-    return out.to(x.dtype)
 
 
 def sv_rowsum(sparse: SparseTensor, sv: SlotValues) -> torch.Tensor:

@@ -182,6 +182,13 @@ def build_rulebook(
     marks the center tap for the dense-matmul path; a strided conv
     generates the downsampled unique output coords, sorted (b, x, y, z).
     """
+    with metrics.span("dgsparse.spconv.rulebook", voxels=len(coords)):
+        return _build_rulebook(coords, kernel_size, stride, padding,
+                               spatial_shape, submanifold, quant, device)
+
+
+def _build_rulebook(coords, kernel_size, stride, padding, spatial_shape,
+                    submanifold, quant, device):
     coords = np.asarray(coords, np.int64)
     nnz = len(coords)
     ks, st, pad = _triple(kernel_size), _triple(stride), _triple(padding)
@@ -481,6 +488,7 @@ class _SpConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, kernel, plan):
         ctx.plan = plan
+        ctx.span = metrics.current()
         ctx.save_for_backward(features, kernel)
         if plan.use_esc():
             return _esc_forward(features, kernel, plan)
@@ -493,6 +501,13 @@ class _SpConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with metrics.backward_span(ctx.span,
+                                   d_features=ctx.needs_input_grad[0],
+                                   d_kernel=ctx.needs_input_grad[1]):
+            return _SpConv._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         features, kernel = ctx.saved_tensors
         plan = ctx.plan
         mid = (plan.k_vol - 1) // 2
@@ -521,10 +536,16 @@ def spconv(features: torch.Tensor, kernel: torch.Tensor,
     spconv.py::spconv`). Differentiable in features and kernel; dX runs only
     when the features need a gradient. The fused kernels unless the ESC
     route is forced on (`_FORCE_ESC`) and the plan's structure takes it."""
-    metrics.record("spconv", path="esc" if plan.use_esc() else "fused",
-                   pairs=plan.total_pairs, c_in=kernel.shape[1],
-                   c_out=kernel.shape[2])
-    return _SpConv.apply(features.contiguous(), kernel, plan)
+    route = "esc" if plan.use_esc() else "fused"
+    metrics.record("spconv", path=route, pairs=plan.total_pairs,
+                   c_in=kernel.shape[1], c_out=kernel.shape[2])
+    if not metrics.enabled():
+        return _SpConv.apply(features.contiguous(), kernel, plan)
+    with metrics.span(f"dgsparse.op.spconv.{route}.fwd",
+                      pairs=plan.total_pairs, k_vol=plan.k_vol,
+                      num_in=features.shape[0], c_in=kernel.shape[1],
+                      c_out=kernel.shape[2], dtype=str(features.dtype)[6:]):
+        return _SpConv.apply(features.contiguous(), kernel, plan)
 
 
 class SparseConvTensor:

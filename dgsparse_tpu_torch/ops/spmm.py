@@ -75,6 +75,24 @@ def transpose_values(values, st: Storage):
     return gather_rows(values, st.csr2csc()).contiguous()
 
 
+def op_span(op: str, route: str, st: Storage, values, dense: torch.Tensor,
+            reduce: ReduceOp, **tags):
+    """The forward span of an SpMM-family op (`spmm`, `spmm_multihead`,
+    `gspmm`) on `route`, with the tags its work count takes: values
+    [nnz] or [nnz, H], slot-space values, or None, and dense [N, F] or
+    [N, H, F]."""
+    if not metrics.enabled():
+        return metrics.NULL_SPAN
+    heads, f = (1, dense.shape[1]) if dense.dim() == 2 else dense.shape[1:]
+    return metrics.span(
+        f"dgsparse.op.{op}.{route}.fwd", m=st.num_rows, n=st.num_cols,
+        nnz=st.nnz, f=f, heads=heads, reduce=reduce.value,
+        dtype=str(dense.dtype)[6:], has_values=values is not None,
+        d_dense=dense.requires_grad,
+        d_values=isinstance(values, torch.Tensor) and values.requires_grad,
+        **tags)
+
+
 def _mode(x: torch.Tensor):
     """The hybrid tiers' compute dtype for an operand x (JAX's rule): the
     bf16 compute mode for a bf16 x, else float32."""
@@ -93,6 +111,7 @@ class _SpMM(torch.autograd.Function):
     def forward(ctx, values, dense, st: Storage, reduce: ReduceOp,
                 tiers=None):
         ctx.st, ctx.reduce, ctx.tiers = st, reduce, tiers
+        ctx.span = metrics.current()
         ctx.save_for_backward(values, dense)
         n, h, f = dense.shape
         if tiers is not None:
@@ -106,6 +125,13 @@ class _SpMM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with metrics.backward_span(ctx.span,
+                                   d_values=ctx.needs_input_grad[0],
+                                   d_dense=ctx.needs_input_grad[1]):
+            return _SpMM._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         values, dense = ctx.saved_tensors
         st = ctx.st
         n, h, f = dense.shape
@@ -141,11 +167,19 @@ class _SpMMMaxMin(torch.autograd.Function):
                                dense.reshape(n, h * f), reduce, compute,
                                coo_row=st.coo_row())
         ctx.st, ctx.compute = st, compute
+        ctx.span = metrics.current()
         ctx.save_for_backward(values, dense, arg)
         return out.reshape(st.num_rows, h, f)
 
     @staticmethod
     def backward(ctx, g):
+        with metrics.backward_span(ctx.span,
+                                   d_values=ctx.needs_input_grad[0],
+                                   d_dense=ctx.needs_input_grad[1]):
+            return _SpMMMaxMin._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         values, dense, arg = ctx.saved_tensors
         st, compute = ctx.st, ctx.compute
         n, h, f = dense.shape
@@ -237,11 +271,14 @@ def spmm(sparse: SparseTensor, dense: torch.Tensor, reduce="sum",
                                 else "XLA_SEGMENT"),
                    reduce=reduce.value, nnz=st.nnz, feat=dense.shape[1],
                    cached_values=tiers is not None)
-    if values is not None:
-        values = values.float().unsqueeze(1)
-    out = aggregate(values, dense.contiguous().unsqueeze(1), st, reduce,
-                    tiers=tiers)
-    return out.squeeze(1)
+    route = ("maxmin" if reduce in (ReduceOp.MAX, ReduceOp.MIN) else
+             "hybrid" if tiers is not None else "csr")
+    with op_span("spmm", route, st, values, dense, reduce):
+        if values is not None:
+            values = values.float().unsqueeze(1)
+        out = aggregate(values, dense.contiguous().unsqueeze(1), st, reduce,
+                        tiers=tiers)
+        return out.squeeze(1)
 
 
 def spmm_sum(sparse: SparseTensor, dense: torch.Tensor,

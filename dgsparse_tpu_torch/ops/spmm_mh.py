@@ -22,8 +22,10 @@ A list of slot-space values (`SlotValues`, one per head) runs one
 import torch
 
 from dgsparse_tpu_torch.core.formats import SparseTensor
-from dgsparse_tpu_torch.ops.spmm import aggregate
-from dgsparse_tpu_torch.ops.types import Algorithm, as_algorithm, as_reduce
+from dgsparse_tpu_torch.ops.spmm import aggregate, op_span
+from dgsparse_tpu_torch.ops.types import (Algorithm, ReduceOp, as_algorithm,
+                                          as_reduce)
+from dgsparse_tpu_torch.utils import metrics
 
 
 def spmm_multihead(sparse: SparseTensor, values, dense: torch.Tensor,
@@ -52,8 +54,13 @@ def spmm_multihead(sparse: SparseTensor, values, dense: torch.Tensor,
         if dense.dim() != 3 or dense.shape[1] != len(values):
             raise ValueError(f"dense must be [N, H={len(values)}, F], got "
                              f"{tuple(dense.shape)}")
-        return torch.stack([spmm_slots(sparse, sv, dense[:, h], reduce)
-                            for h, sv in enumerate(values)], dim=1)
+        metrics.record("spmm_multihead", route="slots", reduce=reduce.value,
+                       nnz=sparse.nnz, heads=dense.shape[1],
+                       feat=dense.shape[2])
+        with op_span("spmm_multihead", "slots", sparse.storage, None, dense,
+                     reduce):
+            return torch.stack([spmm_slots(sparse, sv, dense[:, h], reduce)
+                                for h, sv in enumerate(values)], dim=1)
     st = sparse.storage
     if dense.dim() != 3:
         raise ValueError(f"dense must be [N, H, F], got {tuple(dense.shape)}")
@@ -69,4 +76,8 @@ def spmm_multihead(sparse: SparseTensor, values, dense: torch.Tensor,
         if values.dtype != torch.float32:
             values = values.float()
         values = values.contiguous()
-    return aggregate(values, dense.contiguous(), st, reduce)
+    route = "maxmin" if reduce in (ReduceOp.MAX, ReduceOp.MIN) else "csr"
+    metrics.record("spmm_multihead", route=route, reduce=reduce.value,
+                   nnz=st.nnz, heads=dense.shape[1], feat=dense.shape[2])
+    with op_span("spmm_multihead", route, st, values, dense, reduce):
+        return aggregate(values, dense.contiguous(), st, reduce)

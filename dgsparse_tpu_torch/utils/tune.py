@@ -34,6 +34,7 @@ import torch
 
 from dgsparse_tpu_torch.core.formats import SparseTensor, structure_hash
 from dgsparse_tpu_torch.ops.types import Algorithm, ReduceOp, as_reduce
+from dgsparse_tpu_torch.utils import metrics
 
 _LOCK = threading.Lock()
 _CACHE: Optional[dict] = None
@@ -127,10 +128,10 @@ def lookup_key(skey: Optional[str], feat: int, reduce, with_grad=False,
     if skey is None:
         return None
     cache = _load()
-    if not cache:
-        return None
-    return _algorithm(cache.get(
+    alg = None if not cache else _algorithm(cache.get(
         _entry_key(skey, feat, as_reduce(reduce), with_grad, device)))
+    metrics.count("tune.miss" if alg is None else "tune.hit")
+    return alg
 
 
 def cached_algorithm(sparse: SparseTensor, feat: int, reduce="sum",

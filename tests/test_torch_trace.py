@@ -1,0 +1,219 @@
+"""The port's spans and cache counters (`utils/metrics.py`), on the CPU.
+
+- Off (the default): `span` returns the shared null span, nothing is
+  recorded, and a step's autograd graph holds no node of the tracing.
+- On: a GCN and a GAT training step through `entry.train_step` give the
+  span tree step > forward > model > op spans, each op's backward span a
+  child of its forward span, every span under the step's root.
+- Under `torch.profiler`, each span of the window is one host range
+  named `<name>#<id>`, inside its parent's.
+- The storage's construction phases fill `build_seconds` and are spans;
+  the tier values count as built or reused.
+"""
+
+import json
+from collections import Counter
+
+import pytest
+import torch
+from torch.nn import functional as F
+
+import dgsparse_tpu_torch as pt
+from dgsparse_tpu_torch import entry
+from dgsparse_tpu_torch.utils import metrics
+from dgsparse_tpu_torch.utils.testing import hybrid_csr
+
+BRACKET = {"_OpenBackwardBackward", "_CloseBackwardBackward"}
+
+
+@pytest.fixture
+def tracing():
+    metrics.reset()
+    metrics.enable()
+    yield
+    metrics.disable()
+    metrics.reset()
+
+
+@pytest.fixture(scope="module")
+def trainers():
+    return {cfg: entry.build_trainer(cfg, device="cpu")
+            for cfg in ("gcn-cora", "gat-cora")}
+
+
+def _graph_nodes(loss) -> Counter:
+    """The names of the autograd nodes behind `loss`, counted."""
+    seen, stack, names = set(), [loss.grad_fn], Counter()
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names[fn.name()] += 1
+        stack.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+def _by_name(spans):
+    out = {}
+    for s in spans:
+        out.setdefault(s["name"], []).append(s)
+    return out
+
+
+def test_off_records_nothing_and_adds_no_node(trainers):
+    model, opt, (adj, x, y) = trainers["gat-cora"]
+    metrics.reset()
+    assert not metrics.enabled()
+    assert metrics.span("dgsparse.step", a=1) is metrics.NULL_SPAN
+    assert metrics.current() is None
+    off = _graph_nodes(F.cross_entropy(model(x, adj), y))
+    entry.train_step(model, opt, x, adj, y)
+    assert metrics.spans() == [] and metrics.span_totals() == {}
+    assert metrics.cache_counters() == {}
+    assert not BRACKET & set(off)
+    metrics.enable()
+    try:
+        on = _graph_nodes(F.cross_entropy(model(x, adj), y))
+    finally:
+        metrics.disable()
+        metrics.reset()
+    # tracing adds the two bracket nodes of each edge_softmax, and only them
+    assert on - off == Counter({n: 2 for n in BRACKET})
+    assert off - on == Counter()
+
+
+def _step_tree(trainers, cfg):
+    model, opt, (adj, x, y) = trainers[cfg]
+    entry.train_step(model, opt, x, adj, y)
+    spans = metrics.spans()
+    names = _by_name(spans)
+    (step,) = names["dgsparse.step"]
+    assert step["parent"] is None and step["root"] == step["id"]
+    assert {s["root"] for s in spans} == {step["id"]}
+    for phase in ("forward", "loss", "backward", "optimizer"):
+        (s,) = names[f"dgsparse.step.{phase}"]
+        assert s["parent"] == step["id"]
+    byid = {s["id"]: s for s in spans}
+    for s in spans:
+        if s["name"].endswith(".bwd"):
+            fwd = byid[s["parent"]]
+            assert fwd["name"] == s["name"][:-4] + ".fwd"
+            assert s["start_ns"] >= fwd["end_ns"]
+    return names, adj
+
+
+def test_gcn_step_tree(tracing, trainers):
+    names, adj = _step_tree(trainers, "gcn-cora")
+    (fwd,) = names["dgsparse.step.forward"]
+    (model,) = names["dgsparse.model.GCN.forward"]
+    assert model["parent"] == fwd["id"]
+    assert model["tags"] == {"nodes": adj.shape[0], "nnz": adj.nnz}
+    ops = names["dgsparse.op.spmm.csr.fwd"]
+    assert [s["parent"] for s in ops] == [model["id"]] * 2
+    assert [(s["tags"]["nnz"], s["tags"]["f"]) for s in ops] == \
+        [(adj.nnz, 64), (adj.nnz, 7)]
+    assert all(s["tags"]["has_values"] and not s["tags"]["d_values"]
+               for s in ops)
+    bwd = names["dgsparse.op.spmm.csr.bwd"]
+    assert sorted(s["parent"] for s in bwd) == sorted(s["id"] for s in ops)
+    assert all(s["tags"]["d_dense"] and not s["tags"]["d_values"]
+               for s in bwd)
+    totals = metrics.span_totals()
+    assert totals["dgsparse.op.spmm.csr.fwd"]["count"] == 2
+    assert totals["dgsparse.step"]["self_s"] < \
+        totals["dgsparse.step"]["host_s"]
+    assert "dgsparse.op.spmm.csr.fwd" in metrics.summary()
+
+
+def test_gat_step_tree(tracing, trainers):
+    names, adj = _step_tree(trainers, "gat-cora")
+    (model,) = names["dgsparse.model.GAT.forward"]
+    for op in ("edge_softmax.edge", "spmm_multihead.csr"):
+        fwd = names[f"dgsparse.op.{op}.fwd"]
+        bwd = names[f"dgsparse.op.{op}.bwd"]
+        assert [s["parent"] for s in fwd] == [model["id"]] * 2
+        assert sorted(s["parent"] for s in bwd) == \
+            sorted(s["id"] for s in fwd)
+    assert [s["tags"]["heads"] for s in
+            names["dgsparse.op.spmm_multihead.csr.fwd"]] == [4, 1]
+    got = Counter(k[0] for k in metrics.counters())
+    assert got == Counter({"edge_softmax": 2, "spmm_multihead": 2})
+
+
+def test_spans_join_the_profiler_trace(tracing, trainers, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, opt, (adj, x, y) = trainers["gat-cora"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        entry.train_step(model, opt, x, adj, y)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = Counter()
+    at = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "cpu_op" and name.startswith("dgsparse."):
+            base, _, sid = name.rpartition("#")
+            ranges[int(sid)] += 1
+            at[int(sid)] = (base, e["ts"], e["ts"] + e["dur"])
+    spans = metrics.spans()
+    assert len(spans) > 10
+    assert ranges == Counter({s["id"]: 1 for s in spans})
+    for s in spans:
+        name, t0, t1 = at[s["id"]]
+        assert name == s["name"]
+        if s["parent"] is None:
+            continue
+        _, p0, p1 = at[s["parent"]]
+        # a backward span starts after its forward span; every other span
+        # lies inside its parent's
+        assert p0 <= t0 and (s["name"].endswith(".bwd") or t1 <= p1)
+
+
+def test_storage_phases_and_tier_counters(tracing):
+    rowptr, col, values = hybrid_csr()
+    vals = torch.from_numpy(values)
+    sp = pt.SparseTensor.from_csr(rowptr, col, vals,
+                                  sparse_sizes=(len(rowptr) - 1,) * 2)
+    st = sp.storage
+    assert set(st.build_seconds) == {"host_check", "csc", "upload",
+                                     "hybrid_plan", "tier_values"}
+    names = _by_name(metrics.spans())
+    (build,) = names["dgsparse.storage.build"]
+    for phase in st.build_seconds:
+        (s,) = names[f"dgsparse.storage.build.{phase}"]
+        assert s["parent"] == build["id"]
+    assert metrics.cache_counters() == {"tier_values.built": 1}
+    st.tier_values()
+    assert metrics.cache_counters() == {"tier_values.built": 1,
+                                        "tier_values.reused": 1}
+    st.values().mul_(2.0)
+    st.tier_values()
+    st.tier_values()
+    assert metrics.cache_counters() == {"tier_values.built": 2,
+                                        "tier_values.reused": 2}
+    assert len(_by_name(metrics.spans())["dgsparse.storage.tier_values"]) \
+        == 1
+
+
+def test_build_seconds_without_tracing():
+    rowptr, col, values = hybrid_csr()
+    st = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(values),
+                                  sparse_sizes=(len(rowptr) - 1,) * 2).storage
+    assert set(st.build_seconds) == {"host_check", "csc", "upload",
+                                     "hybrid_plan", "tier_values"}
+    assert all(v >= 0 for v in st.build_seconds.values())
+    assert metrics.spans() == []
+
+
+def test_span_cap_keeps_the_newest(tracing, monkeypatch):
+    import collections
+
+    monkeypatch.setattr(metrics, "_spans", collections.deque(maxlen=3))
+    for i in range(5):
+        with metrics.span("dgsparse.test", i=i):
+            pass
+    assert [s["tags"]["i"] for s in metrics.spans()] == [2, 3, 4]
+    assert metrics.span_totals()["dgsparse.test"]["count"] == 5
