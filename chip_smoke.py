@@ -120,8 +120,14 @@ exits non-zero without a result line:
      fp32; 495 / 3 TFLOP/s for the kernels on 3xTF32 tensor cores).
      csr_spmm at each shape also on `wide_path`, the one-warp-a-row
      mapping it had before its narrow-width path, and at F = 256 on the
-     one-pass path (4, 32, 2); spmm_maxmin also on feature slices of 32,
-     64 and 128 fp32 features, on 16 and 8 lanes of 16 bytes a row and on
+     one-pass path (4, 32, 2); "kernel" passes the split plan the main
+     path passes (the storage's, for its rows longer than SPLIT_CHUNK),
+     and "unsplit" is the same launch without it where the plan splits a
+     row, also on the benchmark's graph (portbench/graphs/citation.py,
+     seed 0, its hub rows up to 13,096 entries), forward and CSC at F = 256
+     and 40, the split held to the plain version first; spmm_maxmin also
+     on feature slices of 32, 64 and 128 fp32 features, on 16 and 8 lanes
+     of 16 bytes a row and on
      the one-warp-a-row `wide_path` it had before; its d_dense and
      sddmm_csr on the mapping their picker picks ("kernel") and on each
      of their two mappings (winner masks or the group mapping, and the
@@ -1711,6 +1717,21 @@ def _block_diagonal(torch, rowptr, col, values, x, n):
     return a, xh
 
 
+def _citation_graph(cuda):
+    """The GCN adjacency of the benchmark's graph at seed 0: the generator
+    and sizes of `portbench/configs/gcn-arxiv.json`, normalized as the
+    benchmark's GCN builds it (self-loops, D^-1/2 (A + I) D^-1/2)."""
+    from dgsparse_tpu_torch.nn.gcn import get_gcn_dcsr_from_edge_index
+    from portbench.graphs import citation
+
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "gcn-arxiv.json")) as f:
+        cfg = json.load(f)["graph"]
+    g = citation.make(cfg, 0)
+    return get_gcn_dcsr_from_edge_index(g["edge_index"], g["num_nodes"],
+                                        device=cuda)
+
+
 def phase_numbers(torch, cuda, runs, graphs):
     import numpy as np
 
@@ -1718,7 +1739,7 @@ def phase_numbers(torch, cuda, runs, graphs):
     from dgsparse_tpu_torch.kernels import sddmm_csr as S
     from dgsparse_tpu_torch.kernels import spmm_csr as K
     from dgsparse_tpu_torch.utils.bench import spmm_gflops
-    from dgsparse_tpu_torch.utils.testing import random_csr
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close, random_csr
 
     gen = torch.Generator(device=cuda).manual_seed(1)
     results = {"csr_spmm": {}, "sddmm_csr": {}}
@@ -1728,9 +1749,10 @@ def phase_numbers(torch, cuda, runs, graphs):
                                skew=1.0)
     rowptr, col_t, vals_t = _to(cuda, rp, col, np.abs(vals))
     rowptr_p2p, col_p2p = rowptr, col_t
-    # SpMM cases: (label, rowptr, col, values [nnz] or [nnz, H], N, H*F)
+    # SpMM cases: (label, rowptr, col, values [nnz] or [nnz, H], N, H*F,
+    # the split plan the main path passes or None)
     spmm_cases = [("p2p-synthetic F=32", rowptr, col_t, vals_t, P2P_NODES,
-                   32)]
+                   32, K.split_plan(rp, device=cuda))]
     for config, (adj, _, model, _) in runs.items():
         tc = SERVE_CONFIGS[config]
         if _launch_kind(tc, adj) != "gcn":
@@ -1740,34 +1762,58 @@ def phase_numbers(torch, cuda, runs, graphs):
             feat = getattr(model, layer).linear.out_features
             spmm_cases.append((f"{tc.graph} {layer} F={feat}", st.rowptr(),
                                st.col(), st.values(), adj.sparse_sizes()[1],
-                               feat))
+                               feat, st.row_split()))
     st = graphs["arxiv"][0].storage
     vals_csc = st.values()[st.csr2csc().long()]
     for layer, feat in (("conv1", 256), ("conv2", 40)):
         spmm_cases.append((f"arxiv {layer} backward d_dense (CSC) F={feat}",
                            st.colptr(), st.row(), vals_csc, st.num_rows,
-                           feat))
+                           feat, st.col_split()))
     alpha = torch.rand(st.nnz, 4, generator=gen, device=cuda)
     spmm_cases.append(("arxiv gat1 forward H=4 F=16", st.rowptr(), st.col(),
-                       alpha, st.num_cols, 64))
+                       alpha, st.num_cols, 64, st.row_split()))
     spmm_cases.append(("arxiv gat2 forward H=1 F=7", st.rowptr(), st.col(),
-                       alpha[:, :1].contiguous(), st.num_cols, 7))
-    # the hybrid route's CSR launches at Reddit scale (~23 M edges each)
+                       alpha[:, :1].contiguous(), st.num_cols, 7,
+                       st.row_split()))
+    # the benchmark's graph (portbench/graphs/citation.py, seed 0): hub rows
+    # of up to 13,096 entries, forward and CSC, with and without the plan
+    st = _citation_graph(cuda).storage
+    vals_csc = st.values()[st.csr2csc().long()]
+    for feat in (256, 40):
+        spmm_cases.append((f"citation forward F={feat}", st.rowptr(),
+                           st.col(), st.values(), st.num_cols, feat,
+                           st.row_split()))
+        spmm_cases.append((f"citation backward d_dense (CSC) F={feat}",
+                           st.colptr(), st.row(), vals_csc, st.num_rows,
+                           feat, st.col_split()))
+    # the hybrid route's CSR launches at Reddit scale (~23 M edges each),
+    # which pass no plan
     st = graphs["reddit"][0].storage
     hp, tiers = st.ell_plan(), st.tier_values()
     for feat in REDDIT_FEATS:
         spmm_cases.append((f"reddit residue F={feat}", hp.res.rowptr,
-                           hp.res.col, tiers["res"], st.num_cols, feat))
+                           hp.res.col, tiers["res"], st.num_cols, feat,
+                           None))
         spmm_cases.append((f"reddit non-cell transpose (CSC) F={feat}",
                            hp.nd_t.rowptr, hp.nd_t.col, tiers["nd_t"],
-                           st.num_rows, feat))
+                           st.num_rows, feat, None))
 
-    for label, rowptr, col_t, vals_t, n, width in spmm_cases:
+    for label, rowptr, col_t, vals_t, n, width, split in spmm_cases:
         m, nnz = rowptr.numel() - 1, col_t.numel()
         heads = 1 if vals_t.dim() == 1 else vals_t.shape[1]
         x = torch.randn(n, width, generator=gen, device=cuda)
-        fns = {"kernel": (K.csr_spmm_cuda, (rowptr, col_t, vals_t, x)),
+        fns = {"kernel": (functools.partial(K.csr_spmm_cuda, split=split),
+                          (rowptr, col_t, vals_t, x)),
                "plain": (K.csr_spmm_plain, (rowptr, col_t, vals_t, x))}
+        split_rows = split.num_split_rows if split is not None else 0
+        if split_rows:
+            # the same kernel without the plan, every row on its own group
+            fns["unsplit"] = (K.csr_spmm_cuda, (rowptr, col_t, vals_t, x))
+            assert_sum_close(
+                K.csr_spmm_cuda(rowptr, col_t, vals_t, x, split=split),
+                K.csr_spmm_plain(rowptr, col_t, vals_t, x),
+                K.csr_spmm_plain(rowptr, col_t, vals_t.abs(), x.abs()),
+                TOL["float32"])
         # the same kernel on the earlier mapping, and at F = 256 in one pass
         paths = {"wide_path": K.wide_path(width, heads, 4)}
         if width == 256:
@@ -1795,12 +1841,16 @@ def phase_numbers(torch, cuda, runs, graphs):
         ms.update(bound(nbytes, 2.0 * nnz * width))
         ms["library_call"] = library_call
         ms["paths"] = {"kernel": K.spmm_path(width, heads, 4), **paths}
+        ms["split_rows"] = split_rows
+        ms["split_chunks"] = split.num_chunks if split_rows else 0
         results["csr_spmm"][label] = ms
         log(f"[numbers] csr_spmm {label} ({m} rows, {nnz} nnz, fp32, path "
-            f"{ms['paths']['kernel']}): "
+            f"{ms['paths']['kernel']}, {split_rows} rows split into "
+            f"{ms['split_chunks']} chunks of {K.SPLIT_CHUNK}): "
             + ", ".join(f"{k} {ms[k] * 1e3:.2f} us "
                         f"{spmm_gflops(nnz, width, ms[k] / 1e3):.2f} GF/s"
-                        for k in ("kernel", "plain", "library", *paths)
+                        for k in ("kernel", "unsplit", "plain", "library",
+                                  *paths)
                         if k in ms)
             + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
             f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of the "
@@ -3286,7 +3336,8 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
 # must record: (op, route tags...) -> calls
 METRIC_ROUTES = {
     "gcn-reddit": {("spmm", "PALLAS_ROW_TILE", "sum"): 2},
-    "gat-reddit": {},           # gat_attention runs the tiers directly
+    # gat_attention runs the tiers directly: one dispatch a head (4 + 1)
+    "gat-reddit": {("gat_attention",): 5},
     "gin-max-arxiv": {("spmm", "XLA_SEGMENT", "max"): 2},
     "unet-60k": {("spconv", "fused"): 4},
 }

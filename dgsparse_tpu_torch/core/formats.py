@@ -24,6 +24,7 @@ import torch
 
 from dgsparse_tpu_torch.core import planner as P
 from dgsparse_tpu_torch.core import transform as T
+from dgsparse_tpu_torch.kernels.spmm_csr import SplitPlan, split_plan
 from dgsparse_tpu_torch.utils import metrics
 
 
@@ -162,15 +163,18 @@ class Storage:
 
     Tensors: rowptr, col, values (or None), colptr, row_csc, csr2csc perm,
     coo_row, csc_col, and csc_slot (the perm's inverse) on first use.
-    Sizes: num_rows, num_cols, nnz.
+    Sizes: num_rows, num_cols, nnz. The split plans of both views
+    (`kernels/spmm_csr.py::split_plan`: rows or columns longer than
+    `SPLIT_CHUNK` entries, cut into chunks) go to every `csr_spmm` over
+    them (`row_split()`, `col_split()`).
 
     With `build_plans` (the default), a graph of nnz >= 4096 and average
     degree >= 16 also gets a `HybridPlan` when at least 30 % of its edges
     fall in filled cells: the gate of `dgsparse_tpu/core/formats.py:202-234`.
     The tiers' values are then cached for the values given here (or for
     implicit ones); `build_seconds` times the construction's phases
-    (`host_check`, `csc`, `upload`, `hybrid_plan`, `tier_values`), each
-    also a child span of `dgsparse.storage.build`.
+    (`host_check`, `csc`, `upload`, `split_plan`, `hybrid_plan`,
+    `tier_values`), each also a child span of `dgsparse.storage.build`.
     """
 
     def __init__(
@@ -214,6 +218,9 @@ class Storage:
                 self._nnz = nnz
                 self._tune_key = structure_hash(num_rows, num_cols, nnz,
                                                 rowptr_np, col_np)
+            with _phase(seconds, "split_plan"):
+                self._row_split = split_plan(rowptr_np, device=device)
+                self._col_split = split_plan(colptr, device=device)
 
             self._hybrid = self._tier_vals = self._tier_ones = None
             self._tier_key = self._slot_maps = None
@@ -339,6 +346,15 @@ class Storage:
         if self._csc_slot is None:
             self._csc_slot = T.invert_permutation(self._csr2csc)
         return self._csc_slot
+
+    def row_split(self) -> SplitPlan:
+        """The CSR view's split plan (its rows longer than `SPLIT_CHUNK`
+        entries, cut into chunks), for `csr_spmm` over rowptr and col."""
+        return self._row_split
+
+    def col_split(self) -> SplitPlan:
+        """The CSC view's split plan, for `csr_spmm` over colptr and row."""
+        return self._col_split
 
     def coo_row(self) -> torch.Tensor:
         """Per-edge row ids in CSR order."""
@@ -478,6 +494,7 @@ class SparseTensor:
             csr2csc=T.invert_permutation(perm), csc_slot=perm,
             # the transpose's edge-order arrays are the original's CSC twins
             coo_row=src.csc_col(), csc_col=src.coo_row(),
+            row_split=src.col_split(), col_split=src.row_split(),
             num_rows=src.num_cols, num_cols=src.num_rows,
             # the tuner's entries are for the original structure
             tune_key=None,

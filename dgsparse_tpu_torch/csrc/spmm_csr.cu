@@ -32,6 +32,22 @@
 // spmm_path`, checked on the CPU) and passed in; the launcher here only
 // refuses a path the kernel cannot run.
 //
+// Hub rows: a row's group walks its edges kAhead gathers a round, so a row
+// of ~13,100 entries (ogbn-arxiv's largest) keeps one group busy for ~3,300
+// dependent rounds, milliseconds after every other warp has finished. A
+// split plan (`kernels/spmm_csr.py::split_plan`, built once per storage)
+// cuts each row longer than C entries into chunks of C consecutive
+// entries. One launch then has two roles, by block index: the first blocks
+// take the chunks, one group a chunk as if it were a row, and write its
+// fp32 partial sum to a workspace [chunks, F]; they are scheduled first,
+// so the long work starts first. The other blocks map rows as before and
+// skip a row longer than C. A second, small launch (`csr_split_fixup_kernel`)
+// adds each long row's partials in a fixed order, divides for MEAN and
+// writes the row once. No float atomics: the sums keep a fixed order and
+// stay bitwise repeatable. A row of at most C entries is summed exactly as
+// without a plan, so a graph without such rows gets the same launch and
+// the same bits.
+//
 // Heads (the counterpart of `spmm_esc_mh`, which folds H heads into the
 // feature axis of one `segment_matmul`): with values [nnz, H] and X
 // [N, H*F], feature j of an edge is scaled by values[e, j / F]. One launch
@@ -46,6 +62,19 @@ using namespace dg;
 namespace {
 
 constexpr int kAhead = 4;  // edges whose gathers are issued before their FMAs
+constexpr int kFixupWarps = 8;  // a split row's chunks in 8 runs
+constexpr int kNoSplit = 0x7fffffff;  // row length past which rows are split
+
+// A split plan on the device: the chunks of the rows longer than `size`
+// entries, in CSR order, and the workspace of their partial sums.
+struct RowSplit {
+  const int* row;    // [chunks] the row of each chunk
+  const int* start;  // [chunks] its first entry; a chunk runs `size`
+                     // entries or to its row's end
+  const int* ptr;    // [rows + 1] each split row's chunks
+  float* work;       // [chunks, feat] fp32 partial sums
+  int chunks, rows, size;
+};
 
 // Most vectors a lane carries: two of 16 bytes, else four.
 template <typename T, int VEC>
@@ -57,22 +86,29 @@ __host__ __device__ constexpr int max_vectors() {
 //             / (MEAN ? max(deg, 1) : 1)
 // with r(e) = col[e] and w[e] = val ? val[e] : 1 when GATHER, else r(e) = e
 // and w[e] = 1. HEADS: w[e] = val[e * heads + f / head_feat] (val not NULL).
-// Lane l of a warp serves row (warp * 32 + l) / group and, in feature slice
+// A slot is a row, or with SPLIT in the first `chunk_blocks` blocks a
+// chunk of `split`. Lane l of a warp serves slot (warp * 32 + l) / group,
+// counted from the first block of its role, and, in feature slice
 // blockIdx.y, the vectors v < NV at feature
 // (blockIdx.y * group * NV + v * group + l % group) * VEC.
-template <typename T, int VEC, int NV, bool GATHER, bool HEADS>
+// Without SPLIT (no plan) the kernel is the one before plans existed: with
+// the roles' few instructions compiled in, a launch without chunks ran 1-4 %
+// slower (NVIDIA H100 80GB HBM3, 700 W, an arxiv-sized graph without hubs).
+template <typename T, int VEC, int NV, bool GATHER, bool HEADS, bool SPLIT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     csr_reduce_kernel(const int* __restrict__ rowptr,
                       const int* __restrict__ col,
                       const float* __restrict__ val,
                       const T* __restrict__ src, T* __restrict__ out,
                       int num_rows, int feat, int mean, int heads,
-                      int head_feat, int group) {
+                      int head_feat, int group, RowSplit split,
+                      int chunk_blocks) {
   const int lane = threadIdx.x;
   const int li = lane & (group - 1);
-  const int row = (blockIdx.x * kWarpsPerBlock + threadIdx.y) *
-                      (kWarp / group) + lane / group;
-  const bool has_row = row < num_rows;
+  const bool chunks = SPLIT && blockIdx.x < chunk_blocks;  // block-uniform
+  const int slot =
+      ((SPLIT && !chunks ? blockIdx.x - chunk_blocks : blockIdx.x) *
+           kWarpsPerBlock + threadIdx.y) * (kWarp / group) + lane / group;
   int f[NV], head[NV];
   bool act[NV];
 #pragma unroll
@@ -81,9 +117,30 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     act[v] = f[v] < feat;  // VEC divides feat: the whole vector fits
     head[v] = HEADS && act[v] ? f[v] / head_feat : 0;
   }
-  // a lane past the last row keeps taking part in the warp's shuffles
-  const int start = has_row ? rowptr[row] : 0;
-  const int end = has_row ? rowptr[row + 1] : 0;
+  // a lane with no slot, or on a split row, walks no edges but keeps
+  // taking part in the warp's shuffles
+  bool has_slot;
+  int start, end;
+  if constexpr (SPLIT) {
+    start = end = 0;
+    has_slot = false;
+    if (chunks) {
+      if (slot < split.chunks) {
+        start = split.start[slot];
+        end = min(start + split.size, rowptr[split.row[slot] + 1]);
+        has_slot = true;
+      }
+    } else if (slot < num_rows) {
+      start = rowptr[slot];
+      end = rowptr[slot + 1];
+      has_slot = end - start <= split.size;  // else its chunks sum it
+      if (!has_slot) start = end;
+    }
+  } else {
+    has_slot = slot < num_rows;
+    start = has_slot ? rowptr[slot] : 0;
+    end = has_slot ? rowptr[slot + 1] : 0;
+  }
 
   float acc[NV][VEC];
 #pragma unroll
@@ -135,7 +192,19 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
           }
     }
   }
-  if (!has_row) return;
+  if (!has_slot) return;
+  if (chunks) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (!act[v]) continue;
+      Packed<float, VEC> p;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) p.v[k] = acc[v][k];
+      *reinterpret_cast<Packed<float, VEC>*>(
+          split.work + static_cast<int64_t>(slot) * feat + f[v]) = p;
+    }
+    return;
+  }
   const float denom = mean ? static_cast<float>(max(end - start, 1)) : 1.f;
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
@@ -143,53 +212,113 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     Packed<T, VEC> y;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) y.v[k] = from_float<T>(acc[v][k] / denom);
-    *reinterpret_cast<Packed<T, VEC>*>(out + static_cast<int64_t>(row) * feat +
-                                       f[v]) = y;
+    *reinterpret_cast<Packed<T, VEC>*>(out + static_cast<int64_t>(slot) *
+                                                 feat + f[v]) = y;
   }
+}
+
+// out[m] of each split row m: its chunks' partial sums added in a fixed
+// order, then divided as above, in T. Block (i, y) serves the plan's row i
+// and features [32 y, 32 y + 32), lane l feature 32 y + l: warp w adds the
+// w-th run of consecutive chunks in chunk order (kFixupWarps runs of equal
+// length, the last shorter), then warp 0 adds the runs' sums in run order.
+// Loads of a warp are one 128-byte row of a chunk's partials.
+template <typename T>
+__global__ void __launch_bounds__(kWarp * kFixupWarps)
+    csr_split_fixup_kernel(const int* __restrict__ rowptr, RowSplit split,
+                           T* __restrict__ out, int feat, int mean) {
+  __shared__ float runs[kFixupWarps][kWarp];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int j = blockIdx.y * kWarp + lane;
+  const int c0 = split.ptr[blockIdx.x], c1 = split.ptr[blockIdx.x + 1];
+  const int per = (c1 - c0 + kFixupWarps - 1) / kFixupWarps;
+  const int lo = c0 + warp * per, hi = min(lo + per, c1);
+  float acc = 0.f;
+  if (j < feat) {
+#pragma unroll 8
+    for (int c = lo; c < hi; ++c)
+      acc += split.work[static_cast<int64_t>(c) * feat + j];
+  }
+  runs[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0 || j >= feat) return;
+  acc = runs[0][lane];
+#pragma unroll
+  for (int w = 1; w < kFixupWarps; ++w) acc += runs[w][lane];
+  const int row = split.row[c0];
+  const float denom =
+      mean ? static_cast<float>(max(rowptr[row + 1] - rowptr[row], 1)) : 1.f;
+  out[static_cast<int64_t>(row) * feat + j] = from_float<T>(acc / denom);
 }
 
 template <typename T, int VEC, int NV, bool GATHER, bool HEADS>
 int launch_path(const int* rowptr, const int* col, const float* val,
                 const void* src, void* out, int num_rows, int feat, int mean,
-                int heads, int group, cudaStream_t stream) {
-  const int rows = kWarpsPerBlock * (kWarp / group);  // rows per block
+                int heads, int group, const RowSplit& split,
+                cudaStream_t stream) {
+  const int slots = kWarpsPerBlock * (kWarp / group);  // slots per block
   const int slice = group * NV * VEC;
+  const int chunk_blocks = (split.chunks + slots - 1) / slots;
   const dim3 block(kWarp, kWarpsPerBlock);
-  const dim3 grid((num_rows + rows - 1) / rows, (feat + slice - 1) / slice);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  csr_reduce_kernel<T, VEC, NV, GATHER, HEADS><<<grid, block, 0, stream>>>(
-      rowptr, col, val, static_cast<const T*>(src), static_cast<T*>(out),
-      num_rows, feat, mean, heads, feat / heads, group);
+  const dim3 grid(chunk_blocks + (num_rows + slots - 1) / slots,
+                  (feat + slice - 1) / slice);
+  const dim3 fix_grid(split.rows, (feat + kWarp - 1) / kWarp);
+  if (grid.y > 65535 || fix_grid.y > 65535)
+    return cudaErrorInvalidConfiguration;
+  if (split.chunks == 0) {
+    csr_reduce_kernel<T, VEC, NV, GATHER, HEADS, false>
+        <<<grid, block, 0, stream>>>(
+            rowptr, col, val, static_cast<const T*>(src),
+            static_cast<T*>(out), num_rows, feat, mean, heads, feat / heads,
+            group, split, 0);
+    return cudaGetLastError();
+  }
+  if constexpr (GATHER) {  // a segment sum takes no plan
+    csr_reduce_kernel<T, VEC, NV, GATHER, HEADS, true>
+        <<<grid, block, 0, stream>>>(
+            rowptr, col, val, static_cast<const T*>(src),
+            static_cast<T*>(out), num_rows, feat, mean, heads, feat / heads,
+            group, split, chunk_blocks);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  csr_split_fixup_kernel<T><<<fix_grid, dim3(kWarp, kFixupWarps), 0,
+                              stream>>>(rowptr, split, static_cast<T*>(out),
+                                        feat, mean);
   return cudaGetLastError();
 }
 
 template <typename T, int VEC, bool GATHER, bool HEADS>
 int launch_vec(const int* rowptr, const int* col, const float* val,
                const void* src, void* out, int num_rows, int feat, int mean,
-               int heads, int group, int nv, cudaStream_t stream) {
+               int heads, int group, int nv, const RowSplit& split,
+               cudaStream_t stream) {
   const int bytes = VEC * static_cast<int>(sizeof(T));
   if (nv < 1 || nv > max_vectors<T, VEC>() || (feat / heads) % VEC != 0 ||
-      !aligned(src, bytes) || !aligned(out, bytes))
+      !aligned(src, bytes) || !aligned(out, bytes) ||
+      (split.chunks > 0 && !aligned(split.work, VEC * 4)))
     return cudaErrorInvalidValue;
   constexpr int kMax = max_vectors<T, VEC>();
   switch (nv) {
     case 1:
       return launch_path<T, VEC, 1, GATHER, HEADS>(
           rowptr, col, val, src, out, num_rows, feat, mean, heads, group,
-          stream);
+          split, stream);
     case 2:
       return launch_path<T, VEC, 2, GATHER, HEADS>(
           rowptr, col, val, src, out, num_rows, feat, mean, heads, group,
-          stream);
+          split, stream);
     default:
       if constexpr (kMax == 4) {
         if (nv == 3)
           return launch_path<T, VEC, 3, GATHER, HEADS>(
               rowptr, col, val, src, out, num_rows, feat, mean, heads, group,
-              stream);
+              split, stream);
         return launch_path<T, VEC, 4, GATHER, HEADS>(
             rowptr, col, val, src, out, num_rows, feat, mean, heads, group,
-            stream);
+            split, stream);
       }
       return cudaErrorInvalidValue;
   }
@@ -198,9 +327,14 @@ int launch_vec(const int* rowptr, const int* col, const float* val,
 template <typename T, bool GATHER, bool HEADS>
 int launch(int device, const int* rowptr, const int* col, const float* val,
            const void* src, void* out, int num_rows, int feat, int mean,
-           int heads, int vec, int group, int nv, void* stream) {
+           int heads, int vec, int group, int nv, const RowSplit& split,
+           void* stream) {
   if (num_rows <= 0 || feat <= 0 || heads <= 0 || feat % heads != 0 ||
-      (group != 4 && group != 8 && group != 16 && group != 32))
+      (group != 4 && group != 8 && group != 16 && group != 32) ||
+      split.chunks < 0 || split.size < 1 ||
+      (split.chunks > 0 &&
+       (split.rows < 1 || !split.row || !split.start || !split.ptr ||
+        !split.work)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -211,20 +345,20 @@ int launch(int device, const int* rowptr, const int* col, const float* val,
       if constexpr (sizeof(T) == 2)
         return launch_vec<T, 8, GATHER, HEADS>(rowptr, col, val, src, out,
                                                num_rows, feat, mean, heads,
-                                               group, nv, s);
+                                               group, nv, split, s);
       return cudaErrorInvalidValue;
     case 4:
       return launch_vec<T, 4, GATHER, HEADS>(rowptr, col, val, src, out,
                                              num_rows, feat, mean, heads,
-                                             group, nv, s);
+                                             group, nv, split, s);
     case 2:
       return launch_vec<T, 2, GATHER, HEADS>(rowptr, col, val, src, out,
                                              num_rows, feat, mean, heads,
-                                             group, nv, s);
+                                             group, nv, split, s);
     case 1:
       return launch_vec<T, 1, GATHER, HEADS>(rowptr, col, val, src, out,
                                              num_rows, feat, mean, heads,
-                                             group, nv, s);
+                                             group, nv, split, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -239,32 +373,40 @@ extern "C" {
 // F = H * (features per head); feature j takes val[e, j / (F / H)].
 // mean != 0 divides each row by max(deg, 1). (vec, group, nv) is the path:
 // `vec` elements a load (dividing F / H, both pointers aligned to it),
-// `group` lanes a row (4, 8, 16 or 32), `nv` vectors a lane. Returns a
-// cudaError_t.
+// `group` lanes a row (4, 8, 16 or 32), `nv` vectors a lane. A split plan
+// of `chunks` > 0 chunks of `chunk` entries over `split_rows` rows (every
+// row longer than `chunk`): `plan`, int32 chunk_row [chunks], chunk_start
+// [chunks] and chunk_ptr [split_rows + 1] one after the other, and `work`,
+// fp32 [chunks, F] aligned to a load; `chunks` 0 launches without one (the
+// pointers unread). Returns a cudaError_t.
 int dg_csr_spmm(int dtype, int device, const int* rowptr, const int* col,
                 const float* val, const void* x, void* out, int num_rows,
                 int feat, int heads, int mean, int vec, int group, int nv,
-                void* stream) {
+                const int* plan, int chunks, int split_rows, int chunk,
+                float* work, void* stream) {
+  const RowSplit split{plan, plan + chunks, plan + 2 * chunks, work, chunks,
+                       split_rows, chunks > 0 ? chunk : kNoSplit};
   if (heads > 1 && val != nullptr) {
     if (dtype == kFloat32)
       return launch<float, true, true>(device, rowptr, col, val, x, out,
                                        num_rows, feat, mean, heads, vec,
-                                       group, nv, stream);
+                                       group, nv, split, stream);
     if (dtype == kBFloat16)
       return launch<__nv_bfloat16, true, true>(device, rowptr, col, val, x,
                                                out, num_rows, feat, mean,
-                                               heads, vec, group, nv, stream);
+                                               heads, vec, group, nv, split,
+                                               stream);
     return cudaErrorInvalidValue;
   }
   // one value per edge (or none): the single-head kernel, whatever `heads`
   if (dtype == kFloat32)
     return launch<float, true, false>(device, rowptr, col, val, x, out,
                                       num_rows, feat, mean, 1, vec, group,
-                                      nv, stream);
+                                      nv, split, stream);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16, true, false>(device, rowptr, col, val, x,
                                               out, num_rows, feat, mean, 1,
-                                              vec, group, nv, stream);
+                                              vec, group, nv, split, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -274,15 +416,16 @@ int dg_csr_spmm(int dtype, int device, const int* rowptr, const int* col,
 int dg_segment_sum_csr(int dtype, int device, const int* rowptr,
                        const void* contrib, void* out, int num_rows, int feat,
                        int vec, int group, int nv, void* stream) {
+  const RowSplit none{nullptr, nullptr, nullptr, nullptr, 0, 0, kNoSplit};
   if (dtype == kFloat32)
     return launch<float, false, false>(device, rowptr, nullptr, nullptr,
                                        contrib, out, num_rows, feat, 0, 1,
-                                       vec, group, nv, stream);
+                                       vec, group, nv, none, stream);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16, false, false>(device, rowptr, nullptr,
                                                nullptr, contrib, out,
                                                num_rows, feat, 0, 1, vec,
-                                               group, nv, stream);
+                                               group, nv, none, stream);
   return cudaErrorInvalidValue;
 }
 

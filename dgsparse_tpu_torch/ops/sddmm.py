@@ -57,11 +57,12 @@ class _SDDMM(torch.autograd.Function):
         d_d1 = d_d2 = None
         if ctx.needs_input_grad[0]:
             d_d1 = csr_spmm(st.rowptr(), st.col(), g, d2, ReduceOp.SUM,
-                            coo_row=st.coo_row()).to(d1.dtype)
+                            coo_row=st.coo_row(),
+                            split=st.row_split()).to(d1.dtype)
         if ctx.needs_input_grad[1]:
             d_d2 = csr_spmm(st.colptr(), st.row(), transpose_values(g, st),
-                            d1, ReduceOp.SUM,
-                            coo_row=st.csc_col()).to(d2.dtype)
+                            d1, ReduceOp.SUM, coo_row=st.csc_col(),
+                            split=st.col_split()).to(d2.dtype)
         return d_d1, d_d2, None, None, None
 
 

@@ -120,7 +120,7 @@ class _SpMM(torch.autograd.Function):
         else:
             out = csr_spmm(st.rowptr(), st.col(), values,
                            dense.reshape(n, h * f), reduce,
-                           coo_row=st.coo_row())
+                           coo_row=st.coo_row(), split=st.row_split())
         return out.reshape(st.num_rows, h, f)
 
     @staticmethod
@@ -149,7 +149,8 @@ class _SpMM(torch.autograd.Function):
             else:
                 d_dense = csr_spmm(st.colptr(), st.row(),
                                    transpose_values(values, st), g,
-                                   ReduceOp.SUM, coo_row=st.csc_col())
+                                   ReduceOp.SUM, coo_row=st.csc_col(),
+                                   split=st.col_split())
             d_dense = d_dense.reshape(n, h, f).to(dense.dtype)
         return d_values, d_dense, None, None, None
 

@@ -106,7 +106,8 @@ def test_launch_counts_and_empty_inputs(cuda):
     rowptr, col, values = _graph(cuda, 2, True)
     spmm_csr.csr_spmm(rowptr, col, values, torch.ones(2500, 8, device=cuda))
     spmm_csr.segment_sum_csr(rowptr, torch.ones(col.numel(), 8, device=cuda))
-    assert spmm_csr.LAUNCHES == {"csr_spmm": 1, "segment_sum_csr": 1}
+    assert spmm_csr.LAUNCHES == {"csr_spmm": 1, "csr_spmm_split": 0,
+                                 "segment_sum_csr": 1}
     empty = torch.zeros(4, dtype=torch.int32, device=cuda)
     out = spmm_csr.csr_spmm(empty, empty[:0], None,
                             torch.ones(5, 8, device=cuda))
@@ -228,13 +229,151 @@ def test_csr_spmm_over_csc_is_the_transpose(cuda, heads):
                      TOLS["float32"])
 
 
+def _hub_graph(cuda, kind, has_value):
+    """A CSR of 3000 rows over 2500 columns with rows longer than the split
+    chunk: "star", row 7 joined to every column beside ~6 entries a row;
+    "zipf", lognormal degrees up to all 2500 columns."""
+    if kind == "star":
+        rowptr, col, _ = random_csr(3000, 2500, avg_degree=6.0, seed=11,
+                                    skew=0.5)
+        rows = np.split(col, rowptr[1:-1])
+        rows[7] = np.arange(2500, dtype=np.int32)
+        col = np.concatenate(rows)
+        rowptr = np.concatenate(
+            [[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
+        values = np.random.default_rng(11).standard_normal(
+            len(col)).astype(np.float32)
+    else:
+        rowptr, col, values = random_csr(3000, 2500, avg_degree=12.0,
+                                         seed=12, skew=1.8)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    return (rowptr, t(rowptr), t(col),
+            t(np.abs(values)) if has_value else None)
+
+
+# (graph, chunk): the storages' chunk, and a small one that cuts the star's
+# hub into 40 chunks
+SPLITS = [("star", spmm_csr.SPLIT_CHUNK), ("zipf", spmm_csr.SPLIT_CHUNK),
+          ("star", 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("has_value", [True, False])
+@pytest.mark.parametrize("feat", [1, 7, 40, 41, 64, 256, 300])
+@pytest.mark.parametrize("graph,chunk", SPLITS)
+def test_split_csr_spmm_matches_plain(cuda, graph, chunk, feat, has_value,
+                                      reduce, dtype):
+    rp, rowptr, col, values = _hub_graph(cuda, graph, has_value)
+    split = spmm_csr.split_plan(rp, chunk, cuda)
+    assert split.num_chunks > 0
+    g = torch.Generator(device=cuda).manual_seed(feat)
+    x = torch.randn(2500, feat, generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    spmm_csr.reset_launch_counts()
+    out = spmm_csr.csr_spmm_cuda(rowptr, col, values, x, reduce, split=split)
+    ref = spmm_csr.csr_spmm_plain(rowptr, col, values, x, reduce)
+    abs_sum = spmm_csr.csr_spmm_plain(
+        rowptr, col, None if values is None else values.abs(),
+        x.float().abs(), reduce)
+    torch.cuda.synchronize()
+    assert out.dtype == x.dtype and out.shape == (3000, feat)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    again = spmm_csr.csr_spmm_cuda(rowptr, col, values, x, reduce,
+                                   split=split)
+    assert torch.equal(out, again)             # no atomics: repeatable
+    # rows of at most C entries are summed as without the plan, bit for bit
+    whole = spmm_csr.csr_spmm_cuda(rowptr, col, values, x, reduce)
+    short = torch.from_numpy(np.diff(rp) <= chunk).to(cuda)
+    assert torch.equal(out[short], whole[short])
+    assert (spmm_csr.LAUNCHES["csr_spmm"],
+            spmm_csr.LAUNCHES["csr_spmm_split"]) == (3, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("graph,chunk", SPLITS)
+def test_split_csr_spmm_heads_matches_plain(cuda, graph, chunk, reduce,
+                                            dtype):
+    rp, rowptr, col, _ = _hub_graph(cuda, graph, False)
+    split = spmm_csr.split_plan(rp, chunk, cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    values = torch.randn(col.numel(), 8, generator=g, device=cuda)
+    x = torch.randn(2500, 64, generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    out = spmm_csr.csr_spmm_cuda(rowptr, col, values, x, reduce, split=split)
+    ref = spmm_csr.csr_spmm_plain(rowptr, col, values, x, reduce)
+    abs_sum = spmm_csr.csr_spmm_plain(rowptr, col, values.abs(),
+                                      x.float().abs(), reduce)
+    torch.cuda.synchronize()
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    assert torch.equal(out, spmm_csr.csr_spmm_cuda(rowptr, col, values, x,
+                                                   reduce, split=split))
+
+
+def _flat_graph(cuda, seed):
+    """A CSR like `_graph`'s with no row longer than the split chunk."""
+    rowptr, col, values = random_csr(3000, 2500, avg_degree=6.0, seed=seed,
+                                     skew=0.5)
+    assert np.diff(rowptr).max() <= spmm_csr.SPLIT_CHUNK
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    return t(rowptr), t(col), t(np.abs(values))
+
+
+@pytest.mark.parametrize("feat", [40, 256])
+def test_split_plan_without_long_rows_changes_nothing(cuda, feat):
+    rowptr, col, values = _flat_graph(cuda, feat)
+    split = spmm_csr.split_plan(rowptr.cpu(), device=cuda)
+    assert split.num_chunks == 0
+    x = torch.randn(2500, feat, device=cuda)
+    spmm_csr.reset_launch_counts()
+    out = spmm_csr.csr_spmm_cuda(rowptr, col, values, x, split=split)
+    assert torch.equal(out, spmm_csr.csr_spmm_cuda(rowptr, col, values, x))
+    assert (spmm_csr.LAUNCHES["csr_spmm"],
+            spmm_csr.LAUNCHES["csr_spmm_split"]) == (2, 0)
+
+
+def test_storage_ops_pass_the_split_plans(cuda):
+    from dgsparse_tpu_torch.utils import metrics
+
+    rp, _, col, values = _hub_graph(cuda, "star", True)
+    hub = pt.SparseTensor.from_csr(rp, col.cpu(), values.cpu(),
+                                   sparse_sizes=(3000, 2500), device=cuda)
+    flat = pt.SparseTensor.from_csr(*_flat_graph(cuda, 5),
+                                    sparse_sizes=(3000, 2500))
+    rows = hub.storage.row_split().num_split_rows
+    assert rows == 1 and flat.storage.row_split().num_chunks == 0
+    x = torch.randn(2500, 32, device=cuda, requires_grad=True)
+    reset_launch_counts()
+    metrics.enable()
+    try:
+        metrics.reset()
+        pt.spmm_sum(flat, x).sum().backward()
+        assert launch_counts()["csr_spmm_split"] == 0
+        out = pt.spmm_sum(hub, x)
+        assert launch_counts()["csr_spmm_split"] == 1
+        out.sum().backward()       # the CSC view: its columns of ~7 entries
+        counts = metrics.cache_counters()
+    finally:
+        metrics.disable()
+    assert launch_counts()["csr_spmm"] == 4
+    split_launches = launch_counts()["csr_spmm_split"]
+    assert split_launches == 1 + (hub.storage.col_split().num_chunks > 0)
+    assert counts["csr_spmm.split_rows"] == rows + \
+        hub.storage.col_split().num_split_rows
+    assert counts["csr_spmm.split_chunks"] == \
+        hub.storage.row_split().num_chunks + \
+        hub.storage.col_split().num_chunks
+
+
 def test_sddmm_launch_counts_and_empty_inputs(cuda):
     reset_launch_counts()
     rowptr, col, _ = _graph(cuda, 4, False)
     sddmm_csr.sddmm_csr(rowptr, col, torch.ones(3000, 8, device=cuda),
                         torch.ones(2500, 8, device=cuda), 2)
-    assert launch_counts() == {"csr_spmm": 0, "segment_sum_csr": 0,
-                               "sddmm_csr": 1, "spmm_maxmin": 0,
+    assert launch_counts() == {"csr_spmm": 0, "csr_spmm_split": 0,
+                               "segment_sum_csr": 0, "sddmm_csr": 1,
+                               "spmm_maxmin": 0,
                                "spmm_maxmin_d_dense": 0,
                                "spmm_maxmin_d_values": 0,
                                "spmm_dense_cells": 0,

@@ -1,0 +1,174 @@
+"""The CSR SpMM's split plan for hub rows, on the CPU.
+
+`kernels/spmm_csr.py::split_plan` cuts every row longer than C entries into
+chunks of C consecutive entries; `csrc/spmm_csr.cu` runs the chunks in the
+first blocks of the launch and skips those rows in the others. These tests
+hold the plan to its definition, replay the launch's index arithmetic
+(`_walked`) to show that every entry of every row is summed by exactly one
+lane per feature, and check that a `Storage` builds, carries and swaps the
+plans of both views. The kernel itself runs only on a card
+(`tests/test_torch_kernels_gpu.py`).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import dgsparse_tpu_torch as pt
+from dgsparse_tpu_torch.kernels import spmm_csr
+from dgsparse_tpu_torch.utils.testing import random_csr
+
+WARP, WARPS = 32, 8           # lanes a warp, warps a block (common.cuh)
+
+
+def _rowptr(lengths) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+
+
+# row lengths: a star's hub, a Zipf tail, the lengths around C and a
+# multiple of it, empty rows between
+GRAPHS = {
+    "star": _rowptr([300] + [1] * 299),
+    "zipf": random_csr(400, 600, avg_degree=12.0, seed=3, skew=1.6)[0],
+    "edges": _rowptr([0, 15, 16, 17, 0, 32, 33, 48, 1, 100]),
+}
+
+
+def _plan_arrays(plan):
+    return (plan.chunk_row.numpy(), plan.chunk_start.numpy(),
+            plan.chunk_ptr.numpy())
+
+
+@pytest.mark.parametrize("chunk", [4, 16, 64])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_split_plan_chunks_every_long_row_once(graph, chunk):
+    rowptr = GRAPHS[graph]
+    plan = spmm_csr.split_plan(rowptr, chunk)
+    chunk_row, chunk_start, chunk_ptr = _plan_arrays(plan)
+    lengths = np.diff(rowptr)
+    long_rows = np.flatnonzero(lengths > chunk)
+    assert plan.index.dtype == torch.int32
+    assert (plan.num_split_rows, plan.num_chunks, plan.chunk) == (
+        len(long_rows), len(chunk_row), chunk)
+    assert (plan.num_rows, plan.nnz) == (len(lengths), rowptr[-1])
+    assert len(chunk_ptr) == len(long_rows) + 1 and chunk_ptr[0] == 0
+    for i, row in enumerate(long_rows):
+        c0, c1 = chunk_ptr[i], chunk_ptr[i + 1]
+        assert (chunk_row[c0:c1] == row).all()
+        ends = np.minimum(chunk_start[c0:c1] + chunk, rowptr[row + 1])
+        # consecutive chunks of at most C entries, in CSR order, covering
+        # [rowptr[row], rowptr[row + 1]) exactly once
+        assert chunk_start[c0] == rowptr[row]
+        assert (chunk_start[c0 + 1:c1] == ends[:-1]).all()
+        assert ends[-1] == rowptr[row + 1]
+        assert (ends - chunk_start[c0:c1] >= 1).all()
+        assert (ends - chunk_start[c0:c1] <= chunk).all()
+    assert chunk_ptr[-1] == len(chunk_row)
+
+
+@pytest.mark.parametrize("graph", ["uniform", "empty_rows", "no_rows"])
+def test_split_plan_is_empty_without_long_rows(graph):
+    rowptr = {"uniform": random_csr(300, 300, avg_degree=6.0, seed=1,
+                                    skew=0.3)[0],
+              "empty_rows": _rowptr([0, spmm_csr.SPLIT_CHUNK, 0,
+                                     spmm_csr.SPLIT_CHUNK - 1, 1]),
+              "no_rows": np.zeros(1, np.int32)}[graph]
+    assert np.diff(rowptr).max(initial=0) <= spmm_csr.SPLIT_CHUNK
+    plan = spmm_csr.split_plan(rowptr)
+    assert (plan.num_chunks, plan.num_split_rows) == (0, 0)
+    assert plan.chunk_ptr.tolist() == [0]
+    assert plan.chunk == spmm_csr.SPLIT_CHUNK
+
+
+def _walked(rowptr, plan, path, feat):
+    """How many lanes sum each (entry, feature) and write each (row,
+    feature), as the split launch maps them: the first chunk_blocks blocks
+    take the plan's chunks, the rest the rows, skipping a row longer than
+    C; the fix-up writes the split rows."""
+    vec, group, nv = path
+    per_block = WARPS * (WARP // group)
+    num_rows = len(rowptr) - 1
+    chunk_blocks = -(-plan.num_chunks // per_block)
+    grid_x = chunk_blocks + -(-num_rows // per_block)
+    grid_y = -(-feat // (group * nv * vec))
+    chunk_row, chunk_start, _ = _plan_arrays(plan)
+    summed = np.zeros((rowptr[-1], feat), np.int64)
+    written = np.zeros((num_rows, feat), np.int64)
+    for bx in range(grid_x):
+        chunks = bx < chunk_blocks
+        for warp in range(WARPS):
+            for lane in range(WARP):
+                slot = (((bx if chunks else bx - chunk_blocks) * WARPS
+                         + warp) * (WARP // group) + lane // group)
+                if chunks:
+                    if slot >= plan.num_chunks:
+                        continue
+                    start = chunk_start[slot]
+                    end = min(start + plan.chunk,
+                              rowptr[chunk_row[slot] + 1])
+                elif slot < num_rows:
+                    start, end = rowptr[slot], rowptr[slot + 1]
+                    if end - start > plan.chunk:
+                        continue
+                else:
+                    continue
+                for by in range(grid_y):
+                    for v in range(nv):
+                        f = ((by * nv + v) * group + lane % group) * vec
+                        if f < feat:
+                            summed[start:end, f:f + vec] += 1
+                            if not chunks:
+                                written[slot, f:f + vec] += 1
+    written[np.flatnonzero(np.diff(rowptr) > plan.chunk)] += 1
+    return summed, written
+
+
+@pytest.mark.parametrize("feat", [7, 40, 256])
+@pytest.mark.parametrize("graph", ["star", "zipf"])
+def test_split_launch_sums_every_entry_once(graph, feat):
+    rowptr = GRAPHS[graph]
+    plan = spmm_csr.split_plan(rowptr, 16)
+    path = spmm_csr.spmm_path(feat, 1, 4)
+    summed, written = _walked(rowptr, plan, path, feat)
+    assert (summed == 1).all() and (written == 1).all()
+
+
+def _storage(rowptr, device="cpu"):
+    nnz = int(rowptr[-1])
+    col = np.random.default_rng(0).integers(0, 500, nnz).astype(np.int32)
+    return pt.SparseTensor.from_csr(rowptr, col, torch.rand(nnz),
+                                    sparse_sizes=(len(rowptr) - 1, 500),
+                                    device=device)
+
+
+def _same_plan(a, b):
+    assert (a.num_chunks, a.num_split_rows, a.chunk, a.num_rows, a.nnz) \
+        == (b.num_chunks, b.num_split_rows, b.chunk, b.num_rows, b.nnz)
+    assert torch.equal(a.index.cpu(), b.index.cpu())
+
+
+@pytest.mark.parametrize("graph", ["star", "zipf"])
+def test_storage_builds_the_plans_of_both_views(graph):
+    sp = _storage(GRAPHS[graph] * 2)
+    st = sp.storage
+    assert "split_plan" in st.build_seconds
+    _same_plan(st.row_split(), spmm_csr.split_plan(st.rowptr().numpy()))
+    _same_plan(st.col_split(), spmm_csr.split_plan(st.colptr().numpy()))
+    assert st.row_split().num_chunks > 0
+
+
+@pytest.mark.parametrize("op", ["t", "to", "set_values"])
+def test_views_carry_the_plans(op):
+    sp = _storage(GRAPHS["star"] * 2)
+    st = sp.storage
+    if op == "t":
+        other = sp.t().storage
+        _same_plan(other.row_split(), st.col_split())
+        _same_plan(other.col_split(), st.row_split())
+        assert sp.t().t().storage.row_split() is st.row_split()
+    else:
+        other = (sp.to("cpu") if op == "to"
+                 else sp.set_values(torch.ones(sp.nnz))).storage
+        _same_plan(other.row_split(), st.row_split())
+        _same_plan(other.col_split(), st.col_split())
+        assert other.row_split().index.device == other.device

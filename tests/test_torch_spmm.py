@@ -93,7 +93,8 @@ def test_plain_versions_run_on_cpu_without_launching():
     pt.spmm_sum(p, x)
     spmm_csr.segment_sum_csr(torch.from_numpy(rowptr),
                              torch.ones(len(col), 8))
-    assert spmm_csr.LAUNCHES == {"csr_spmm": 0, "segment_sum_csr": 0}
+    assert spmm_csr.LAUNCHES == {"csr_spmm": 0, "csr_spmm_split": 0,
+                                 "segment_sum_csr": 0}
 
 
 def test_kernel_entries_refuse_cpu_tensors():
@@ -104,7 +105,8 @@ def test_kernel_entries_refuse_cpu_tensors():
                                torch.ones(20, 4))
     with pytest.raises(ValueError, match="CUDA"):
         spmm_csr.segment_sum_csr_cuda(t(rowptr), torch.ones(len(col), 4))
-    assert spmm_csr.LAUNCHES == {"csr_spmm": 0, "segment_sum_csr": 0}
+    assert spmm_csr.LAUNCHES == {"csr_spmm": 0, "csr_spmm_split": 0,
+                                 "segment_sum_csr": 0}
 
 
 @pytest.mark.parametrize("feat,reduce,has_value", [

@@ -179,7 +179,8 @@ def test_storage_phases_and_tier_counters(tracing):
                                   sparse_sizes=(len(rowptr) - 1,) * 2)
     st = sp.storage
     assert set(st.build_seconds) == {"host_check", "csc", "upload",
-                                     "hybrid_plan", "tier_values"}
+                                     "split_plan", "hybrid_plan",
+                                     "tier_values"}
     names = _by_name(metrics.spans())
     (build,) = names["dgsparse.storage.build"]
     for phase in st.build_seconds:
@@ -203,7 +204,8 @@ def test_build_seconds_without_tracing():
     st = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(values),
                                   sparse_sizes=(len(rowptr) - 1,) * 2).storage
     assert set(st.build_seconds) == {"host_check", "csc", "upload",
-                                     "hybrid_plan", "tier_values"}
+                                     "split_plan", "hybrid_plan",
+                                     "tier_values"}
     assert all(v >= 0 for v in st.build_seconds.values())
     assert metrics.spans() == []
 
