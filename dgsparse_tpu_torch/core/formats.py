@@ -151,10 +151,11 @@ def _tier_build(ones: bool):
 @contextlib.contextmanager
 def _phase(seconds: dict, name: str):
     """One phase of a storage's construction: its host seconds into
-    `seconds[name]`, under the span `dgsparse.storage.build.<name>`."""
-    with metrics.span(f"dgsparse.storage.build.{name}"):
+    `seconds[name]`, under the span `dgsparse.storage.build.<name>`, which
+    it yields."""
+    with metrics.span(f"dgsparse.storage.build.{name}") as span:
         t0 = time.perf_counter()
-        yield
+        yield span
         seconds[name] = time.perf_counter() - t0
 
 
@@ -174,7 +175,9 @@ class Storage:
     The tiers' values are then cached for the values given here (or for
     implicit ones); `build_seconds` times the construction's phases
     (`host_check`, `csc`, `upload`, `split_plan`, `hybrid_plan`,
-    `tier_values`), each also a child span of `dgsparse.storage.build`.
+    `tier_values`), each also a child span of `dgsparse.storage.build`;
+    the `hybrid_plan` span is tagged with the plan's shape
+    (`core.planner.describe`).
     """
 
     def __init__(
@@ -225,9 +228,11 @@ class Storage:
             self._hybrid = self._tier_vals = self._tier_ones = None
             self._tier_key = self._slot_maps = None
             if build_plans and nnz >= 4096 and nnz / max(num_rows, 1) >= 16:
-                with _phase(seconds, "hybrid_plan"):
+                with _phase(seconds, "hybrid_plan") as span:
                     hyb = P.build_hybrid_plan(rowptr_np, col_np, num_cols,
                                               device=device)
+                    if hyb is not None and metrics.enabled():
+                        span.tag(**P.describe(hyb))
                 if hyb is not None and hyb.dense_fraction >= 0.3:
                     self._hybrid = hyb
                     with _phase(seconds, "tier_values"):

@@ -367,6 +367,19 @@ class HybridPlan(_OnDevice):
         return d / max(self.nnz, 1)
 
 
+def describe(plan: HybridPlan) -> dict:
+    """The plan's shape, the tags of its set-up span: the cells and their
+    edges, the dense fraction, BELL's rows and slots (padding included),
+    and the edges of the residue and of the non-cell CSC."""
+    cells, bell = plan.cells, plan.bell
+    return {"cells": cells.num_cells if cells is not None else 0,
+            "cell_edges": cells.nnz if cells is not None else 0,
+            "dense_fraction": plan.dense_fraction,
+            "bell_rows": bell.num_bell_rows if bell is not None else 0,
+            "bell_slots": bell.padded_edges if bell is not None else 0,
+            "residue_nnz": plan.res.nnz, "nd_t_nnz": plan.nd_t.nnz}
+
+
 def tier_values(plan: HybridPlan, values, device) -> dict:
     """Each tier's edge values for the kernels, on `device`: "cells" the
     materialized blocks [ncells, R, C] (or None), "cells_bf16" their bf16

@@ -37,6 +37,12 @@ keeps the fp32 product, within 2^-9 of a BELL term of JAX's. (JAX's
 residue likewise multiplies bf16-rounded weights in bf16; the port's CSR
 kernel keeps fp32 weights and products.) `sddmm_hybrid`'s bf16 mode rounds
 d1 and d2 for the cells only, as JAX's does.
+
+With tracing on (`utils/metrics.py`), each tier of `spmm_hybrid` and
+`spmm_hybrid_t` is a span of its own inside the op's span, with the tags
+that price it, and a count of its launches (`hybrid.<tier>`):
+`dgsparse.hybrid.residue` (m, nnz, f), `.cells` (cells, f, transpose),
+`.bell` (rows, long_rows, slots, f) and `.nd_t` (n, nnz, f).
 """
 
 import torch
@@ -49,6 +55,15 @@ from dgsparse_tpu_torch.kernels.spmm_cells import (check_compute_dtype,
                                                    spmm_dense_cells)
 from dgsparse_tpu_torch.kernels.spmm_csr import csr_spmm
 from dgsparse_tpu_torch.ops.types import ReduceOp
+from dgsparse_tpu_torch.utils import metrics
+
+
+def _tier(name: str, **tags):
+    """The span `dgsparse.hybrid.<name>` of one tier's launch, counted as
+    `hybrid.<name>`. Call sites ask only with tracing on
+    (`metrics.enabled()`), so that tracing off works out no tag."""
+    metrics.count(f"hybrid.{name}")
+    return metrics.span(f"dgsparse.hybrid.{name}", **tags)
 
 
 def _cells(tiers: dict, bf16: bool) -> torch.Tensor:
@@ -69,13 +84,21 @@ def spmm_hybrid(st: Storage, tiers: dict, dense: torch.Tensor,
     bf16 = check_compute_dtype(compute_dtype)
     hp = st.ell_plan()
     x = dense.to(torch.bfloat16) if bf16 else dense
-    out = csr_spmm(hp.res.rowptr, hp.res.col, tiers["res"], x,
-                   ReduceOp.SUM).float()
+    on, f = metrics.enabled(), x.shape[1]
+    with _tier("residue", m=hp.num_rows, nnz=hp.res.nnz, f=f) if on \
+            else metrics.NULL_SPAN:
+        out = csr_spmm(hp.res.rowptr, hp.res.col, tiers["res"], x,
+                       ReduceOp.SUM).float()
     if hp.cells is not None:
-        out += spmm_dense_cells(hp.cells, _cells(tiers, bf16), x,
-                                compute_dtype=compute_dtype)
-    if hp.bell is not None:
-        spmm_bell(hp.bell, tiers["bell"], x, out=out)
+        with _tier("cells", cells=hp.cells.num_cells, f=f,
+                   transpose=False) if on else metrics.NULL_SPAN:
+            out += spmm_dense_cells(hp.cells, _cells(tiers, bf16), x,
+                                    compute_dtype=compute_dtype)
+    bp = hp.bell
+    if bp is not None:
+        with _tier("bell", rows=bp.num_bell_rows, long_rows=bp.num_long_rows,
+                   slots=bp.padded_edges, f=f) if on else metrics.NULL_SPAN:
+            spmm_bell(bp, tiers["bell"], x, out=out)
     if reduce == ReduceOp.MEAN:
         deg = st.rowptr()[1:] - st.rowptr()[:-1]
         out /= torch.clamp(deg, min=1).float()[:, None]
@@ -88,11 +111,17 @@ def spmm_hybrid_t(st: Storage, tiers: dict, g: torch.Tensor,
     bf16 = check_compute_dtype(compute_dtype)
     hp = st.ell_plan()
     x = g.to(torch.bfloat16) if bf16 else g
-    out = csr_spmm(hp.nd_t.rowptr, hp.nd_t.col, tiers["nd_t"], x,
-                   ReduceOp.SUM).float()
+    on, f = metrics.enabled(), x.shape[1]
+    with _tier("nd_t", n=hp.num_cols, nnz=hp.nd_t.nnz, f=f) if on \
+            else metrics.NULL_SPAN:
+        out = csr_spmm(hp.nd_t.rowptr, hp.nd_t.col, tiers["nd_t"], x,
+                       ReduceOp.SUM).float()
     if hp.cells is not None:
-        out += spmm_dense_cells(hp.cells, _cells(tiers, bf16), x,
-                                transpose=True, compute_dtype=compute_dtype)
+        with _tier("cells", cells=hp.cells.num_cells, f=f,
+                   transpose=True) if on else metrics.NULL_SPAN:
+            out += spmm_dense_cells(hp.cells, _cells(tiers, bf16), x,
+                                    transpose=True,
+                                    compute_dtype=compute_dtype)
     return out
 
 

@@ -1139,6 +1139,31 @@ def test_hybrid_spmm_and_grads_match_the_csr_route(cuda, reduce, has_value,
         == (0, 0, 0, 2)
 
 
+def test_hybrid_tier_counters_match_the_launches(cuda):
+    from dgsparse_tpu_torch.utils import metrics
+
+    adj = _hybrid(cuda, seed=5)
+    x = torch.randn(1500, 40, device=cuda, requires_grad=True)
+    reset_launch_counts()
+    metrics.reset()
+    metrics.enable()
+    try:
+        pt.spmm_sum(adj, x).sum().backward()
+        torch.cuda.synchronize()
+        counts = metrics.cache_counters()
+        spans = metrics.span_totals()
+    finally:
+        metrics.disable()
+        metrics.reset()
+    got = launch_counts()
+    tiers = ("residue", "cells", "bell", "nd_t")
+    assert [spans[f"dgsparse.hybrid.{t}"]["count"] for t in tiers] == \
+        [counts[f"hybrid.{t}"] for t in tiers] == [1, 2, 1, 1]
+    assert (counts["hybrid.residue"] + counts["hybrid.nd_t"],
+            counts["hybrid.cells"], counts["hybrid.bell"]) == \
+        (got["csr_spmm"], got["spmm_dense_cells"], got["spmm_bell"])
+
+
 def test_hybrid_sddmm_matches_the_csr_kernel(cuda):
     adj = _hybrid(cuda, seed=3)
     st = adj.storage

@@ -9,6 +9,9 @@
   named `<name>#<id>`, inside its parent's.
 - The storage's construction phases fill `build_seconds` and are spans;
   the tier values count as built or reused.
+- On a hybrid storage, each tier of the SpMM and of its transpose is a
+  span inside the op's, tagged with what prices it, and counts one launch;
+  the plan's shape tags its set-up span. Off, none of it is recorded.
 """
 
 import json
@@ -20,6 +23,7 @@ from torch.nn import functional as F
 
 import dgsparse_tpu_torch as pt
 from dgsparse_tpu_torch import entry
+from dgsparse_tpu_torch.core import planner
 from dgsparse_tpu_torch.utils import metrics
 from dgsparse_tpu_torch.utils.testing import hybrid_csr
 
@@ -219,3 +223,74 @@ def test_span_cap_keeps_the_newest(tracing, monkeypatch):
             pass
     assert [s["tags"]["i"] for s in metrics.spans()] == [2, 3, 4]
     assert metrics.span_totals()["dgsparse.test"]["count"] == 5
+
+
+def _hybrid_step():
+    """A hybrid storage of every tier and one SpMM forward and backward
+    at F = 24 through `spmm_sum`."""
+    rowptr, col, values = hybrid_csr()
+    sp = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(values),
+                                  sparse_sizes=(len(rowptr) - 1,) * 2)
+    hp = sp.storage.ell_plan()
+    assert hp is not None and hp.cells is not None and hp.bell is not None
+    x = torch.randn(sp.shape[1], 24, requires_grad=True,
+                    generator=torch.Generator().manual_seed(3))
+    pt.spmm_sum(sp, x).square().sum().backward()
+    return sp, hp
+
+
+def test_hybrid_tier_spans_and_counters(tracing):
+    sp, hp = _hybrid_step()
+    names = _by_name(metrics.spans())
+    (fwd,) = names["dgsparse.op.spmm.hybrid.fwd"]
+    (bwd,) = names["dgsparse.op.spmm.hybrid.bwd"]
+    (res,) = names["dgsparse.hybrid.residue"]
+    (bell,) = names["dgsparse.hybrid.bell"]
+    (nd_t,) = names["dgsparse.hybrid.nd_t"]
+    cells = names["dgsparse.hybrid.cells"]
+    assert [s["parent"] for s in (res, bell, nd_t)] == \
+        [fwd["id"], fwd["id"], bwd["id"]]
+    assert [(s["parent"], s["tags"]["transpose"]) for s in cells] == \
+        [(fwd["id"], False), (bwd["id"], True)]
+    m, n = sp.shape
+    assert res["tags"] == {"m": m, "nnz": hp.res.nnz, "f": 24}
+    assert all(s["tags"] == {"cells": hp.cells.num_cells, "f": 24,
+                             "transpose": s["tags"]["transpose"]}
+               for s in cells)
+    assert bell["tags"] == {"rows": hp.bell.num_bell_rows,
+                            "long_rows": hp.bell.num_long_rows,
+                            "slots": hp.bell.padded_edges, "f": 24}
+    assert nd_t["tags"] == {"n": n, "nnz": hp.nd_t.nnz, "f": 24}
+    # one count a tier launch: the forward's three, the transpose's two
+    launches = {k: v for k, v in metrics.cache_counters().items()
+                if k.startswith("hybrid.")}
+    assert launches == {"hybrid.residue": 1, "hybrid.cells": 2,
+                        "hybrid.bell": 1, "hybrid.nd_t": 1}
+    assert launches == {f"hybrid.{k[len('dgsparse.hybrid.'):]}": len(v)
+                        for k, v in names.items()
+                        if k.startswith("dgsparse.hybrid.")}
+
+
+def test_hybrid_plan_span_tags(tracing):
+    rowptr, col, values = hybrid_csr()
+    st = pt.SparseTensor.from_csr(rowptr, col, torch.from_numpy(values),
+                                  sparse_sizes=(len(rowptr) - 1,) * 2).storage
+    hp = st.ell_plan()
+    (span,) = _by_name(metrics.spans())["dgsparse.storage.build.hybrid_plan"]
+    assert span["tags"] == planner.describe(hp)
+    assert span["tags"] == {
+        "cells": hp.cells.num_cells, "cell_edges": hp.cells.nnz,
+        "dense_fraction": hp.dense_fraction,
+        "bell_rows": hp.bell.num_bell_rows,
+        "bell_slots": hp.bell.padded_edges, "residue_nnz": hp.res.nnz,
+        "nd_t_nnz": hp.nd_t.nnz}
+    assert hp.cells.nnz + hp.bell.nnz + hp.res.nnz == st.nnz
+    assert hp.bell.nnz + hp.res.nnz == hp.nd_t.nnz
+
+
+def test_hybrid_tiers_off_record_nothing():
+    metrics.reset()
+    assert not metrics.enabled()
+    _hybrid_step()
+    assert metrics.spans() == [] and metrics.span_totals() == {}
+    assert metrics.cache_counters() == {}
