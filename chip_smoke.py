@@ -132,7 +132,10 @@ exits non-zero without a result line:
      sddmm_csr on the mapping their picker picks ("kernel") and on each
      of their two mappings (winner masks or the group mapping, and the
      ones they had before: one warp a CSC column, one warp a row);
-     sddmm_csr also over the Reddit-scale
+     sddmm_csr also on the benchmark's graph at GAT's widths there (H = 8,
+     F = 8 and H = 1, F = 40), "kernel" with the storage's split plan and
+     "unsplit" without, the split held first to the plain version and,
+     bit for bit, to the unsplit launch; and over the Reddit-scale
      storage's non-cell edges (the hybrid sddmm's CSR launch) at F = 64
      and 41; on the
      Reddit-scale storage over the
@@ -1777,7 +1780,7 @@ def phase_numbers(torch, cuda, runs, graphs):
                        st.row_split()))
     # the benchmark's graph (portbench/graphs/citation.py, seed 0): hub rows
     # of up to 13,096 entries, forward and CSC, with and without the plan
-    st = _citation_graph(cuda).storage
+    st = citation = _citation_graph(cuda).storage
     vals_csc = st.values()[st.csr2csc().long()]
     for feat in (256, 40):
         spmm_cases.append((f"citation forward F={feat}", st.rowptr(),
@@ -1899,6 +1902,36 @@ def phase_numbers(torch, cuda, runs, graphs):
                 "torch.sparse.sampled_addmm over a batched CSR [H, M, N] "
                 "(cuSPARSE)")
             _log_sddmm(results, label, m, nnz, ms, S, feat, heads)
+    # GAT's d_values on the benchmark's graph at its two widths (8 heads of
+    # 8, one of 40): "kernel" with the storage's split plan, as the main
+    # path passes it, "unsplit" without; the split held to the plain
+    # version and to the unsplit launch, bit for bit, first
+    st = citation
+    split = st.row_split()
+    for heads, feat in ((8, 8), (1, 40)):
+        label = f"citation d_values H={heads} F={feat}"
+        m, n, nnz = st.num_rows, st.num_cols, st.nnz
+        d1 = torch.randn(m, heads * feat, generator=gen, device=cuda)
+        d2 = torch.randn(n, heads * feat, generator=gen, device=cuda)
+        args = (st.rowptr(), st.col(), d1, d2, heads)
+        out = S.sddmm_csr_cuda(*args, split=split)
+        assert_sum_close(out, S.sddmm_csr_plain(*args),
+                         S.sddmm_csr_plain(st.rowptr(), st.col(), d1.abs(),
+                                           d2.abs(), heads),
+                         TOL["float32"])
+        if not torch.equal(out, S.sddmm_csr_cuda(*args)):
+            raise AssertionError(f"sddmm_csr {label}: the split launch "
+                                 "differs from the unsplit one")
+        ms = _time_turns({
+            "kernel": (functools.partial(S.sddmm_csr_cuda, split=split),
+                       args),
+            "unsplit": (S.sddmm_csr_cuda, args),
+            "plain": (S.sddmm_csr_plain, args)})
+        nbytes = 4 * ((m + 1) + nnz + (m + n) * heads * feat + nnz * heads)
+        ms.update(bound(nbytes, 2.0 * nnz * heads * feat))
+        ms["split_rows"] = split.num_split_rows
+        ms["split_chunks"] = split.num_chunks
+        _log_sddmm(results, label, m, nnz, ms, S, feat, heads)
     # the hybrid sddmm's CSR launch at Reddit scale: the non-cell edges'
     # sub-CSR (~23 M edges), d2 [N, F] (60 MB at F = 64) past L2
     st = graphs["reddit"][0].storage
@@ -1994,11 +2027,13 @@ def _log_sddmm(results, label, m, nnz, ms, S, feat, heads):
                    "group": S.sddmm_path(feat, heads, 4),
                    "old_mapping": S.WARP_PER_ROW}
     results["sddmm_csr"][label] = ms
+    split = (f", {ms['split_rows']} rows split into {ms['split_chunks']} "
+             f"chunks" if "split_rows" in ms else "")
     log(f"[numbers] sddmm_csr {label} ({m} rows, {nnz} nnz, fp32, picked "
-        f"{ms['paths']['kernel']}): "
+        f"{ms['paths']['kernel']}{split}): "
         + ", ".join(f"{k} {ms[k] * 1e3:.2f} us"
-                    for k in ("kernel", "group", "old_mapping", "plain",
-                              "library")
+                    for k in ("kernel", "unsplit", "group", "old_mapping",
+                              "plain", "library")
                     if k in ms)
         + f", bound {ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
         f"{ms['bound_rate']}); {ms['bound'] / ms['kernel']:.3f} of the "

@@ -44,6 +44,23 @@
 // row at a time, the row's col read 32 at a time and broadcast by
 // __shfl_sync, each dot summed by xor shuffles and written by one lane.
 // Rows map to gridDim.x; empty rows write nothing (they own no edges).
+//
+// Hub rows: a row's group walks its edges a pass at a time (4 edges at
+// GAT's widths), so a row of ~13,100 entries (ogbn-arxiv's largest) keeps
+// one group busy for ~3,300 dependent passes, milliseconds after every
+// other warp has finished. The CSR's split plan (`kernels/spmm_csr.py::
+// split_plan`, built once per storage, the one `csr_spmm` takes) cuts each
+// row longer than C entries into chunks of C consecutive entries. One
+// launch then has two roles, by block index, in both mappings: the first
+// blocks take the chunks, one group (one warp on WARP_PER_ROW) a chunk as
+// if it were a row, loading the row's d1 segment once per chunk; they are
+// scheduled first, so the long work starts first. The other blocks map
+// rows as before and skip a row longer than C. An SDDMM writes each (edge,
+// head) once, so there is no workspace, no second launch and no atomics:
+// each output is the same per-edge dot, its features summed in the same
+// order, so the split launch's output is bitwise the one without a plan
+// (MEAN divides by the whole row's degree). Without a plan, or with an
+// empty one, the launch is the one before plans existed.
 
 #include "common.cuh"
 
@@ -52,6 +69,20 @@ using namespace dg;
 namespace {
 
 constexpr int kMaxK = 8;  // elements a lane holds per chunk: 256 features
+
+// A split plan on the device: the chunks of the rows longer than `size`
+// entries, in CSR order.
+struct RowSplit {
+  const int* row;    // [chunks] the row of each chunk
+  const int* start;  // [chunks] its first entry; a chunk runs `size`
+                     // entries or to its row's end
+  int chunks, size;
+};
+
+// Blocks of `per_block` slots for `n` slots.
+inline int blocks_for(int n, int per_block) {
+  return (n + per_block - 1) / per_block;
+}
 
 // Lane lg of a head's group holds features ch*LPH*K + lg + k*LPH, k < K.
 template <typename T, int K, int LPH>
@@ -66,18 +97,41 @@ __device__ __forceinline__ void load_segment(const T* __restrict__ p,
 }
 
 // LPH lanes per head, K elements a lane; `heads_per_pass` heads of an edge
-// side by side (LPH * heads_per_pass <= 32 lanes).
-template <typename T, int K, int LPH>
+// side by side (LPH * heads_per_pass <= 32 lanes). A warp serves a row, or
+// with SPLIT in the first `chunk_blocks` blocks a chunk of `split`.
+template <typename T, int K, int LPH, bool SPLIT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     sddmm_csr_kernel(const int* __restrict__ rowptr,
                      const int* __restrict__ col, const T* __restrict__ d1,
                      const T* __restrict__ d2, float* __restrict__ out,
                      int num_rows, int heads, int feat, int heads_per_pass,
-                     int mean) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.y;
-  if (row >= num_rows) return;  // uniform across the warp
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
+                     int mean, RowSplit split, int chunk_blocks) {
+  int row, start, end, deg;  // deg: the whole row's, for MEAN
+  if constexpr (SPLIT) {
+    // every branch below is uniform across the warp
+    if (blockIdx.x < chunk_blocks) {
+      const int chunk = blockIdx.x * kWarpsPerBlock + threadIdx.y;
+      if (chunk >= split.chunks) return;
+      row = split.row[chunk];
+      start = split.start[chunk];
+      const int row_end = rowptr[row + 1];
+      end = min(start + split.size, row_end);
+      deg = row_end - rowptr[row];
+    } else {
+      row = (blockIdx.x - chunk_blocks) * kWarpsPerBlock + threadIdx.y;
+      if (row >= num_rows) return;
+      start = rowptr[row];
+      end = rowptr[row + 1];
+      deg = end - start;
+      if (deg > split.size) return;  // its chunks write it
+    }
+  } else {
+    row = blockIdx.x * kWarpsPerBlock + threadIdx.y;
+    if (row >= num_rows) return;  // uniform across the warp
+    start = rowptr[row];
+    end = rowptr[row + 1];
+    deg = end - start;
+  }
   if (start == end) return;
   const int lane = threadIdx.x;
   const int lanes_per_edge = LPH * heads_per_pass;
@@ -87,7 +141,7 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   const int lg = lane % LPH;                    // lane within the head
   const int hf = heads * feat;
   const int chunks = (feat + LPH * K - 1) / (LPH * K);
-  const float denom = mean ? static_cast<float>(end - start) : 1.f;
+  const float denom = mean ? static_cast<float>(deg) : 1.f;
   const T* d1_row = d1 + static_cast<int64_t>(row) * hf;
 
   for (int h0 = 0; h0 < heads; h0 += heads_per_pass) {  // uniform
@@ -126,24 +180,60 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   }
 }
 
-// out[e, h] for the rows of this warp's groups. Lane l serves row
-// (warp * 32 + l) / group; within its group, edge slot (l % group) / P of
-// each pass, head h0 + (l % P) / Q and vectors q + k * Q (q = l % Q) of
-// that head, VEC elements each; CHUNKED when a head is wider than Q * K
-// vectors, which then come chunk by chunk.
-template <typename T, int VEC, int K, bool CHUNKED>
+// out[e, h] for the rows of this warp's groups. Lane l serves slot
+// (warp * 32 + l) / group, counted from the first block of its role: a
+// row, or with SPLIT in the first `chunk_blocks` blocks a chunk of
+// `split`. Within its group, edge slot (l % group) / P of each pass, head
+// h0 + (l % P) / Q and vectors q + k * Q (q = l % Q) of that head, VEC
+// elements each; CHUNKED when a head is wider than Q * K vectors, which
+// then come chunk by chunk.
+template <typename T, int VEC, int K, bool CHUNKED, bool SPLIT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     sddmm_group_kernel(const int* __restrict__ rowptr,
                        const int* __restrict__ col, const T* __restrict__ d1,
                        const T* __restrict__ d2, float* __restrict__ out,
                        int num_rows, int heads, int feat, int q_lanes,
-                       int heads_per_pass, int group, int mean) {
+                       int heads_per_pass, int group, int mean,
+                       RowSplit split, int chunk_blocks) {
   using V = Packed<T, VEC>;
   const int lane = threadIdx.x;
   const int li = lane & (group - 1);
-  const int row = (blockIdx.x * kWarpsPerBlock + threadIdx.y) *
-                      (kWarp / group) + lane / group;
-  const bool has_row = row < num_rows;
+  // a lane past the last slot, or on a split row, walks no edges but
+  // keeps taking part in the warp's shuffles
+  int row, start, end, deg;  // deg: the whole row's, for MEAN
+  bool has_row;
+  if constexpr (SPLIT) {
+    const bool chunk_role = blockIdx.x < chunk_blocks;  // block-uniform
+    const int unit =
+        ((chunk_role ? blockIdx.x : blockIdx.x - chunk_blocks) *
+             kWarpsPerBlock + threadIdx.y) * (kWarp / group) + lane / group;
+    row = start = end = deg = 0;
+    has_row = false;
+    if (chunk_role) {
+      if (unit < split.chunks) {
+        row = split.row[unit];
+        start = split.start[unit];
+        const int row_end = rowptr[row + 1];
+        end = min(start + split.size, row_end);
+        deg = row_end - rowptr[row];
+        has_row = true;
+      }
+    } else if (unit < num_rows) {
+      start = rowptr[unit];
+      end = rowptr[unit + 1];
+      deg = end - start;
+      has_row = deg <= split.size;  // else its chunks write it
+      row = has_row ? unit : 0;
+      if (!has_row) start = end = 0;
+    }
+  } else {
+    row = (blockIdx.x * kWarpsPerBlock + threadIdx.y) * (kWarp / group) +
+          lane / group;
+    has_row = row < num_rows;
+    start = has_row ? rowptr[row] : 0;
+    end = has_row ? rowptr[row + 1] : 0;
+    deg = end - start;
+  }
   const int per_edge = q_lanes * heads_per_pass;  // P
   const int in_pass = group / per_edge;           // edges a pass
   const int slot = li / per_edge;
@@ -153,9 +243,6 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   const int head_vecs = feat / VEC;
   const int chunks = CHUNKED ? (head_vecs + q_lanes * K - 1) / (q_lanes * K)
                              : 1;
-  // a lane past the last row keeps taking part in the warp's shuffles
-  const int start = has_row ? rowptr[row] : 0;
-  const int end = has_row ? rowptr[row + 1] : 0;
   const T* d1_row = d1 + static_cast<int64_t>(has_row ? row : 0) * hf;
 
   for (int h0 = 0; h0 < heads; h0 += heads_per_pass) {  // uniform
@@ -208,20 +295,34 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
         acc += __shfl_xor_sync(kFullMask, acc, off);
       if (valid && q == 0)
         out[static_cast<int64_t>(e) * heads + h] =
-            mean ? acc / static_cast<float>(end - start) : acc;
+            mean ? acc / static_cast<float>(deg) : acc;
     }
   }
 }
 
+// One launch of the one-warp-a-row kernel: the chunks' blocks first where
+// `split` has chunks, else the kernel without roles.
 template <typename T, int K, int LPH>
-void launch_k(dim3 grid, dim3 block, cudaStream_t s, const int* rowptr,
-              const int* col, const void* d1, const void* d2, float* out,
-              int num_rows, int heads, int feat, int mean) {
+void launch_k(cudaStream_t s, const int* rowptr, const int* col,
+              const void* d1, const void* d2, float* out, int num_rows,
+              int heads, int feat, int mean, const RowSplit& split) {
   int per_pass = 1;  // heads side by side: a power of two, <= 32 lanes
   while (per_pass < heads && per_pass * 2 * LPH <= kWarp) per_pass *= 2;
-  sddmm_csr_kernel<T, K, LPH><<<grid, block, 0, s>>>(
-      rowptr, col, static_cast<const T*>(d1), static_cast<const T*>(d2), out,
-      num_rows, heads, feat, per_pass, mean);
+  const dim3 block(kWarp, kWarpsPerBlock);
+  const int row_blocks = blocks_for(num_rows, kWarpsPerBlock);
+  const auto* a = static_cast<const T*>(d1);
+  const auto* b = static_cast<const T*>(d2);
+  if (split.chunks == 0) {
+    sddmm_csr_kernel<T, K, LPH, false><<<row_blocks, block, 0, s>>>(
+        rowptr, col, a, b, out, num_rows, heads, feat, per_pass, mean, split,
+        0);
+  } else {
+    const int chunk_blocks = blocks_for(split.chunks, kWarpsPerBlock);
+    sddmm_csr_kernel<T, K, LPH, true>
+        <<<chunk_blocks + row_blocks, block, 0, s>>>(
+            rowptr, col, a, b, out, num_rows, heads, feat, per_pass, mean,
+            split, chunk_blocks);
+  }
 }
 
 // Lanes per head LPH and elements per lane K for a head of `feat`
@@ -230,18 +331,16 @@ void launch_k(dim3 grid, dim3 block, cudaStream_t s, const int* rowptr,
 template <typename T>
 int launch(int device, const int* rowptr, const int* col, const void* d1,
            const void* d2, float* out, int num_rows, int heads, int feat,
-           int mean, void* stream) {
+           int mean, const RowSplit& split, void* stream) {
   if (num_rows <= 0 || heads <= 0 || feat <= 0) return cudaErrorInvalidValue;
   if (static_cast<int64_t>(heads) * feat > INT32_MAX)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const dim3 block(kWarp, kWarpsPerBlock);
-  const dim3 grid((num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DG_LAUNCH(K, LPH)                                                 \
-  launch_k<T, K, LPH>(grid, block, s, rowptr, col, d1, d2, out, num_rows, \
-                      heads, feat, mean)
+#define DG_LAUNCH(K, LPH)                                                  \
+  launch_k<T, K, LPH>(s, rowptr, col, d1, d2, out, num_rows, heads, feat, \
+                      mean, split)
   if (feat <= 4) {
     DG_LAUNCH(4, 1);
   } else if (feat <= 8) {
@@ -269,24 +368,37 @@ struct Group {
   const void* d2;
   float* out;
   int num_rows, heads, feat, mean, q, heads_per_pass, group;
+  RowSplit split;
   cudaStream_t s;
 };
 
-template <typename T, int VEC, int K>
-int launch_group(const Group& a) {
-  const int rows = kWarpsPerBlock * (kWarp / a.group);  // rows a block
-  const dim3 grid((a.num_rows + rows - 1) / rows);
+template <typename T, int VEC, int K, bool CHUNKED>
+void launch_group_kernel(const Group& a) {
+  const int slots = kWarpsPerBlock * (kWarp / a.group);  // slots a block
+  const int row_blocks = blocks_for(a.num_rows, slots);
   const dim3 block(kWarp, kWarpsPerBlock);
   const auto* d1 = static_cast<const T*>(a.d1);
   const auto* d2 = static_cast<const T*>(a.d2);
+  if (a.split.chunks == 0) {
+    sddmm_group_kernel<T, VEC, K, CHUNKED, false>
+        <<<row_blocks, block, 0, a.s>>>(
+            a.rowptr, a.col, d1, d2, a.out, a.num_rows, a.heads, a.feat,
+            a.q, a.heads_per_pass, a.group, a.mean, a.split, 0);
+  } else {
+    const int chunk_blocks = blocks_for(a.split.chunks, slots);
+    sddmm_group_kernel<T, VEC, K, CHUNKED, true>
+        <<<chunk_blocks + row_blocks, block, 0, a.s>>>(
+            a.rowptr, a.col, d1, d2, a.out, a.num_rows, a.heads, a.feat,
+            a.q, a.heads_per_pass, a.group, a.mean, a.split, chunk_blocks);
+  }
+}
+
+template <typename T, int VEC, int K>
+int launch_group(const Group& a) {
   if (a.feat / VEC > a.q * K)
-    sddmm_group_kernel<T, VEC, K, true><<<grid, block, 0, a.s>>>(
-        a.rowptr, a.col, d1, d2, a.out, a.num_rows, a.heads, a.feat, a.q,
-        a.heads_per_pass, a.group, a.mean);
+    launch_group_kernel<T, VEC, K, true>(a);
   else
-    sddmm_group_kernel<T, VEC, K, false><<<grid, block, 0, a.s>>>(
-        a.rowptr, a.col, d1, d2, a.out, a.num_rows, a.heads, a.feat, a.q,
-        a.heads_per_pass, a.group, a.mean);
+    launch_group_kernel<T, VEC, K, false>(a);
   return cudaGetLastError();
 }
 
@@ -336,6 +448,16 @@ int group_path(int vec, int k, const Group& a) {
   }
 }
 
+// The split plan as the C interface takes it: `chunks` chunks of `chunk`
+// entries, `plan` int32 chunk_row [chunks] then chunk_start [chunks] (the
+// rest of `kernels/spmm_csr.py::SplitPlan.index` is unread here); no
+// chunks, no plan. False where the arguments cannot be a plan.
+bool row_split(const int* plan, int chunks, int chunk, RowSplit* split) {
+  if (chunks < 0 || (chunks > 0 && (!plan || chunk < 1))) return false;
+  *split = {plan, chunks > 0 ? plan + chunks : nullptr, chunks, chunk};
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -345,19 +467,25 @@ extern "C" {
 // in `dtype` (0 fp32, 1 bf16); mean != 0 divides by max(deg, 1). On the
 // path (vec, k, q, heads_per_pass, group): `vec` elements a load, `k`
 // vectors a lane, `q` lanes a head, `heads_per_pass` heads of an edge side
-// by side, `group` lanes a row. Returns a cudaError_t.
+// by side, `group` lanes a row. A split plan of `chunks` > 0 chunks of
+// `chunk` entries (every row longer than `chunk`): `plan`, int32 chunk_row
+// [chunks] and chunk_start [chunks] one after the other; `chunks` 0 and
+// `plan` NULL for none. Returns a cudaError_t.
 int dg_sddmm_csr_group(int dtype, int device, const int* rowptr,
                        const int* col, const void* d1, const void* d2,
                        float* out, int num_rows, int heads, int feat,
                        int mean, int vec, int k, int q, int heads_per_pass,
-                       int group, void* stream) {
+                       int group, const int* plan, int chunks, int chunk,
+                       void* stream) {
+  RowSplit split;
   if (num_rows <= 0 || heads <= 0 || feat <= 0 ||
-      static_cast<int64_t>(heads) * feat > INT32_MAX)
+      static_cast<int64_t>(heads) * feat > INT32_MAX ||
+      !row_split(plan, chunks, chunk, &split))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Group a{rowptr, col,  d1,   d2, out, num_rows, heads, feat, mean,
-                q,      heads_per_pass, group,
+  const Group a{rowptr, col,  d1,   d2,    out, num_rows, heads, feat, mean,
+                q,      heads_per_pass, group, split,
                 static_cast<cudaStream_t>(stream)};
   if (dtype == kFloat32) return group_path<float>(vec, k, a);
   if (dtype == kBFloat16) return group_path<__nv_bfloat16>(vec, k, a);
@@ -367,13 +495,16 @@ int dg_sddmm_csr_group(int dtype, int device, const int* rowptr,
 // The same on the one-warp-a-row mapping (no path). Returns a cudaError_t.
 int dg_sddmm_csr(int dtype, int device, const int* rowptr, const int* col,
                  const void* d1, const void* d2, float* out, int num_rows,
-                 int heads, int feat, int mean, void* stream) {
+                 int heads, int feat, int mean, const int* plan, int chunks,
+                 int chunk, void* stream) {
+  RowSplit split;
+  if (!row_split(plan, chunks, chunk, &split)) return cudaErrorInvalidValue;
   if (dtype == kFloat32)
     return launch<float>(device, rowptr, col, d1, d2, out, num_rows, heads,
-                         feat, mean, stream);
+                         feat, mean, split, stream);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16>(device, rowptr, col, d1, d2, out, num_rows,
-                                 heads, feat, mean, stream);
+                                 heads, feat, mean, split, stream);
   return cudaErrorInvalidValue;
 }
 

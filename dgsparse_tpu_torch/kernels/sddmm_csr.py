@@ -15,6 +15,15 @@ between them; both are pure functions of the head width, the heads, the
 dtype and the pointers' alignment, so that the CPU tests can check that
 a path covers every (edge, head, feature) once.
 
+Hub rows: given the CSR's split plan (`spmm_csr.split_plan`, the one a
+storage builds for `csr_spmm`, `Storage.row_split()`), either mapping runs
+the chunks of every row longer than `SPLIT_CHUNK` entries as extra slots of
+the same launch, in its first blocks, and skips those rows in the others,
+so the longest row no longer sets the launch's time. Each (edge, head) is
+still written once, by the same dot: no workspace, no second launch, and
+the output bitwise the one without a plan. Without a plan, or with an
+empty one, the launch is the one without chunks.
+
 Routing as in `spmm_csr.py`: the plain version for CPU tensors, the kernel
 (or an exception) for CUDA tensors. `LAUNCHES` counts kernel launches.
 """
@@ -28,8 +37,11 @@ import torch
 from dgsparse_tpu_torch.core.transform import expand_rowptr
 from dgsparse_tpu_torch.kernels import _launch, reference, spmm_csr
 from dgsparse_tpu_torch.ops.types import ReduceOp, as_reduce
+from dgsparse_tpu_torch.utils import metrics
 
-LAUNCHES = {"sddmm_csr": 0}
+# "sddmm_csr_split": the sddmm_csr launches that took a non-empty split
+# plan (each also counted under "sddmm_csr")
+LAUNCHES = {"sddmm_csr": 0, "sddmm_csr_split": 0}
 
 
 def reset_launch_counts() -> None:
@@ -43,9 +55,10 @@ def _lib():
 
     lib = _build.load("sddmm_csr")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dg_sddmm_csr.argtypes = [i, i, p, p, p, p, p, i, i, i, i, p]
+    lib.dg_sddmm_csr.argtypes = [i, i, p, p, p, p, p, i, i, i, i, p, i, i,
+                                 p]
     lib.dg_sddmm_csr_group.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i,
-                                       i, i, i, p]
+                                       i, i, i, p, i, i, p]
     lib.dg_sddmm_csr.restype = lib.dg_sddmm_csr_group.restype = i
     return lib
 
@@ -117,8 +130,12 @@ def _check_shapes(rowptr, col, d1, d2, heads: int) -> None:
 
 def sddmm_csr_plain(rowptr, col, d1, d2, heads: int = 1,
                     reduce=ReduceOp.SUM,
-                    coo_row: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch `sddmm_csr` (two row gathers, edge-chunked)."""
+                    coo_row: Optional[torch.Tensor] = None,
+                    split: Optional[spmm_csr.SplitPlan] = None
+                    ) -> torch.Tensor:
+    """Plain PyTorch `sddmm_csr` (two row gathers, edge-chunked); `split`
+    is taken so that it can stand in for the kernel, and unread: the plan
+    changes which lanes compute an edge, not its result."""
     reduce = as_reduce(reduce)
     _check_shapes(rowptr, col, d1, d2, heads)
     if coo_row is None:
@@ -132,11 +149,13 @@ def sddmm_csr_plain(rowptr, col, d1, d2, heads: int = 1,
 
 
 def sddmm_csr_cuda(rowptr, col, d1, d2, heads: int = 1,
-                   reduce=ReduceOp.SUM, path=None) -> torch.Tensor:
+                   reduce=ReduceOp.SUM, path=None,
+                   split: Optional[spmm_csr.SplitPlan] = None) -> torch.Tensor:
     """The kernel: float32 [nnz, heads] per-edge, per-head dots, on `path`
     (`pick_sddmm`'s by default): a path of `sddmm_path` for the group
-    mapping, or WARP_PER_ROW. Raises unless every tensor is on one CUDA
-    device with the types it takes."""
+    mapping, or WARP_PER_ROW; with the rows of `split` (this CSR's
+    `split_plan`, or None) taken by chunks. Raises unless every tensor is
+    on one CUDA device with the types it takes."""
     reduce = as_reduce(reduce)
     if reduce not in (ReduceOp.SUM, ReduceOp.MEAN):
         raise NotImplementedError(f"sddmm_csr handles SUM/MEAN, got {reduce}")
@@ -154,6 +173,11 @@ def sddmm_csr_cuda(rowptr, col, d1, d2, heads: int = 1,
     if num_rows == 0 or nnz == 0 or feat == 0:
         return torch.zeros((nnz, heads), dtype=torch.float32,
                            device=d1.device)
+    chunks = split.num_chunks if split is not None else 0
+    plan = (None, 0, 0)
+    if chunks:
+        split.check(num_rows, nnz, d1.device)
+        plan = (split.index.data_ptr(), chunks, split.chunk)
     out = torch.empty((nnz, heads), dtype=torch.float32, device=d1.device)
     args = (_launch.DTYPE_CODE[d1.dtype], d1.device.index or 0,
             rowptr.data_ptr(), col.data_ptr(), d1.data_ptr(), d2.data_ptr(),
@@ -163,18 +187,24 @@ def sddmm_csr_cuda(rowptr, col, d1, d2, heads: int = 1,
         path = pick_sddmm(feat, heads, d1.element_size(),
                           _launch.alignment(d1, d2))
     if path == WARP_PER_ROW:
-        err = _lib().dg_sddmm_csr(*args, _launch.stream(d1.device))
+        err = _lib().dg_sddmm_csr(*args, *plan, _launch.stream(d1.device))
     else:
-        err = _lib().dg_sddmm_csr_group(*args, *path,
+        err = _lib().dg_sddmm_csr_group(*args, *path, *plan,
                                         _launch.stream(d1.device))
     _launch.raise_on(err, "sddmm_csr")
     LAUNCHES["sddmm_csr"] += 1
+    if chunks:
+        LAUNCHES["sddmm_csr_split"] += 1
+        metrics.count("sddmm_csr.split_rows", split.num_split_rows)
+        metrics.count("sddmm_csr.split_chunks", chunks)
     return out
 
 
 def sddmm_csr(rowptr, col, d1, d2, heads: int = 1, reduce=ReduceOp.SUM,
-              coo_row: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """CSR SDDMM: the plain version on the CPU, the kernel on CUDA."""
+              coo_row: Optional[torch.Tensor] = None,
+              split: Optional[spmm_csr.SplitPlan] = None) -> torch.Tensor:
+    """CSR SDDMM: the plain version on the CPU, the kernel on CUDA (with
+    `split`, the CSR's split plan, where the caller owns one)."""
     if d1.device.type == "cpu":
         return sddmm_csr_plain(rowptr, col, d1, d2, heads, reduce, coo_row)
-    return sddmm_csr_cuda(rowptr, col, d1, d2, heads, reduce)
+    return sddmm_csr_cuda(rowptr, col, d1, d2, heads, reduce, split=split)

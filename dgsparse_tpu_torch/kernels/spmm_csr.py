@@ -171,6 +171,15 @@ class SplitPlan:
     def to(self, device) -> "SplitPlan":
         return dataclasses.replace(self, index=self.index.to(device))
 
+    def check(self, num_rows: int, nnz: int, device) -> None:
+        """Raise ValueError unless the plan is this CSR's, on `device`."""
+        if (self.num_rows, self.nnz) != (num_rows, nnz) or \
+                self.index.device != device:
+            raise ValueError(
+                f"split plan of {self.num_rows} rows and {self.nnz} entries "
+                f"on {self.index.device} for a CSR of {num_rows} and {nnz} "
+                f"on {device}")
+
 
 def split_plan(rowptr, chunk: int = SPLIT_CHUNK, device=None) -> SplitPlan:
     """The split plan of a host CSR row pointer (numpy or a CPU tensor):
@@ -254,12 +263,7 @@ def csr_spmm_cuda(rowptr, col, values, dense, reduce=ReduceOp.SUM,
     chunks = split.num_chunks if split is not None else 0
     plan = (None, 0, 0, 1, None)
     if chunks:
-        if (split.num_rows, split.nnz) != (num_rows, col.shape[0]) or \
-                split.index.device != dense.device:
-            raise ValueError(
-                f"split plan of {split.num_rows} rows and {split.nnz} "
-                f"entries on {split.index.device} for a CSR of {num_rows} "
-                f"and {col.shape[0]} on {dense.device}")
+        split.check(num_rows, col.shape[0], dense.device)
         # fp32 partial sums of the chunks, each written once
         work = torch.empty((chunks, feat), dtype=torch.float32,
                            device=dense.device)

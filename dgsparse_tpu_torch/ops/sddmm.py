@@ -39,7 +39,8 @@ class _SDDMM(torch.autograd.Function):
         if hybrid:
             return sddmm_hybrid(st, d1, d2, reduce)
         return sddmm_csr(st.rowptr(), st.col(), d1, d2, 1, reduce,
-                         coo_row=st.coo_row()).reshape(-1)
+                         coo_row=st.coo_row(),
+                         split=st.row_split()).reshape(-1)
 
     @staticmethod
     def backward(ctx, g):

@@ -142,7 +142,8 @@ class _SpMM(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             d_values = sddmm_csr(st.rowptr(), st.col(), g,
                                  dense.reshape(n, h * f), h,
-                                 coo_row=st.coo_row()).to(values.dtype)
+                                 coo_row=st.coo_row(),
+                                 split=st.row_split()).to(values.dtype)
         if ctx.needs_input_grad[1]:
             if ctx.tiers is not None:
                 d_dense = spmm_hybrid_t(st, ctx.tiers, g, _mode(g))

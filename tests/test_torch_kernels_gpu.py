@@ -366,6 +366,115 @@ def test_storage_ops_pass_the_split_plans(cuda):
         hub.storage.col_split().num_chunks
 
 
+def _sddmm_hub_graph(cuda):
+    """A CSR of 3000 rows over 2500 columns, ~6 entries a row, with rows
+    of 13,096 (ogbn-arxiv's longest is 13,161), 129, 128, 1 and 0 entries
+    spread through it."""
+    rng = np.random.default_rng(21)
+    lengths = rng.poisson(6.0, 3000)
+    lengths[[0, 700, 1400, 2100, 2800]] = [13096, 129, 128, 1, 0]
+    rowptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    col = rng.integers(0, 2500, rowptr[-1]).astype(np.int32)
+    return rowptr, torch.from_numpy(rowptr).to(cuda), \
+        torch.from_numpy(col).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("feat,heads", [(8, 8), (40, 1), (7, 1)])
+@pytest.mark.parametrize("mapping", ["group", "warp_per_row"])
+def test_split_sddmm_csr_is_bitwise_the_unsplit(cuda, mapping, feat, heads,
+                                                 reduce, dtype):
+    """The split launch on both mappings (GAT's two widths on the
+    benchmark, 8 heads of 8 and one of 40, and an odd head): bitwise the
+    launch without a plan, and close to the plain version."""
+    rp, rowptr, col = _sddmm_hub_graph(cuda)
+    split = spmm_csr.split_plan(rp, device=cuda)
+    assert split.num_split_rows == 2           # 13,096 and 129 entries
+    gen = torch.Generator(device=cuda).manual_seed(feat * heads)
+    dt = getattr(torch, dtype)
+    d1 = torch.randn(3000, heads * feat, generator=gen, device=cuda).to(dt)
+    d2 = torch.randn(2500, heads * feat, generator=gen, device=cuda).to(dt)
+    path = (sddmm_csr.sddmm_path(feat, heads, d1.element_size())
+            if mapping == "group" else sddmm_csr.WARP_PER_ROW)
+    sddmm_csr.reset_launch_counts()
+    out = sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2, heads, reduce, path,
+                                   split=split)
+    whole = sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2, heads, reduce,
+                                     path)
+    ref = sddmm_csr.sddmm_csr_plain(rowptr, col, d1, d2, heads, reduce)
+    abs_sum = sddmm_csr.sddmm_csr_plain(rowptr, col, d1.float().abs(),
+                                        d2.float().abs(), heads, reduce)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (col.numel(), heads)
+    assert torch.equal(out, whole)
+    assert_sum_close(out, ref, abs_sum, TOLS[dtype])
+    assert sddmm_csr.LAUNCHES == {"sddmm_csr": 2, "sddmm_csr_split": 1}
+
+
+def test_split_sddmm_csr_refuses_another_csrs_plan(cuda):
+    rp, rowptr, col = _sddmm_hub_graph(cuda)
+    d1 = torch.ones(3000, 8, device=cuda)
+    d2 = torch.ones(2500, 8, device=cuda)
+    other = spmm_csr.split_plan(_hub_graph(cuda, "zipf", False)[0],
+                                device=cuda)
+    assert other.num_chunks > 0
+    for plan in (other, spmm_csr.split_plan(rp)):    # another CSR; the host
+        with pytest.raises(ValueError, match="split plan"):
+            sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2, split=plan)
+    # a plan without chunks is no plan, whatever CSR it was built for
+    empty = spmm_csr.split_plan(np.zeros(4, np.int32), device=cuda)
+    assert torch.equal(sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2,
+                                                split=empty),
+                       sddmm_csr.sddmm_csr_cuda(rowptr, col, d1, d2))
+
+
+def test_training_steps_pass_the_sddmm_split_plan(cuda):
+    """A GAT step on a graph with a hub row runs both `d_values` launches
+    on the storage's split plan; a GCN step runs no `sddmm_csr`; the CSR
+    route of `sddmm` passes the plan too."""
+    from dgsparse_tpu_torch.nn.gat import GAT
+    from dgsparse_tpu_torch.nn.gcn import GCN
+    from dgsparse_tpu_torch.utils import metrics
+
+    rp, _, col, values = _hub_graph(cuda, "star", True)
+    rows = np.split(col.cpu().numpy(), rp[1:-1])[:2500]   # square: 2500
+    rp = np.concatenate([[0], np.cumsum([len(r) for r in rows])]
+                        ).astype(np.int32)
+    adj = pt.SparseTensor.from_csr(rp, np.concatenate(rows),
+                                   np.ones(rp[-1], np.float32),
+                                   sparse_sizes=(2500, 2500), device=cuda)
+    plan = adj.storage.row_split()
+    assert plan.num_split_rows == 1 and adj.storage.ell_plan() is None
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2500, 32, generator=gen, device=cuda)
+    y = torch.randint(0, 7, (2500,), generator=gen, device=cuda)
+    counts = {}
+    metrics.enable()
+    try:
+        for name, model in (("gcn", GCN(32, 16, 7, dropout=0.0)),
+                            ("gat", GAT(32, 8, 7, num_heads=4))):
+            model = model.to(cuda)
+            opt = entry.build_optimizer(model)
+            metrics.reset()
+            reset_launch_counts()
+            entry.train_step(model, opt, x, adj, y)
+            counts[name] = (launch_counts()["sddmm_csr"],
+                            launch_counts()["sddmm_csr_split"],
+                            metrics.cache_counters())
+        reset_launch_counts()
+        pt.sddmm(adj, x, x)
+        assert (launch_counts()["sddmm_csr"],
+                launch_counts()["sddmm_csr_split"]) == (1, 1)
+    finally:
+        metrics.disable()
+    assert counts["gcn"][:2] == (0, 0)
+    assert "sddmm_csr.split_rows" not in counts["gcn"][2]
+    assert counts["gat"][:2] == (2, 2)
+    assert counts["gat"][2]["sddmm_csr.split_rows"] == 2
+    assert counts["gat"][2]["sddmm_csr.split_chunks"] == 2 * plan.num_chunks
+
+
 def test_sddmm_launch_counts_and_empty_inputs(cuda):
     reset_launch_counts()
     rowptr, col, _ = _graph(cuda, 4, False)
@@ -373,6 +482,7 @@ def test_sddmm_launch_counts_and_empty_inputs(cuda):
                         torch.ones(2500, 8, device=cuda), 2)
     assert launch_counts() == {"csr_spmm": 0, "csr_spmm_split": 0,
                                "segment_sum_csr": 0, "sddmm_csr": 1,
+                               "sddmm_csr_split": 0,
                                "spmm_maxmin": 0,
                                "spmm_maxmin_d_dense": 0,
                                "spmm_maxmin_d_values": 0,

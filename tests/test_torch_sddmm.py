@@ -160,4 +160,4 @@ def test_sddmm_kernel_entry_refuses_cpu_tensors():
         sddmm_csr.sddmm_csr_cuda(torch.from_numpy(rowptr),
                                  torch.from_numpy(col), torch.ones(20, 4),
                                  torch.ones(20, 4))
-    assert sddmm_csr.LAUNCHES == {"sddmm_csr": 0}
+    assert sddmm_csr.LAUNCHES == {"sddmm_csr": 0, "sddmm_csr_split": 0}

@@ -6,8 +6,11 @@ first blocks of the launch and skips those rows in the others. These tests
 hold the plan to its definition, replay the launch's index arithmetic
 (`_walked`) to show that every entry of every row is summed by exactly one
 lane per feature, and check that a `Storage` builds, carries and swaps the
-plans of both views. The kernel itself runs only on a card
-(`tests/test_torch_kernels_gpu.py`).
+plans of both views. `csrc/sddmm_csr.cu` takes the same plan in both of
+its mappings (chunks first, rows after, no fix-up): `_sddmm_walked`
+replays that launch to show that every (entry, head, feature) is
+multiplied by one lane and every (entry, head) written once. The kernels
+themselves run only on a card (`tests/test_torch_kernels_gpu.py`).
 """
 
 import numpy as np
@@ -15,8 +18,10 @@ import pytest
 import torch
 
 import dgsparse_tpu_torch as pt
+from dgsparse_tpu_torch.kernels import sddmm_csr as S
 from dgsparse_tpu_torch.kernels import spmm_csr
 from dgsparse_tpu_torch.utils.testing import random_csr
+from tests.test_torch_sddmm_paths import _covered
 
 WARP, WARPS = 32, 8           # lanes a warp, warps a block (common.cuh)
 
@@ -131,6 +136,158 @@ def test_split_launch_sums_every_entry_once(graph, feat):
     path = spmm_csr.spmm_path(feat, 1, 4)
     summed, written = _walked(rowptr, plan, path, feat)
     assert (summed == 1).all() and (written == 1).all()
+
+
+# --- sddmm_csr's split launch ------------------------------------------------
+
+def _warp_lanes(feat):
+    """(K, LPH) of the one-warp-a-row kernel for a head of `feat` features
+    (`launch` in csrc/sddmm_csr.cu)."""
+    for most, lph in ((4, 1), (8, 2), (16, 4), (32, 8), (64, 16),
+                      (128, 32)):
+        if feat <= most:
+            return 4, lph
+    return 8, 32
+
+
+def _warp_covered(feat, heads, deg):
+    """`_covered` for one warp a row (`sddmm_csr_kernel`): (edge, head,
+    feature) of every element a row of `deg` edges multiplies, and (edge,
+    head) of every output it writes."""
+    k, lph = _warp_lanes(feat)
+    per_pass = 1
+    while per_pass < heads and per_pass * 2 * lph <= WARP:
+        per_pass *= 2
+    per_edge = per_pass * lph
+    loads, writes = [], []
+    for base in range(0, deg, WARP):
+        n = min(WARP, deg - base)
+        h0, s, ch, kk, lane = np.meshgrid(
+            np.arange(0, heads, per_pass),
+            np.arange(0, n, WARP // per_edge),
+            np.arange(-(-feat // (lph * k))), np.arange(k), np.arange(WARP),
+            indexing="ij")
+        h = h0 + lane % per_edge // lph
+        j = s + lane // per_edge
+        lg = lane % lph
+        f = ch * lph * k + lg + kk * lph
+        valid = (h < heads) & (j < n)
+        loads.append(np.stack([base + j, h, f], -1)[valid & (f < feat)])
+        first = (ch == 0) & (kk == 0) & (lg == 0)
+        writes.append(np.stack([base + j, h], -1)[valid & first])
+    if not loads:
+        return np.zeros((0, 3), int), np.zeros((0, 2), int)
+    return np.concatenate(loads), np.concatenate(writes)
+
+
+def _sddmm_units(rowptr, plan, group):
+    """What each group of the split sddmm_csr launch is given, as the
+    kernel maps them: (block, warp, group in the warp, start, end, the
+    whole row's degree) for every group that walks edges; the first
+    chunk_blocks blocks take the plan's chunks, the rest the rows,
+    skipping a row longer than C. `group` is 32 on one warp a row. Also
+    the grid's width."""
+    per_warp = WARP // group
+    per_block = WARPS * per_warp
+    num_rows = len(rowptr) - 1
+    chunks = plan.num_chunks if plan is not None else 0
+    chunk_blocks = -(-chunks // per_block)
+    grid_x = chunk_blocks + -(-num_rows // per_block)
+    chunk_row = plan.chunk_row.numpy() if chunks else None
+    chunk_start = plan.chunk_start.numpy() if chunks else None
+    units = []
+    for bx in range(grid_x):
+        role_chunks = bx < chunk_blocks
+        for warp in range(WARPS):
+            for g in range(per_warp):
+                slot = (((bx if role_chunks else bx - chunk_blocks) * WARPS
+                         + warp) * per_warp + g)
+                if role_chunks:
+                    if slot >= chunks:
+                        continue
+                    row = chunk_row[slot]
+                    start = chunk_start[slot]
+                    end = min(start + plan.chunk, rowptr[row + 1])
+                elif slot < num_rows:
+                    row, start, end = slot, rowptr[slot], rowptr[slot + 1]
+                    if chunks and end - start > plan.chunk:
+                        continue
+                else:
+                    continue
+                units.append((bx, warp, g, int(start), int(end),
+                              int(rowptr[row + 1] - rowptr[row])))
+    return units, grid_x
+
+
+def _sddmm_walked(rowptr, plan, path, feat, heads):
+    """How many lanes multiply each (entry, head, feature) and write each
+    (entry, head), and the degree each write divides by (MEAN), as the
+    split launch on `path` (a path of `sddmm_path`, or WARP_PER_ROW) maps
+    them."""
+    nnz = int(rowptr[-1])
+    group = WARP if path == S.WARP_PER_ROW else path[4]
+    units, _ = _sddmm_units(rowptr, plan, group)
+    mult = np.zeros((nnz, heads, feat), np.int64)
+    written = np.zeros((nnz, heads), np.int64)
+    denom = np.zeros((nnz, heads), np.int64)
+    for *_, start, end, deg in units:
+        if path == S.WARP_PER_ROW:
+            vec = 1
+            loads, writes = _warp_covered(feat, heads, end - start)
+        else:
+            vec = path[0]
+            loads, writes = _covered(path, feat, heads, end - start)
+        for i in range(vec):
+            np.add.at(mult, (start + loads[:, 0], loads[:, 1],
+                             loads[:, 2] + i), 1)
+        np.add.at(written, (start + writes[:, 0], writes[:, 1]), 1)
+        denom[start + writes[:, 0], writes[:, 1]] = deg
+    return mult, written, denom
+
+
+# (F, H): GAT's two layers on the benchmark (8 heads of 8, one of 40), a
+# head of 16 in 4, an odd head on either mapping, a head of 259 in chunks
+SDDMM_SHAPES = [(8, 8), (40, 1), (16, 4), (7, 1), (41, 1), (259, 1)]
+
+
+@pytest.mark.parametrize("mapping", ["group", "warp_per_row"])
+@pytest.mark.parametrize("feat,heads", SDDMM_SHAPES)
+@pytest.mark.parametrize("graph", ["star", "zipf"])
+def test_split_sddmm_covers_every_edge_once(graph, feat, heads, mapping):
+    rowptr = GRAPHS[graph]
+    plan = spmm_csr.split_plan(rowptr, 16)
+    assert plan.num_chunks > 0
+    path = (S.sddmm_path(feat, heads, 4) if mapping == "group"
+            else S.WARP_PER_ROW)
+    mult, written, denom = _sddmm_walked(rowptr, plan, path, feat, heads)
+    assert (mult == 1).all() and (written == 1).all()
+    # MEAN divides a chunk's edges by the whole row's degree
+    degree = np.repeat(np.diff(rowptr), np.diff(rowptr))
+    assert (denom == degree[:, None]).all()
+
+
+@pytest.mark.parametrize("mapping", ["group", "warp_per_row"])
+def test_empty_sddmm_plan_keeps_the_launch(mapping):
+    # a graph without rows longer than C: the plan is empty, and the
+    # launch gives every group the row it has without a plan, on the grid
+    # it has without one
+    rowptr = random_csr(300, 300, avg_degree=6.0, seed=1, skew=0.3)[0]
+    plan = spmm_csr.split_plan(rowptr)
+    assert plan.num_chunks == 0
+    group = WARP if mapping == "warp_per_row" else S.sddmm_path(8, 8, 4)[4]
+    assert _sddmm_units(rowptr, plan, group) == \
+        _sddmm_units(rowptr, None, group)
+    # on a graph with hub rows, the row blocks give the rows of at most C
+    # entries, in order, to the groups they have without a plan, shifted
+    # by the chunks' blocks
+    rowptr = GRAPHS["zipf"]
+    plan = spmm_csr.split_plan(rowptr, 16)
+    chunk_blocks = -(-plan.num_chunks // (WARPS * (WARP // group)))
+    split, _ = _sddmm_units(rowptr, plan, group)
+    whole, _ = _sddmm_units(rowptr, None, group)
+    assert [(bx - chunk_blocks, *u) for bx, *u in split
+            if bx >= chunk_blocks] == \
+        [u for u in whole if u[4] - u[3] <= 16]
 
 
 def _storage(rowptr, device="cpu"):
