@@ -46,8 +46,8 @@ exits non-zero without a result line:
      bf16, on a small clustered graph where every tier is non-empty and one
      row block has no dense cell (F in {1, 41, 64, 130}) and on the
      Reddit-scale storage (F = 64 and 41); spmm_bell also bitwise equal to
-     its first kernel (path="tile"), to a second call and, into out, to
-     out + its standalone result, rows without BELL edges untouched.
+     a second call and, into out, to out + its standalone result, rows
+     without BELL edges untouched.
      Then the spconv kernels: spconv_pairs forward (pairs by output, W)
      and dX (pairs by input, Wᵀ) and spconv_dw, against their plain
      versions on a two-batch cloud's submanifold, strided and inverse
@@ -118,17 +118,15 @@ exits non-zero without a result line:
      bytes (each input read once, each output written once) over
      3.35 TB/s and the operations over 67 TFLOP/s (H100 SXM data sheet,
      fp32; 495 / 3 TFLOP/s for the kernels on 3xTF32 tensor cores).
-     csr_spmm at each shape also on `wide_path`, the one-warp-a-row
-     mapping it had before its narrow-width path, and at F = 256 on the
-     one-pass path (4, 32, 2); "kernel" passes the split plan the main
+     csr_spmm at F = 256 also on the one-pass path (4, 32, 2); "kernel"
+     passes the split plan the main
      path passes (the storage's, for its rows longer than SPLIT_CHUNK),
      and "unsplit" is the same launch without it where the plan splits a
      row, also on the benchmark's graph (portbench/graphs/citation.py,
      seed 0, its hub rows up to 13,096 entries), forward and CSC at F = 256
      and 40, the split held to the plain version first; spmm_maxmin also
-     on feature slices of 32, 64 and 128 fp32 features, on 16 and 8 lanes
-     of 16 bytes a row and on
-     the one-warp-a-row `wide_path` it had before; its d_dense and
+     on feature slices of 32, 64 and 128 fp32 features and on 16 and 8
+     lanes of 16 bytes a row; its d_dense and
      sddmm_csr on the mapping their picker picks ("kernel") and on each
      of their two mappings (winner masks or the group mapping, and the
      ones they had before: one warp a CSC column, one warp a row);
@@ -144,18 +142,16 @@ exits non-zero without a result line:
      spmm_dense_cells forward and
      transpose, spmm_bell and sddmm_cells beside their plain versions and
      torch.bmm over the gathered blocks (cuSPARSE over the BELL edges for
-     spmm_bell); spmm_bell standalone and added into a given out, beside
-     its first kernel (path="tile", into out with `out +=`) and, into out,
-     torch.addmm(out, BELL CSR, x), its bound counting the distinct B rows
-     its edges reference, 8 bytes a real slot, the row runs and the output
-     (all of it standalone, the BELL rows read and written into out); the
-     whole hybrid SpMM against its old composition (BELL into a fresh
-     output, then `out +=`; bitwise equal), csr_spmm and cuSPARSE over the
-     full CSR. segment_sum_csr at the cell materialisation of the
-     Reddit-scale storage (its dense-tier values, F = 1) and at a p2p
-     sorted_segment_sum (F = 32), beside its plain version and
-     torch.segment_reduce(data, "sum", offsets=rowptr). On the
-     60,000-voxel cloud (bench_spconv's SubM at
+     spmm_bell); spmm_bell standalone and added into a given out, into
+     out beside torch.addmm(out, BELL CSR, x), its bound counting the
+     distinct B rows its edges reference, 8 bytes a real slot, the row
+     runs and the output (all of it standalone, the BELL rows read and
+     written into out); the whole hybrid SpMM beside csr_spmm and
+     cuSPARSE over the full CSR. segment_sum_csr at the cell
+     materialisation of the Reddit-scale storage (its dense-tier values,
+     F = 1) and at a p2p sorted_segment_sum (F = 32), beside its plain
+     version and torch.segment_reduce(data, "sum", offsets=rowptr). On
+     the 60,000-voxel cloud (bench_spconv's SubM at
      32->32 and 64->64, and the four convs of "unet-60k"): spconv_pairs
      forward and dX and spconv_dw beside their plain versions and the
      dense cuDNN call over the densified grid (conv3d, conv_transpose3d
@@ -178,9 +174,8 @@ exits non-zero without a result line:
      version at 1e-5 of the terms' absolute sum and bitwise against a
      second call, on a small clustered graph (F in {1, 41, 64, 130}) and
      at Reddit scale (F = 64, 41), the twin's bytes logged; the same for
-     sddmm_cells' bf16 kernel (sddmm_cells_bf16_kernel) on bf16 d1 and d2,
-     also against the fp32 kernel's TF32 template it replaced
-     (path="tf32") at 1e-5 scaled; the slice's
+     sddmm_cells' bf16 kernel (sddmm_cells_bf16_kernel) on bf16 d1 and
+     d2; the slice's
      path at Reddit scale with the counts set to 0 just before it: `spmm`
      forward + d_dense at F = 64 and 41 with an fp32 and a bf16 x,
      gat_attention forward + backward one head at F = 16 and 41 in both
@@ -189,7 +184,7 @@ exits non-zero without a result line:
      against fp32 at 1e-2; CUDA-event times of the bf16-cell kernel beside
      the fp32-mode kernel, its plain version and torch.bmm over the bf16
      blocks, and of the bf16 sddmm_cells kernel (on bf16 operands and with
-     the cast from fp32) beside the TF32 template, the fp32-mode kernel,
+     the cast from fp32) beside the fp32-mode kernel,
      its plain version and torch.bmm over the gathered bf16 blocks with
      out_dtype=float32 (the same function; bf16 out beside it) and the
      blocks' bytes zeroed (the card's rate for the store alone), beside
@@ -234,22 +229,15 @@ exits non-zero without a result line:
  10. native: unet-60k's four rulebooks from the native C++ builder and
      from numpy, identical plans, each builder's host seconds with the
      upload; fails if the library does not build or load.
- 11. esc: unet-60k with the ESC route forced on (`ops/spconv.py`; a plan
-     that fails JAX's structure gate keeps the fused kernels): logits
-     against the fused route's at 1e-4, step-1 gradients on one shared
-     forward at rtol 1e-4 / atol 1e-5 * max|g|, a served forward and an
-     Adam step with exact launches; per conv, ESC's out, dX and dW
-     against the fused route's at 1e-5 of the terms' absolute sum, and
-     both routes timed, forward and forward + backward.
- 12. bf16 layers: an enc2-shaped SubMConv3d(64, 64,
+ 11. bf16 layers: an enc2-shaped SubMConv3d(64, 64,
      compute_dtype=bfloat16) forward and backward against the fp32 layer
      at 1e-2 of the largest |fp32 value|, and the bf16 spconv_pairs /
      spconv_dw against their plain versions at 1e-5 of the terms'
      absolute sum; each check refuses a planted fault (a tenth of one
      offset's pairs left out).
- 13. checkpoint: gcn-arxiv, 2 Adam steps, saved and restored into a
+ 12. checkpoint: gcn-arxiv, 2 Adam steps, saved and restored into a
      fresh trainer, one more step in both: parameters bitwise equal.
- 14. dist: the sharded ops of `dgsparse_tpu_torch/dist/` as ranks on
+ 13. dist: the sharded ops of `dgsparse_tpu_torch/dist/` as ranks on
      this one card (`dist.launch.run_ranks`, spawned processes; NCCL
      refuses two ranks on one device, so D > 1 runs on gloo, whose
      collectives stage CUDA tensors through pinned host memory, and D = 1
@@ -273,7 +261,7 @@ exits non-zero without a result line:
      staged collectives' host time and peak memory. Every rank checks
      that it imported no JAX; the launches of the ranks' driven runs are
      the "dist" path.
- 15. tune (last: `run` points DGSPARSE_TUNE_CACHE at a temporary file
+ 14. tune (last: `run` points DGSPARSE_TUNE_CACHE at a temporary file
      before its first phase, so no earlier phase sees an entry and no
      user's cache is read or written):
      `tune_spmm` on the Reddit storage at F=64 and 41, forward and with
@@ -281,7 +269,7 @@ exits non-zero without a result line:
      metrics show them), each width against the other route at 1e-5
      scaled; `tune_report` on the arxiv storage; the file deleted.
 Then one JSON line of per-kernel results (csr_spmm's launches by path
-include the esc, dist and tune paths; spmm_dense_cells_bf16 and
+include the dist and tune paths; spmm_dense_cells_bf16 and
 sddmm_cells_bf16, the bf16 variants, count the "bf16_hybrid" path of phase
 7b; the "gspmm_hybrid" path is phase 7c's, and segment_sum_csr launches
 there, in DIV's tier builds; every path counts every kernel), the card's
@@ -295,7 +283,6 @@ import contextlib
 import functools
 import itertools
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -803,8 +790,7 @@ def phase_hybrid_kernels(torch, cuda, reddit):
     tier is non-empty and one row block has no dense cell, at F in
     HYBRID_FEATS, and on the Reddit-scale storage at F = 64 and 41; float32
     at 1e-5 and bfloat16 at 1e-2, scaled by the terms' absolute sum.
-    spmm_bell in both modes (fresh, and added into a given out), also
-    bitwise against its first kernel (path="tile")."""
+    spmm_bell in both modes (fresh, and added into a given out)."""
     import numpy as np
 
     from dgsparse_tpu_torch import SparseTensor
@@ -831,27 +817,23 @@ def phase_hybrid_kernels(torch, cuda, reddit):
     def bell_case(plan, vals, x, reduce, deg, dtype):
         # both modes: into fresh zeros, and added into a given out (the
         # hybrid SpMM's); each against the plain version, bitwise against
-        # the first port's kernel (path="tile") and a second call; in place,
-        # bitwise out + the standalone result, rows without BELL edges
-        # untouched
+        # a second call; in place, bitwise out + the standalone result, rows
+        # without BELL edges untouched
         args = (plan, vals, x, reduce, deg)
         out = B.spmm_bell_cuda(*args)
         abs_sum = B.spmm_bell_plain(plan, vals.abs(), x.float().abs(),
                                     reduce, deg)
         e = check("spmm_bell", dtype, out, B.spmm_bell_plain(*args), abs_sum)
         o = randn(plan.num_rows, x.shape[1])
-        into = [o.clone() for _ in range(3)]
+        into = [o.clone() for _ in range(2)]
         B.spmm_bell_cuda(*args, out=into[0])
         B.spmm_bell_cuda(*args, out=into[1])
-        B.spmm_bell_cuda(*args, out=into[2], path="tile")
         e = max(e, check("spmm_bell", dtype, into[0],
                          B.spmm_bell_plain(*args, out=o.clone()), abs_sum))
         off = torch.ones(plan.num_rows, dtype=torch.bool, device=cuda)
         off[plan.rows.long()] = False
         for what, a, b in (
-                ("the tile path", out, B.spmm_bell_cuda(*args, path="tile")),
                 ("a second call", out, B.spmm_bell_cuda(*args)),
-                ("the tile path, into out", into[0], into[2]),
                 ("a second call, into out", into[0], into[1]),
                 ("out + standalone", into[0], o + out),
                 ("out off the BELL rows", into[0][off], o[off])):
@@ -893,8 +875,8 @@ def phase_hybrid_kernels(torch, cuda, reddit):
                 f"forward and transpose max_abs_err "
                 f"{max(worst['spmm_dense_cells']):.3e}, spmm_bell sum/mean, "
                 f"fresh and into out {max(worst['spmm_bell']):.3e} (bitwise "
-                f"equal to path='tile', to a second call and to out + the "
-                f"standalone result), sddmm_cells "
+                f"equal to a second call and to out + the standalone "
+                f"result), sddmm_cells "
                 f"{max(worst['sddmm_cells']):.3e}")
 
     rowptr, col, vals = hybrid_csr()
@@ -1817,10 +1799,8 @@ def phase_numbers(torch, cuda, runs, graphs):
                 K.csr_spmm_plain(rowptr, col_t, vals_t, x),
                 K.csr_spmm_plain(rowptr, col_t, vals_t.abs(), x.abs()),
                 TOL["float32"])
-        # the same kernel on the earlier mapping, and at F = 256 in one pass
-        paths = {"wide_path": K.wide_path(width, heads, 4)}
-        if width == 256:
-            paths["one_pass_path"] = (4, 32, 2)
+        # the same kernel at F = 256 in one pass
+        paths = {"one_pass_path": (4, 32, 2)} if width == 256 else {}
         for key, path in paths.items():
             fns[key] = (functools.partial(K.csr_spmm_cuda, path=path),
                         (rowptr, col_t, vals_t, x))
@@ -2088,31 +2068,15 @@ def _bell_reads(plan):
     return len(np.unique(cols)), 8 * len(real) + 4 * runs
 
 
-def _old_hybrid(torch, st, tiers, x):
-    """The hybrid SpMM (SUM) as it was composed before BELL added in
-    place: the first BELL kernel into a fresh output, then `out +=`."""
-    from dgsparse_tpu_torch.kernels import spmm_bell as B
-    from dgsparse_tpu_torch.kernels import spmm_cells as C
-    from dgsparse_tpu_torch.kernels import spmm_csr as K
-
-    hp = st.ell_plan()
-    out = K.csr_spmm_cuda(hp.res.rowptr, hp.res.col, tiers["res"], x).float()
-    out += C.spmm_dense_cells_cuda(hp.cells, tiers["cells"], x)
-    out += B.spmm_bell_cuda(hp.bell, tiers["bell"], x, path="tile")
-    return out
-
-
 def phase_hybrid_numbers(torch, cuda, reddit):
     """CUDA-event times (fp32, best of two turns) on the Reddit-scale
     storage at F = 64 and 41 of spmm_dense_cells (forward and transpose),
     spmm_bell and sddmm_cells beside their plain versions, one PyTorch call
     each (torch.bmm over the gathered cell and window blocks, TF32 off;
     cuSPARSE over the BELL tier's sub-CSR) and their bounds; spmm_bell
-    standalone and added into a given out (the hybrid SpMM's mode), each
-    beside its first kernel (path="tile"; into out, with `out +=`), and
-    into out beside torch.addmm(out, BELL CSR, x); then the whole hybrid
-    SpMM, beside its old composition (BELL into a fresh output, then
-    `out +=`), csr_spmm and cuSPARSE over the full CSR."""
+    standalone and added into a given out (the hybrid SpMM's mode), into
+    out beside torch.addmm(out, BELL CSR, x); then the whole hybrid SpMM,
+    beside csr_spmm and cuSPARSE over the full CSR."""
     import numpy as np
 
     from dgsparse_tpu_torch.core.planner import LONG_ROW_SLOTS
@@ -2175,23 +2139,20 @@ def phase_hybrid_numbers(torch, cuda, reddit):
                    f"reddit {'transpose' if transpose else 'forward'} "
                    f"F={feat}", ms, "torch.bmm(cells, gathered window "
                    "blocks [ncells, 128, F]), TF32 off")
-        # spmm_bell (i) standalone: the row-run kernel with its zeros, the
-        # first kernel (path="tile", every row written), plain, cuSPARSE
+        # spmm_bell (i) standalone: the row-run kernel with its zeros,
+        # plain, cuSPARSE
         args = (hp.bell, tiers["bell"], x)
         b_rows, b_meta = _bell_reads(hp.bell)
         bell_ops = 2.0 * hp.bell.nnz * feat
         ms = _time_turns({
             "kernel": (B.spmm_bell_cuda, args),
-            "old_mapping": (functools.partial(B.spmm_bell_cuda, path="tile"),
-                            args),
             "plain": (B.spmm_bell_plain, args),
             "library": (torch.matmul, (bell_csr, x))})
         ms.update(bound(4 * b_rows * feat + b_meta + 4 * m * feat, bell_ops))
         ms["distinct_b_rows"] = b_rows
         report("spmm_bell", f"reddit F={feat}", ms,
                "torch.matmul(sparse_csr of the BELL edges, dense) (cuSPARSE)")
-        log(f"[numbers] spmm_bell reddit F={feat} standalone: first kernel "
-            f"(path='tile') {ms['old_mapping'] * 1e3:.2f} us; {b_rows} "
+        log(f"[numbers] spmm_bell reddit F={feat} standalone: {b_rows} "
             f"distinct B rows, {hp.bell.num_bell_rows} BELL rows of which "
             f"{hp.bell.num_long_rows} long; slots a row: median "
             f"{np.median(row_slots):.0f}, 99th percentile "
@@ -2199,13 +2160,11 @@ def phase_hybrid_numbers(torch, cuda, reddit):
             f"{row_slots[row_slots >= LONG_ROW_SLOTS].sum()} of "
             f"{row_slots.sum()} in the long rows")
         # (ii) added into a given out, as the hybrid SpMM runs it: the
-        # row-run kernel in place, the old pair (first kernel, out +=),
-        # plain, and torch.addmm(out, BELL CSR, x) as the one PyTorch call
+        # row-run kernel in place, plain, and torch.addmm(out, BELL CSR, x)
+        # as the one PyTorch call
         o = torch.randn(m, feat, generator=gen, device=cuda)
         fns = {
             "kernel": (functools.partial(B.spmm_bell_cuda, out=o), args),
-            "old_mapping": (functools.partial(B.spmm_bell_cuda, out=o,
-                                              path="tile"), args),
             "plain": (functools.partial(B.spmm_bell_plain, out=o), args)}
         call = "torch.addmm(out, sparse_csr of the BELL edges, dense)"
         try:
@@ -2225,10 +2184,9 @@ def phase_hybrid_numbers(torch, cuda, reddit):
         ms.update(bound(4 * b_rows * feat + b_meta
                         + 2 * 4 * hp.bell.num_bell_rows * feat, bell_ops))
         report("spmm_bell", f"reddit F={feat} into out", ms, call)
-        log(f"[numbers] spmm_bell reddit F={feat} into out: old pair "
-            f"(path='tile', out +=) {ms['old_mapping'] * 1e3:.2f} us"
-            + (f", two calls {ms['two_calls'] * 1e3:.2f} us"
-               if "two_calls" in ms else ""))
+        if "two_calls" in ms:
+            log(f"[numbers] spmm_bell reddit F={feat} into out: two calls "
+                f"{ms['two_calls'] * 1e3:.2f} us")
         d1 = torch.randn(m, feat, generator=gen, device=cuda)
         d2 = torch.randn(n, feat, generator=gen, device=cuda)
         args = (plan, d1, d2)
@@ -2247,13 +2205,8 @@ def phase_hybrid_numbers(torch, cuda, reddit):
         # the whole SpMM: the three tiers, the CSR kernel, cuSPARSE
         full = torch.sparse_csr_tensor(st.rowptr(), st.col(), st.values(),
                                        size=(m, n))
-        if not torch.equal(spmm_hybrid(st, tiers, x),
-                           _old_hybrid(torch, st, tiers, x)):
-            raise AssertionError("the hybrid SpMM is not bitwise equal to "
-                                 "its old composition")
         ms = _time_turns({
             "hybrid": (spmm_hybrid, (st, tiers, x)),
-            "old_route": (_old_hybrid, (torch, st, tiers, x)),
             "csr_spmm": (K.csr_spmm_cuda, (st.rowptr(), st.col(),
                                            st.values(), x)),
             "library": (torch.matmul, (full, x))})
@@ -2263,9 +2216,7 @@ def phase_hybrid_numbers(torch, cuda, reddit):
         ms["library_call"] = "torch.matmul(sparse_csr, dense) (cuSPARSE)"
         results["hybrid_spmm"][f"reddit F={feat}"] = ms
         log(f"[numbers] whole SpMM reddit F={feat} (fp32, {st.nnz} nnz): "
-            f"hybrid tiers {ms['hybrid'] * 1e3:.2f} us (old route, BELL "
-            f"into a fresh output and out +=, {ms['old_route'] * 1e3:.2f} "
-            f"us; bitwise equal), csr_spmm "
+            f"hybrid tiers {ms['hybrid'] * 1e3:.2f} us, csr_spmm "
             f"{ms['csr_spmm'] * 1e3:.2f} us, cuSPARSE "
             f"{ms['library'] * 1e3:.2f} us, CSR bound "
             f"{ms['bound'] * 1e3:.2f} us ({ms['bound_by']}, "
@@ -2534,13 +2485,12 @@ def phase_bf16_hybrid(torch, cuda, graphs):
                                      sparse_sizes=(m, m), device=cuda)
     # ... and sddmm_cells_bf16_kernel (bf16 d1, d2; exact products) against
     # its plain version at 1e-5 of the terms' absolute sum, bitwise equal
-    # to a second call, and against the float32 kernel's TF32 template on
-    # the same operands (path="tf32", the mapping it replaces) at 1e-5
+    # to a second call
     sddmm_errs = []
 
     def sddmm_cases(tag, st, feats):
         plan = st.ell_plan().cells
-        worst, worst_old = [], []
+        worst = []
         for f in feats:
             d1 = randn(plan.num_rows, f).to(bf16)
             d2 = randn(plan.num_cols, f).to(bf16)
@@ -2550,17 +2500,13 @@ def phase_bf16_hybrid(torch, cuda, graphs):
             sddmm_errs.append(check(out, C.sddmm_cells_plain(plan, d1, d2),
                                     abs_sum, TOL["float32"]))
             worst.append(sddmm_errs[-1])
-            worst_old.append(check(
-                out, C.sddmm_cells_cuda(plan, d1, d2, path="tf32"), abs_sum,
-                TOL["float32"]))
             if not torch.equal(out, C.sddmm_cells_cuda(plan, d1, d2)):
                 raise AssertionError(f"bf16 sddmm_cells {tag} F={f}: a "
                                      "second call differs")
             del out, abs_sum
         log(f"[bf16] sddmm_cells bf16 kernel vs its plain version, {tag}, F "
             f"in {feats}: max_abs_err {max(worst):.3e} (1e-5 of the terms' "
-            f"absolute sum), bitwise repeatable; vs the TF32 template "
-            f"{max(worst_old):.3e}")
+            f"absolute sum), bitwise repeatable")
 
     kernel_cases("small clustered graph", small.storage, HYBRID_FEATS)
     sddmm_cases("small clustered graph", small.storage, HYBRID_FEATS)
@@ -2660,10 +2606,9 @@ def phase_bf16_hybrid(torch, cuda, graphs):
 
     # (4) times (CUDA events, best of two turns): the bf16-cell kernel
     # beside the fp32-mode kernel, its plain version and torch.bmm over
-    # the bf16 blocks; sddmm_cells' bf16 kernel beside the TF32 template it
-    # replaces, the fp32-mode kernel, its plain version and torch.bmm with
-    # fp32 and bf16 out; the path's ops in both modes, with their peak
-    # memory
+    # the bf16 blocks; sddmm_cells' bf16 kernel beside the fp32-mode
+    # kernel, its plain version and torch.bmm with fp32 and bf16 out; the
+    # path's ops in both modes, with their peak memory
     hp = st.ell_plan()
     plan, twin, cells = hp.cells, tiers["cells_bf16"], tiers["cells"]
     cell_flops = 2.0 * plan.num_cells * 128 * 128
@@ -2704,9 +2649,6 @@ def phase_bf16_hybrid(torch, cuda, graphs):
         fns = {
             "kernel": (C.sddmm_cells_cuda, (plan, d1b, d2b, bf16)),
             "kernel_with_cast": (C.sddmm_cells_cuda, (plan, d1, d2, bf16)),
-            "old_mapping": (functools.partial(C.sddmm_cells_cuda,
-                                              path="tf32"),
-                            (plan, d1b, d2b)),
             "fp32_mode": (C.sddmm_cells_cuda, (plan, d1, d2)),
             "plain": (C.sddmm_cells_plain, (plan, d1b, d2b, bf16)),
             "library_bf16_out": (torch.bmm, (a, b)),
@@ -2741,9 +2683,8 @@ def phase_bf16_hybrid(torch, cuda, graphs):
         bf16_out = ms.get("library_bf16_out")
         log(f"[numbers] sddmm_cells bf16 mode reddit F={f}: kernel on bf16 "
             f"d1, d2 {ms['kernel'] * 1e3:.2f} us (with the cast from fp32 "
-            f"{ms['kernel_with_cast'] * 1e3:.2f}), old mapping (the fp32 "
-            f"kernel's TF32 template) {ms['old_mapping'] * 1e3:.2f} us, fp32 "
-            f"mode {ms['fp32_mode'] * 1e3:.2f} us, plain "
+            f"{ms['kernel_with_cast'] * 1e3:.2f}), fp32 mode "
+            f"{ms['fp32_mode'] * 1e3:.2f} us, plain "
             f"{ms['plain'] * 1e3:.2f} us, {call} {ms['library'] * 1e3:.2f} us"
             + ("" if bf16_out is None else
                f", torch.bmm with bf16 out {bf16_out * 1e3:.2f} us")
@@ -3224,10 +3165,8 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
     call; it raises on CUDA) and the gather + torch.segment_reduce pair
     (two calls, held to the kernel's out on the non-empty rows); the
     forward also on `maxmin_path`'s slices of 32, 64 and 128 fp32
-    features (128, 256 and 512 bytes of a row), on 16 and 8 lanes of 16
-    bytes a row, and on `spmm_csr.wide_path`, the one-warp-a-row mapping
-    it had before them."""
-    from dgsparse_tpu_torch.kernels import spmm_csr as K
+    features (128, 256 and 512 bytes of a row) and on 16 and 8 lanes of
+    16 bytes a row."""
     from dgsparse_tpu_torch.kernels import spmm_maxmin as M
     from dgsparse_tpu_torch.utils.testing import assert_sum_close
 
@@ -3246,11 +3185,9 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
                "plain": (M.spmm_maxmin_plain, args)}
         paths = {f"slice_{b}B": M.maxmin_path(feat, 1, 4, 16, b)
                  for b in (128, 256, 512)}
-        # 16 and 8 lanes of 16 bytes a row (256- and 128-byte slices), and
-        # the mapping before maxmin_path: the CSR kernel's one warp a row
+        # 16 and 8 lanes of 16 bytes a row (256- and 128-byte slices)
         paths["lanes_16x16B"] = (4, 16, 1)
         paths["lanes_8x16B"] = (4, 8, 1)
-        paths["wide_path"] = K.wide_path(feat, 1, 4)
         for key, path in paths.items():
             fns[key] = (functools.partial(M.spmm_maxmin_cuda, path=path),
                         args)
@@ -3364,8 +3301,8 @@ def _maxmin_numbers(torch, cuda, gen, graphs, rowptr_p2p, col_p2p):
     return results
 
 
-# --- the single-card utilities, native rulebooks, ESC, bf16 layers,
-# checkpoints and the tuner ---------------------------------------------------
+# --- the single-card utilities, native rulebooks, bf16 layers, checkpoints
+# and the tuner ---------------------------------------------------------------
 
 # the forwards whose dispatch counters phase 9 reads, and the routes each
 # must record: (op, route tags...) -> calls
@@ -3378,9 +3315,6 @@ METRIC_ROUTES = {
 }
 # a random geometric graph of ~9 neighbours a node for the RCM reading
 RCM_NODES, RCM_RADIUS, RCM_FEAT = 100_000, 0.0054, 256
-# the UNet's convs: (c_in, c_out) of each
-UNET_CONVS = {"enc1": (8, 32), "down1": (32, 64), "enc2": (64, 64),
-              "up1": (64, 32)}
 
 
 def _route_key(key):
@@ -3592,164 +3526,6 @@ def phase_native(torch, cuda, cloud):
     return {"native_s": t_nat, "numpy_s": t_ref}
 
 
-@contextlib.contextmanager
-def _esc(on=True):
-    """The ESC spconv route forced on (or off) for the block."""
-    from dgsparse_tpu_torch.ops import spconv as ops
-
-    prev = ops._FORCE_ESC[0]
-    ops._FORCE_ESC[0] = on
-    try:
-        yield
-    finally:
-        ops._FORCE_ESC[0] = prev
-
-
-def _spconv_call(torch, plan, esc, backward, g=None):
-    """fn(x, w) running one spconv on `plan` on the ESC or the fused route,
-    with the backward (dX and dW of the cotangent g) when asked. ESC is
-    called directly, so it also runs on a plan its structure gate sends
-    to the fused route."""
-    from dgsparse_tpu_torch.ops import spconv as ops
-
-    def fn(x, w):
-        if esc:
-            out = ops._esc_forward(x, w, plan)
-            return (out, *ops._esc_backward(x, w, plan, g, True, True)) \
-                if backward else out
-        with _esc(False):
-            if not backward:
-                with torch.no_grad():
-                    return ops.spconv(x, w, plan)
-            xi, wi = x.detach().requires_grad_(), w.detach().requires_grad_()
-            out = ops.spconv(xi, wi, plan)
-            return (out, *torch.autograd.grad(out, (xi, wi), g))
-    return fn
-
-
-def _esc_launches(plans):
-    """The launches of a served UNet forward and one training step with
-    ESC forced on: a conv whose plan passes the structure gate reduces
-    with csr_spmm (forward, dX), the others run the fused kernels; enc1
-    runs no dX."""
-    counts = dict(_NONE)
-    for name, plan in plans.items():
-        esc = plan.use_esc_structure()
-        counts["csr_spmm" if esc else "spconv_pairs"] += \
-            3 if name != "enc1" else 2
-        counts["spconv_dw"] += 0 if esc else 1
-    return counts
-
-
-def phase_esc(torch, cuda, graphs):
-    """unet-60k on the ESC route: the forward against the fused route's at
-    1e-4; step-1 gradients on one shared forward, the backward once on
-    each route, at rtol 1e-4 and atol 1e-5 * max|g|; a served forward and
-    an Adam step on ESC with exact launches (csr_spmm only). Per conv, on
-    random inputs at its plan: ESC's out, dX and dW against the fused
-    route's at 1e-5 scaled by the terms' absolute sum, and both routes
-    timed, forward and forward + backward. Returns the launches of the
-    ESC forward and step, and the times."""
-    from torch.nn import functional as F
-
-    from dgsparse_tpu_torch.entry import build_trainer, train_step
-    from dgsparse_tpu_torch.kernels import reset_launch_counts
-    from dgsparse_tpu_torch.kernels import spconv as K
-    from dgsparse_tpu_torch.utils.testing import assert_sum_close
-
-    data = graphs["unet-60k"]
-    st, x, y = data
-    plans = unet_plans(st)
-    gate = {k: p.use_esc_structure() for k, p in plans.items()}
-    log(f"[esc] unet-60k plans that pass the ESC structure gate (pairs < "
-        f"half the (offset, output) probes): {gate}")
-
-    model, _, _ = build_trainer("unet-60k", seed=0, device=cuda, data=data)
-    with torch.no_grad():
-        fused = model(x, st)
-        with _esc():
-            esc = model(x, st)
-    fwd_err = max_err(esc, fused, 1e-4)
-    loss = F.cross_entropy(model(x, st), y)
-    loss.backward(retain_graph=True)
-    ref = _grads(model)
-    model.zero_grad(set_to_none=True)
-    with _esc():
-        loss.backward()
-    got = _grads(model)
-    grad_err = 0.0
-    for name, g in ref.items():
-        torch.testing.assert_close(got[name], g, rtol=1e-4,
-                                   atol=1e-5 * g.abs().max().item(),
-                                   msg=lambda m: f"esc {name}: {m}")
-        grad_err = max(grad_err, (got[name] - g).abs().max().item())
-
-    model, opt, _ = build_trainer("unet-60k", seed=0, device=cuda, data=data)
-    reset_launch_counts()
-    with _esc():
-        with torch.inference_mode():
-            out = model(x, st)
-        step_loss = float(train_step(model, opt, x, st, y))
-    torch.cuda.synchronize()
-    launches = _counts()
-    if launches != _esc_launches(plans):
-        raise AssertionError(f"esc: launches {launches}, expected "
-                             f"{_esc_launches(plans)}")
-    if not (bool(torch.isfinite(out).all()) and math.isfinite(step_loss)):
-        raise AssertionError("esc: non-finite output or loss")
-    log(f"[esc] unet-60k on the ESC route: logits vs the fused route "
-        f"max_abs_err {fwd_err:.3e}; step-1 gradients (ESC backward vs "
-        f"fused backward on one forward) max_abs_err {grad_err:.3e}; a "
-        f"served forward and an Adam step (loss {step_loss:.6f}) launched "
-        f"{ {k: v for k, v in launches.items() if v} }")
-
-    times = {}
-    gen = torch.Generator(device=cuda).manual_seed(11)
-    for name, (c_in, c_out) in UNET_CONVS.items():
-        plan = plans[name]
-        mid = (plan.k_vol - 1) // 2
-        xr = torch.randn(plan.num_in, c_in, generator=gen, device=cuda)
-        w = torch.randn(plan.k_vol, c_in, c_out, generator=gen,
-                        device=cuda) * 0.1
-        g = torch.randn(plan.num_out, c_out, generator=gen, device=cuda)
-        wt_abs = w.abs().transpose(1, 2).contiguous()
-        center = (lambda a, b: a @ b) if plan.separate_mid else \
-            (lambda a, b: 0)
-        abs_sums = (
-            K.spconv_pairs_plain(plan.by_out, xr.abs(), w.abs())
-            + center(xr.abs(), w[mid].abs()),
-            K.spconv_pairs_plain(plan.by_in, g.abs(), wt_abs)
-            + center(g.abs(), w[mid].T.abs()),
-            K.spconv_dw_plain(plan.by_offset, xr.abs(), g.abs()))
-        if plan.separate_mid:
-            abs_sums[2][mid] += xr.abs().T @ g.abs()
-        on = _spconv_call(torch, plan, True, True, g)(xr, w)
-        off = _spconv_call(torch, plan, False, True, g)(xr, w)
-        errs = [assert_sum_close(a, b, s, 1e-5)
-                for a, b, s in zip(on, off, abs_sums)]
-        ms = {}
-        for label, backward in (("forward", False), ("forward+backward",
-                                                     True)):
-            t = _time_turns({
-                "esc": (_spconv_call(torch, plan, True, backward, g),
-                        (xr, w)),
-                "fused": (_spconv_call(torch, plan, False, backward, g),
-                          (xr, w))}, warmup=3, iters=20)
-            ms[label] = t
-        times[name] = ms
-        log(f"[esc] {name} {c_in}->{c_out} ({plan.num_in} -> "
-            f"{plan.num_out} sites, {plan.total_pairs} pairs, "
-            f"{plan.qkpos[-1]} stream rows, "
-            f"{'passes' if gate[name] else 'fails'} the gate): ESC vs fused"
-            f" max_abs_err out "
-            f"{errs[0]:.3e} dX {errs[1]:.3e} dW {errs[2]:.3e}; forward ESC "
-            f"{ms['forward']['esc'] * 1e3:.2f} us, fused "
-            f"{ms['forward']['fused'] * 1e3:.2f} us; forward+backward (dX "
-            f"and dW) ESC {ms['forward+backward']['esc'] * 1e3:.2f} us, "
-            f"fused {ms['forward+backward']['fused'] * 1e3:.2f} us")
-    return launches, times
-
-
 def _max_rel_close(what, got, want, tol):
     """max |got - want| <= tol * max |want|; returns max |got - want|."""
     err = (got.float() - want.float()).abs().max().item()
@@ -3922,7 +3698,7 @@ def phase_checkpoint(torch, cuda, graphs):
         f"bitwise equal")
 
 
-# --- phase 14: the sharded ops of dist/, as ranks on the card ----------------
+# --- phase 13: the sharded ops of dist/, as ranks on the card ----------------
 
 # the kernels the dist path launches, by the module that holds each wrapper
 DIST_KERNELS = {"csr_spmm": "spmm_csr", "sddmm_csr": "sddmm_csr",
@@ -4011,7 +3787,7 @@ def _no_jax():
 
 
 def _dist_ranks(rank, world, device, driven, checks):
-    """A rank of phase 14: `dist.cases.run_cases` of the driven cases, each
+    """A rank of phase 13: `dist.cases.run_cases` of the driven cases, each
     step timed (`_timed_steps`), with the launches they alone made; then
     the cases that only check (the frozen JAX fixture)."""
     from dgsparse_tpu_torch import kernels
@@ -4090,7 +3866,7 @@ def _time_line(tag, t, card):
 
 def phase_dist(torch, cuda, graphs, card):
     """The sharded ops of `dist/` as ranks on the one card, through
-    `dist.launch.run_ranks` (see the module docstring, phase 14); returns
+    `dist.launch.run_ranks` (see the module docstring, phase 13); returns
     the summed launches of the ranks' driven runs."""
     import numpy as np
     from torch.nn import functional as F
@@ -4471,7 +4247,6 @@ def _run(torch, cuda, tune_dir) -> int:
         phase_profile(torch, cuda, graphs)
         utilities = phase_utilities(torch, cuda, graphs)
         phase_native(torch, cuda, graphs["unet-60k"])
-        esc, _ = phase_esc(torch, cuda, graphs)
         bf16 = phase_bf16_layers(torch, cuda, graphs["unet-60k"])
         phase_checkpoint(torch, cuda, graphs)
         dist = phase_dist(torch, cuda, graphs, card)
@@ -4511,7 +4286,6 @@ def _run(torch, cuda, tune_dir) -> int:
                 ("spmm_dense_cells", "utilities", utilities),
                 ("spmm_maxmin", "utilities", utilities),
                 ("spconv_pairs", "utilities", utilities),
-                ("csr_spmm", "esc", esc),
                 ("spconv_pairs", "bf16", bf16),
                 ("spconv_dw", "bf16", bf16),
                 ("csr_spmm", "dist", dist),
@@ -4532,7 +4306,7 @@ def _run(torch, cuda, tune_dir) -> int:
     by_path = {"serving": serving, "training": training,
                "sddmm": sddmm_path, "bf16_hybrid": bf16_path,
                "gspmm_hybrid": gspmm_path,
-               "utilities": utilities, "esc": esc, "bf16": bf16,
+               "utilities": utilities, "bf16": bf16,
                "dist": dist, "tune": tuned}
 
     def paths(*names):

@@ -11,8 +11,8 @@ slot-space edge values and the fused slot-space GAT attention
 (`ge_spmm`, a submodule as in JAX), the sharded ops and training steps
 of `dist/` on `torch.distributed` (a submodule as in JAX), sparse 3-D
 convolution with its host
-rulebook (native C++ builder for large clouds, `native.py`) and its fused
-and ESC routes, the GCN, GAT, GIN, SAGE, DGCNN and point-cloud UNet
+rulebook (native C++ builder for large clouds, `native.py`) on fused
+pair kernels, the GCN, GAT, GIN, SAGE, DGCNN and point-cloud UNet
 models, their serving and training (`entry.py`), RCM reordering
 (`core/reorder.py`), and the utilities of `utils/`: opt-in validation
 (`debug`), dispatch counters (`metrics`), degree statistics (`stats`),

@@ -47,16 +47,8 @@
 //     their latency hides behind them.
 // Order of the sum: each run sums from 0 by fmaf in slot order, and the
 // runs' sums are added in tile order into a row sum that starts at 0,
-// which is then added to out[row] once. That is the order of the first
-// port's kernel below (`bell_tile_kernel`, kept as the "tile" path the
-// wrapper can force), so on finite inputs the two agree bitwise with
-// out = 0; no atomics, so results are repeatable.
-//
-// `bell_tile_kernel`, the first port: one warp a row block and 32
-// features, staging each tile's whole B window in shared memory and
-// walking all `edge_tile` slots, padding included, into a [128, 32] block
-// written for every row of out. It writes all of [M, F] and stages whole
-// windows where a tile reads a few rows of them.
+// which is then added to out[row] once (`tests/test_torch_bell.py::
+// _emulate` replays it); no atomics, so results are repeatable.
 
 #include "common.cuh"
 
@@ -501,89 +493,6 @@ int launch(int device, const Args& a, int num_short, int num_long, int vec,
   return launch_short_vec<T>(a, 0, num_short, vec, group, nv, num_long > 0);
 }
 
-// --- the first port's kernel: one warp a row block -----------------------
-
-constexpr int kR = 128;     // row block
-constexpr int kC = 128;     // column window
-constexpr int kFT = 32;     // features per CTA: one warp, one per thread
-constexpr int kMaxTile = 1024;
-
-template <typename T>
-__global__ void __launch_bounds__(kFT)
-    bell_tile_kernel(const int* __restrict__ tile_ptr,
-                     const int* __restrict__ tile_cw,
-                     const int* __restrict__ lcol,
-                     const int* __restrict__ lrow,
-                     const float* __restrict__ vals,
-                     const T* __restrict__ b, float* __restrict__ out,
-                     int edge_tile, int out_rows, int in_rows, int feat) {
-  __shared__ float Bs[kC][kFT];
-  __shared__ float Os[kR][kFT];
-  __shared__ int s_col[kMaxTile];
-  __shared__ int s_row[kMaxTile];
-  __shared__ float s_val[kMaxTile];
-  const int blk = blockIdx.x;
-  const int f0 = blockIdx.y * kFT;
-  const int f = threadIdx.x;
-  const bool active = f0 + f < feat;
-
-  for (int r = 0; r < kR; ++r) Os[r][f] = 0.f;
-  const int t0 = tile_ptr[blk];
-  const int t1 = tile_ptr[blk + 1];
-  for (int t = t0; t < t1; ++t) {
-    const int64_t in0 = static_cast<int64_t>(tile_cw[t]) * kC;
-    const int64_t e0 = static_cast<int64_t>(t) * edge_tile;
-    __syncwarp();
-    for (int c = 0; c < kC; ++c) {
-      const int64_t row = in0 + c;
-      Bs[c][f] = active && row < in_rows ? to_float(b[row * feat + f0 + f])
-                                         : 0.f;
-    }
-    for (int e = f; e < edge_tile; e += kFT) {
-      s_col[e] = lcol[e0 + e];
-      s_row[e] = lrow[e0 + e];
-      s_val[e] = vals[e0 + e];
-    }
-    __syncwarp();
-    float acc = 0.f;
-    int cur = s_row[0];
-    for (int e = 0; e < edge_tile; ++e) {
-      const int r = s_row[e];
-      if (r != cur) {
-        Os[cur][f] += acc;
-        acc = 0.f;
-        cur = r;
-      }
-      acc = fmaf(s_val[e], Bs[s_col[e]][f], acc);
-    }
-    Os[cur][f] += acc;
-  }
-  if (!active) return;
-  for (int r = 0; r < kR; ++r) {
-    const int64_t row = static_cast<int64_t>(blk) * kR + r;
-    if (row >= out_rows) break;
-    out[row * feat + f0 + f] = Os[r][f];
-  }
-}
-
-template <typename T>
-int launch_tile(int device, const int* tile_ptr, const int* tile_cw,
-                const int* lcol, const int* lrow, const float* vals,
-                const void* b, float* out, int num_blocks, int edge_tile,
-                int out_rows, int in_rows, int feat, void* stream) {
-  if (num_blocks <= 0 || feat <= 0 || out_rows <= 0 || edge_tile <= 0 ||
-      edge_tile > kMaxTile)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(num_blocks, (feat + kFT - 1) / kFT);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  bell_tile_kernel<T><<<grid, kFT, 0, static_cast<cudaStream_t>(stream)>>>(
-      tile_ptr, tile_cw, lcol, lrow, vals, static_cast<const T*>(b), out,
-      edge_tile, out_rows, in_rows, feat);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -614,27 +523,6 @@ int dg_spmm_bell(int dtype, int device, const int* rows, const int* run_ptr,
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16>(device, a, num_short, num_long, vec, group,
                                  nv, long_vec);
-  return cudaErrorInvalidValue;
-}
-
-// The first port's kernel (`path="tile"`). out [out_rows, F] fp32, every
-// row written: for row block blk the sum over its tiles t in
-// [tile_ptr[blk], tile_ptr[blk+1]) and slots e of tile t of vals[t*E + e] *
-// B[tile_cw[t] * 128 + lcol[t*E + e]] into row blk * 128 + lrow[t*E + e].
-// B [in_rows, F] in `dtype`; E = edge_tile <= 1024. Returns a cudaError_t.
-int dg_spmm_bell_tile(int dtype, int device, const int* tile_ptr,
-                      const int* tile_cw, const int* lcol, const int* lrow,
-                      const float* vals, const void* b, float* out,
-                      int num_blocks, int edge_tile, int out_rows,
-                      int in_rows, int feat, void* stream) {
-  if (dtype == kFloat32)
-    return launch_tile<float>(device, tile_ptr, tile_cw, lcol, lrow, vals, b,
-                              out, num_blocks, edge_tile, out_rows, in_rows,
-                              feat, stream);
-  if (dtype == kBFloat16)
-    return launch_tile<__nv_bfloat16>(device, tile_ptr, tile_cw, lcol, lrow,
-                                      vals, b, out, num_blocks, edge_tile,
-                                      out_rows, in_rows, feat, stream);
   return cudaErrorInvalidValue;
 }
 

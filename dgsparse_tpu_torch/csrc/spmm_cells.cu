@@ -83,9 +83,9 @@
 // the store path above (the staging tiles, the streaming stores, two CTAs
 // an SM) and makes everything before it cheap enough to hide behind the
 // other CTA's stores: products on bf16 mma.sync.m16n8k16, one pass per 16
-// features where the fp32 template, instantiated for bf16, ran TF32
-// m16n8k8 on widened values in two; fragments by ldmatrix (d1's rows are
-// A's rows and d2's rows B's columns, both k-contiguous, so no .trans),
+// features (TF32 m16n8k8 on widened values would take two); fragments by
+// ldmatrix (d1's rows are A's rows and d2's rows B's columns, both
+// k-contiguous, so no .trans),
 // from rows padded to 64 + 8 bf16 (144 bytes, an odd multiple of 16:
 // ldmatrix's 8 rows on distinct banks); a step is one cell's 64-feature
 // slice (one step a cell at F <= 64, a barrier a cell, not four), d2
@@ -512,24 +512,22 @@ constexpr int kSddmmStages = 3;
 
 constexpr int kSO = 64 + 8;    // row stride of a warp's staging tile (fp32)
 
-// Dynamic shared memory of sddmm_cells_kernel<T>: the row block's d1 chunk
-// [kR][kD1F + pad], as it lies in memory (fp32 is split as its fragments
-// are loaded); a ring of d2 slices [kC][kSK + pad] and, for fp32, the
-// remainders of the slice in use; and each warp's staging tile [16][kSO]
-// fp32 for the block store. The pads (16 bytes) keep rows 16-byte
-// aligned and the fragment loads on 32 distinct banks; the staging tile's
-// row stride (72, 8 banks apart) keeps its 8-byte writes on distinct
-// banks. fp32: 112,640 bytes, two CTAs an SM.
-template <typename T>
+// Dynamic shared memory of sddmm_cells_kernel: the row block's d1 chunk
+// [kR][kD1F + pad], as it lies in memory (split as its fragments are
+// loaded); a ring of d2 slices [kC][kSK + pad] and the remainders of the
+// slice in use; and each warp's staging tile [16][kSO] for the block
+// store, all fp32. The pads (16 bytes) keep rows 16-byte aligned and the
+// fragment loads on 32 distinct banks; the staging tile's row stride (72,
+// 8 banks apart) keeps its 8-byte writes on distinct banks. 112,640
+// bytes, two CTAs an SM.
 struct SddmmSmem {
-  static constexpr bool kSplit = sizeof(T) == 4;  // bf16 is exact in TF32
-  static constexpr int kPad = 16 / sizeof(T);
+  static constexpr int kPad = 4;
   static constexpr int kSA = kD1F + kPad;
   static constexpr int kSB = kSK + kPad;
-  static constexpr int kABytes = kR * kSA * sizeof(T);
-  static constexpr int kBBytes = kC * kSB * sizeof(T);
+  static constexpr int kABytes = kR * kSA * 4;
+  static constexpr int kBBytes = kC * kSB * 4;
   static constexpr int kSmallB = kABytes + kSddmmStages * kBBytes;
-  static constexpr int kStage = kSmallB + (kSplit ? kC * kSB * 4 : 0);
+  static constexpr int kStage = kSmallB + kC * kSB * 4;
   static constexpr int kBytes = kStage + kThreads / kWarp * 16 * kSO * 4;
 };
 
@@ -596,27 +594,26 @@ __device__ __forceinline__ void store_block(const float (&acc)[2][2][4][4],
 }
 
 // Cells p0 .. p0 + chunk of the plan (sorted by row block): per cell p the
-// block out[p] = d1[rb[p] * 128 : +128] @ d2[cw[p] * 128 : +128]ᵀ, on the
-// tensor cores. The CTA keeps the row block's d1 (a 64-feature chunk of it)
-// staged while consecutive cells share it, and streams each cell's d2
-// window in 16-feature slices through a cp.async ring. 8 warps, 4 x 2,
-// each a 32 x 64 tile of the block (two halves of 4 n-tiles) in registers;
-// a finished block goes out through the warps' staging tiles.
-template <typename T, bool VEC16>
+// block out[p] = d1[rb[p] * 128 : +128] @ d2[cw[p] * 128 : +128]ᵀ of fp32
+// d1 and d2, on the tensor cores (3xTF32). The CTA keeps the row block's
+// d1 (a 64-feature chunk of it) staged while consecutive cells share it,
+// and streams each cell's d2 window in 16-feature slices through a
+// cp.async ring. 8 warps, 4 x 2, each a 32 x 64 tile of the block (two
+// halves of 4 n-tiles) in registers; a finished block goes out through the
+// warps' staging tiles.
+template <bool VEC16>
 __global__ void __launch_bounds__(kThreads, 2)
     sddmm_cells_kernel(const int* __restrict__ cell_rb,
                        const int* __restrict__ cell_cw,
-                       const T* __restrict__ d1, const T* __restrict__ d2,
+                       const float* __restrict__ d1,
+                       const float* __restrict__ d2,
                        float* __restrict__ out, int num_cells, int num_rows,
                        int num_cols, int feat, int chunk) {
-  using L = SddmmSmem<T>;
-  constexpr bool kSplit = L::kSplit;
-  constexpr int kModeA = kSplit ? kSplitOnLoad : kExact;
-  constexpr int kModeB = kSplit ? kPreSplit : kExact;
+  using L = SddmmSmem;
   constexpr int kSlicesPerChunk = kD1F / kSK;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const a_tile = reinterpret_cast<T*>(smem);
-  T* const ring = reinterpret_cast<T*>(smem + L::kABytes);
+  float* const a_tile = reinterpret_cast<float*>(smem);
+  float* const ring = reinterpret_cast<float*>(smem + L::kABytes);
   float* const b_small = reinterpret_cast<float*>(smem + L::kSmallB);
   const int p0 = blockIdx.x * chunk;
   const int slices = (feat + kSK - 1) / kSK;  // per cell
@@ -628,9 +625,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   // step s: cell p0 + s / slices, features (s % slices) * kSK + [0, kSK)
   auto issue = [&](int s) {
     const int p = p0 + s / slices;
-    stage_rows<T, VEC16>(ring + (s % kSddmmStages) * (L::kBBytes / sizeof(T)),
-                         L::kSB, d2, static_cast<int64_t>(cell_cw[p]) * kC,
-                         kC, num_cols, feat, (s % slices) * kSK, kSK, tid);
+    stage_rows<float, VEC16>(ring + (s % kSddmmStages) * (L::kBBytes / 4),
+                             L::kSB, d2,
+                             static_cast<int64_t>(cell_cw[p]) * kC, kC,
+                             num_cols, feat, (s % slices) * kSK, kSK, tid);
   };
 
   float acc[2][2][4][4];  // [half][m-tile][n-tile][fragment]
@@ -660,9 +658,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       __syncthreads();    // every warp is done with the staged tile
       const int f0 = fc * kD1F;
       const int cols = min(kD1F, (feat - f0 + kSK - 1) / kSK * kSK);
-      stage_rows<T, VEC16>(a_tile, L::kSA, d1,
-                           static_cast<int64_t>(cell_rb[p]) * kR, kR,
-                           num_rows, feat, f0, cols, tid);
+      stage_rows<float, VEC16>(a_tile, L::kSA, d1,
+                               static_cast<int64_t>(cell_rb[p]) * kR, kR,
+                               num_rows, feat, f0, cols, tid);
       cp_async_commit();
       cp_async_wait<0>();
       staged = key;  // visible to every warp after the barrier below
@@ -672,10 +670,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (s + kSddmmStages - 1 < nsteps) issue(s + kSddmmStages - 1);
     cp_async_commit();
 
-    T* bs = ring + (s % kSddmmStages) * (L::kBBytes / sizeof(T));
-    if constexpr (kSplit)
-      split_tile(reinterpret_cast<float*>(bs), b_small, kC, kSK, L::kSB, tid,
-                 kThreads);
+    float* bs = ring + (s % kSddmmStages) * (L::kBBytes / 4);
+    split_tile(bs, b_small, kC, kSK, L::kSB, tid, kThreads);
     __syncthreads();
     const int ka = (j % kSlicesPerChunk) * kSK;
 #pragma unroll
@@ -684,7 +680,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         const int at = (32 * wm + 16 * mt) * L::kSA + ka + kk;
-        load_a<kModeA>(a[mt], a_tile + at, nullptr, L::kSA, 1, lane);
+        load_a<kSplitOnLoad>(a[mt], a_tile + at, nullptr, L::kSA, 1, lane);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -692,9 +688,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const int at = (64 * wn + 32 * h + 8 * nt) * L::kSB + kk;
-          load_b_nk<kModeB>(b[nt], bs + at, b_small + at, L::kSB, lane);
+          load_b_nk<kPreSplit>(b[nt], bs + at, b_small + at, L::kSB, lane);
         }
-        mma_tiles<kSplit, kSplit>(acc[h], a, b, 2, 4);
+        mma_tiles<true, true>(acc[h], a, b, 2, 4);
       }
     }
 
@@ -1076,23 +1072,23 @@ int launch_cells_bf16(int device, const void* cells, const int* blk_ptr,
                                         transpose, s);
 }
 
-template <typename T, bool VEC16>
+template <bool VEC16>
 int launch_sddmm_variant(const int* cell_rb, const int* cell_cw,
                          const void* d1, const void* d2, float* out,
                          int num_cells, int num_rows, int num_cols, int feat,
                          int chunk, cudaStream_t s) {
-  constexpr int smem = SddmmSmem<T>::kBytes;
-  auto kernel = sddmm_cells_kernel<T, VEC16>;
+  constexpr int smem = SddmmSmem::kBytes;
+  auto kernel = sddmm_cells_kernel<VEC16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<(num_cells + chunk - 1) / chunk, kThreads, smem, s>>>(
-      cell_rb, cell_cw, static_cast<const T*>(d1), static_cast<const T*>(d2),
-      out, num_cells, num_rows, num_cols, feat, chunk);
+      cell_rb, cell_cw, static_cast<const float*>(d1),
+      static_cast<const float*>(d2), out, num_cells, num_rows, num_cols, feat,
+      chunk);
   return cudaGetLastError();
 }
 
-template <typename T>
 int launch_sddmm(int device, const int* cell_rb, const int* cell_cw,
                  const void* d1, const void* d2, float* out, int num_cells,
                  int num_rows, int num_cols, int feat, int chunk,
@@ -1102,14 +1098,13 @@ int launch_sddmm(int device, const int* cell_rb, const int* cell_cw,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (aligned(d1, 16) && aligned(d2, 16) &&
-      (feat * static_cast<int>(sizeof(T))) % 16 == 0)
-    return launch_sddmm_variant<T, true>(cell_rb, cell_cw, d1, d2, out,
-                                         num_cells, num_rows, num_cols, feat,
-                                         chunk, s);
-  return launch_sddmm_variant<T, false>(cell_rb, cell_cw, d1, d2, out,
-                                        num_cells, num_rows, num_cols, feat,
-                                        chunk, s);
+  if (aligned(d1, 16) && aligned(d2, 16) && feat % 4 == 0)
+    return launch_sddmm_variant<true>(cell_rb, cell_cw, d1, d2, out,
+                                      num_cells, num_rows, num_cols, feat,
+                                      chunk, s);
+  return launch_sddmm_variant<false>(cell_rb, cell_cw, d1, d2, out,
+                                     num_cells, num_rows, num_cols, feat,
+                                     chunk, s);
 }
 
 template <int MODE>
@@ -1203,28 +1198,13 @@ int dg_sddmm_cells(int dtype, int device, const int* cell_rb,
                    float* out, int num_cells, int num_rows, int num_cols,
                    int feat, int chunk, void* stream) {
   if (dtype == kFloat32)
-    return launch_sddmm<float>(device, cell_rb, cell_cw, d1, d2, out,
-                               num_cells, num_rows, num_cols, feat, chunk,
-                               stream);
+    return launch_sddmm(device, cell_rb, cell_cw, d1, d2, out, num_cells,
+                        num_rows, num_cols, feat, chunk, stream);
   if (dtype == kBFloat16)
     return launch_sddmm_bf16(device, cell_rb, cell_cw, d1, d2, out,
                              num_cells, num_rows, num_cols, feat, chunk,
                              stream);
   return cudaErrorInvalidValue;
-}
-
-// dg_sddmm_cells on bf16 d1 and d2 through the fp32 kernel's template
-// (sddmm_cells_kernel<bf16>: TF32 m16n8k8 on widened values, 16 features
-// a step), the mapping the bf16 mode had before its own kernel; kept so
-// that a run can time the two side by side. No route of the library
-// calls it.
-int dg_sddmm_cells_tf32(int device, const int* cell_rb, const int* cell_cw,
-                        const void* d1, const void* d2, float* out,
-                        int num_cells, int num_rows, int num_cols, int feat,
-                        int chunk, void* stream) {
-  return launch_sddmm<__nv_bfloat16>(device, cell_rb, cell_cw, d1, d2, out,
-                                     num_cells, num_rows, num_cols, feat,
-                                     chunk, stream);
 }
 
 }  // extern "C"

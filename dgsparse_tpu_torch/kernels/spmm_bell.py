@@ -15,10 +15,6 @@ passes its tier sum); without it, the wrapper adds into fresh zeros. Short
 rows take a group of lanes each on `spmm_csr.spmm_path`'s mapping; rows of
 `core.planner.LONG_ROW_SLOTS` slots or more a warp each, 32 features of
 `long_vec` elements a warp, in a grid that the short rows' grid overlaps.
-`path="tile"` runs the first port's kernel instead (one warp a row block,
-whole windows staged, every row of a fresh output written, then added to
-`out`): no caller sets it; `chip_smoke.py` and the card tests time and
-check the new kernel against it.
 
 Routing as in `spmm_csr.py`: the plain version for tensors on the CPU, the
 kernel (or an exception) for tensors on a CUDA device. `LAUNCHES` counts
@@ -53,9 +49,6 @@ def _lib():
     lib.dg_spmm_bell.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i,
                                  i, i, i, i, i, i, p]
     lib.dg_spmm_bell.restype = i
-    lib.dg_spmm_bell_tile.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i,
-                                      i, p]
-    lib.dg_spmm_bell_tile.restype = i
     return lib
 
 
@@ -116,43 +109,22 @@ def spmm_bell_plain(plan: BellPlan, vals: torch.Tensor, dense: torch.Tensor,
     return part if out is None else out.add_(part)
 
 
-def _tile(plan: BellPlan, v: torch.Tensor,
-          dense: torch.Tensor) -> torch.Tensor:
-    """The first port's kernel: a fresh float32 [M, F], every row
-    written."""
-    out = torch.empty((plan.num_rows, dense.shape[1]), dtype=torch.float32,
-                      device=dense.device)
-    err = _lib().dg_spmm_bell_tile(
-        _launch.DTYPE_CODE[dense.dtype], dense.device.index or 0,
-        plan.tile_ptr.data_ptr(), plan.tile_cw.data_ptr(),
-        plan.lcol.data_ptr(), plan.lrow.data_ptr(), v.data_ptr(),
-        dense.data_ptr(), out.data_ptr(), plan.num_row_blocks,
-        plan.edge_tile, plan.num_rows, plan.num_cols, dense.shape[1],
-        _launch.stream(dense.device))
-    _launch.raise_on(err, "spmm_bell")
-    return out
-
-
 def spmm_bell_cuda(plan: BellPlan, vals: torch.Tensor, dense: torch.Tensor,
                    reduce=ReduceOp.SUM,
                    degrees: Optional[torch.Tensor] = None,
-                   out: Optional[torch.Tensor] = None,
-                   path: Optional[str] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel: out[row] += each slot's vals[e] * dense[window row]
     summed over the row's runs (vals 0 on padding; MEAN divides by the
     row's degree), for the rows with BELL edges, in place; `out` None
-    means fresh zeros. `path="tile"` runs the first port's kernel into a
-    fresh output and adds that. Returns out. Raises unless every tensor is
-    on one CUDA device with the types it takes."""
+    means fresh zeros. Returns out. Raises unless every tensor is on one
+    CUDA device with the types it takes."""
     _launch.check_device(dense.device, vals=vals, dense=dense,
-                         tile_ptr=plan.tile_ptr, lcol=plan.lcol,
+                         run_ptr=plan.run_ptr, lcol=plan.lcol,
                          rows=plan.rows)
     _launch.check_dense("dense", dense)
     if dense.shape[0] != plan.num_cols:
         raise ValueError(f"dense has {dense.shape[0]} rows, expected "
                          f"{plan.num_cols}")
-    if path not in (None, "tile"):
-        raise ValueError(f"path must be None or 'tile', got {path!r}")
     if out is not None:
         _check_out(plan, out, dense)
     v = _slot_values(plan, vals, reduce, degrees)
@@ -161,10 +133,6 @@ def spmm_bell_cuda(plan: BellPlan, vals: torch.Tensor, dense: torch.Tensor,
         # a zero-size grid is an invalid launch: nothing to launch
         return out if out is not None else torch.zeros(
             (plan.num_rows, feat), dtype=torch.float32, device=dense.device)
-    if path == "tile":
-        part = _tile(plan, v, dense)
-        LAUNCHES["spmm_bell"] += 1
-        return part if out is None else out.add_(part)
     if out is None:
         out = torch.zeros((plan.num_rows, feat), dtype=torch.float32,
                           device=dense.device)

@@ -30,7 +30,6 @@ kernel launches, the bf16 variants under "spmm_dense_cells_bf16" and
 
 import ctypes
 import functools
-from typing import Optional
 
 import numpy as np
 import torch
@@ -58,8 +57,6 @@ def _lib():
     lib.dg_spmm_dense_cells.restype = i
     lib.dg_sddmm_cells.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, p]
     lib.dg_sddmm_cells.restype = i
-    lib.dg_sddmm_cells_tf32.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
-    lib.dg_sddmm_cells_tf32.restype = i
     return lib
 
 
@@ -197,19 +194,14 @@ def sddmm_cells_plain(plan: DenseCellPlan, d1: torch.Tensor,
 
 
 def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
-                     d2: torch.Tensor, compute_dtype=torch.float32,
-                     path: Optional[str] = None) -> torch.Tensor:
+                     d2: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
     """The kernel: float32 [ncells * R * C], per cell the block d1[rb] @
     d2[cw]ᵀ (rows past M or N count as 0). bf16 mode rounds d1 and d2 to
     bf16; bf16 operands, in either mode, run `sddmm_cells_bf16_kernel`
     (counted as "sddmm_cells_bf16"), float32 ones the 3xTF32 kernel.
-    `path="tf32"`, which no route of the library passes, runs bf16
-    operands through the float32 kernel's template instead (TF32 products
-    of the widened values), the mapping the mode had before its own
-    kernel, so that a run can time both. Raises unless every tensor is on
-    one CUDA device with the types it takes."""
-    if path not in (None, "tf32"):
-        raise ValueError(f"path must be None or 'tf32', got {path!r}")
+    Raises unless every tensor is on one CUDA device with the types it
+    takes."""
     if check_compute_dtype(compute_dtype):
         d1, d2 = _bf16(d1, d2)
     _launch.check_device(d1.device, d1=d1, d2=d2, cell_rb=plan.cell_rb)
@@ -218,8 +210,6 @@ def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
     if d1.dtype != d2.dtype:
         raise TypeError(f"d1 is {d1.dtype} and d2 {d2.dtype}; they must match")
     bf16 = d1.dtype == torch.bfloat16
-    if path == "tf32" and not bf16:
-        raise TypeError("path='tf32' takes bf16 d1 and d2")
     _check_sddmm(plan, d1, d2)
     if plan.num_cells == 0 or d1.shape[1] == 0:
         return torch.zeros(plan.cell_slots, dtype=torch.float32,
@@ -227,18 +217,14 @@ def sddmm_cells_cuda(plan: DenseCellPlan, d1: torch.Tensor,
     out = torch.empty(plan.cell_slots, dtype=torch.float32,
                       device=d1.device)
     index = d1.device.index or 0
-    args = (index, plan.cell_rb.data_ptr(), plan.cell_cw.data_ptr(),
-            d1.data_ptr(), d2.data_ptr(), out.data_ptr(), plan.num_cells,
-            plan.num_rows, plan.num_cols, d1.shape[1],
-            cells_per_cta(plan.num_cells, _sm_count(index)),
-            _launch.stream(d1.device))
-    if path == "tf32":
-        err = _lib().dg_sddmm_cells_tf32(*args)
-    else:
-        err = _lib().dg_sddmm_cells(_launch.DTYPE_CODE[d1.dtype], *args)
+    err = _lib().dg_sddmm_cells(
+        _launch.DTYPE_CODE[d1.dtype], index, plan.cell_rb.data_ptr(),
+        plan.cell_cw.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+        out.data_ptr(), plan.num_cells, plan.num_rows, plan.num_cols,
+        d1.shape[1], cells_per_cta(plan.num_cells, _sm_count(index)),
+        _launch.stream(d1.device))
     _launch.raise_on(err, "sddmm_cells")
-    LAUNCHES["sddmm_cells_bf16" if bf16 and path is None
-             else "sddmm_cells"] += 1
+    LAUNCHES["sddmm_cells_bf16" if bf16 else "sddmm_cells"] += 1
     return out
 
 

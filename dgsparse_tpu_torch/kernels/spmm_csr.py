@@ -112,17 +112,6 @@ def spmm_path(feat: int, heads: int, itemsize: int, align: int = 16):
     return best[1]
 
 
-def wide_path(feat: int, heads: int, itemsize: int, align: int = 16):
-    """The mapping before the narrow-width path: one warp a row and a
-    feature slice of 32 vectors, a vector only where the row has 32 of
-    them. Not used by the port; `chip_smoke.py` times it beside
-    `spmm_path`."""
-    vec = widest_vec(feat, heads, itemsize, align)
-    while vec > 1 and feat < 32 * vec:
-        vec //= 2
-    return vec, 32, 1
-
-
 # --- the split plan ----------------------------------------------------------
 
 # Rows longer than this many entries are cut into chunks of it. Device time

@@ -20,19 +20,9 @@ coords [n, 4] int (batch, x, y, z), kernel offsets enumerated x-major.
   (`by_offset`, dW).
 - `spconv` runs `spconv_pairs` over `by_out` with W forward and over
   `by_in` with Wᵀ for dX, and `spconv_dw` over `by_offset` for dW: the
-  fused route, the card's default. Under `separate_mid` (submanifold) the
+  fused route. Under `separate_mid` (submanifold) the
   center tap is one plain product over all points (`torch.matmul`), as in
   the JAX package.
-- The ESC route (`dgsparse_tpu/ops/spconv.py:523-554, 640-691`), taken
-  when `_FORCE_ESC[0]` is set and the plan passes `use_esc_structure`:
-  one masked gather of the Q-padded pair stream, one product per Q-tile
-  with that tile's weight slice (`torch.bmm`, the einsum JAX also runs
-  outside Pallas), and the stream reduced by output id with the CSR SpMM
-  kernel (`kernels/spmm_csr.py::csr_spmm`, JAX's `spmm_esc`) over a CSR
-  whose rows are output ids and whose columns are stream positions
-  (`SpConvPlan.stream_csr`). Its backward gathers g through omap, sums dW
-  per offset over its contiguous tiles, and reduces dX with the same
-  kernel over the CSR by input id.
 """
 
 import dataclasses
@@ -44,13 +34,7 @@ import torch
 from dgsparse_tpu_torch.kernels.spconv import (OffsetPairs, PairCSR,
                                                offset_pairs, pair_csr,
                                                spconv_dw, spconv_pairs)
-from dgsparse_tpu_torch.kernels.spmm_csr import csr_spmm
 from dgsparse_tpu_torch.utils import metrics
-
-
-# the ESC route on (the JAX package's test hook of the same name); off, every
-# spconv runs the fused kernels
-_FORCE_ESC = [False]
 
 
 def _triple(x) -> Tuple[int, int, int]:
@@ -88,50 +72,10 @@ class SpConvPlan:
     k_vol: int
     separate_mid: bool       # center tap computed as a dense matmul
     quant: int = 128
-    # the ESC route's CSRs over the stream, built at first use
-    _stream: dict = dataclasses.field(default_factory=dict, init=False,
-                                      repr=False, compare=False)
 
     @property
     def total_pairs(self) -> int:
         return int(self.kpos[-1])
-
-    def use_esc_structure(self) -> bool:
-        """The sparsity condition of JAX's ESC and fused paths: fewer pairs
-        than half the (offset, output) probes."""
-        return 0 < self.total_pairs < 0.5 * (
-            self.k_vol - (1 if self.separate_mid else 0)) \
-            * max(self.num_out, 1)
-
-    def use_esc(self) -> bool:
-        """The ESC route: forced on (`_FORCE_ESC`) and the structure fits.
-        The forward and the backward each read it when they run, as JAX's
-        trace does."""
-        return _FORCE_ESC[0] and self.use_esc_structure()
-
-    def stream_csr(self, by: str) -> Tuple[torch.Tensor, torch.Tensor,
-                                           torch.Tensor]:
-        """(rowptr, col, coo_row) int32 of the ESC reduction: a CSR whose
-        rows are the output ids (`by="out"`) or input ids (`by="in"`) and
-        whose columns are the positions of their pairs in the Q-padded
-        stream, ascending; padding (imap -1) left out. Built on the host at
-        first use and kept."""
-        if by not in self._stream:
-            imap = self.imap.cpu().numpy()
-            real = np.nonzero(imap >= 0)[0]
-            ids = (self.omap.cpu().numpy() if by == "out" else imap)[real]
-            rows = self.num_out if by == "out" else self.num_in
-            order = np.argsort(ids, kind="stable")
-            rowptr = np.zeros(rows + 1, np.int64)
-            np.cumsum(np.bincount(ids, minlength=rows), out=rowptr[1:])
-            as_t = lambda a: torch.from_numpy(  # noqa: E731
-                np.ascontiguousarray(a, np.int32)).to(self.device)
-            # kept tensors are made outside inference mode, so a training
-            # call can use what a served forward built
-            with torch.inference_mode(False):
-                self._stream[by] = (as_t(rowptr), as_t(real[order]),
-                                    as_t(ids[order]))
-        return self._stream[by]
 
     @property
     def device(self) -> torch.device:
@@ -408,90 +352,15 @@ def _dot(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
     return (a.float() @ b.float()).to(dtype)
 
 
-def _stream_reduce(plan: SpConvPlan, by: str, stream: torch.Tensor
-                   ) -> torch.Tensor:
-    """The Q-padded stream's rows summed by output (or input) id: the CSR
-    SpMM kernel over `plan.stream_csr(by)`."""
-    rowptr, col, coo_row = plan.stream_csr(by)
-    return csr_spmm(rowptr, col, None, stream, coo_row=coo_row)
-
-
-def _gathered(plan: SpConvPlan, features: torch.Tensor) -> torch.Tensor:
-    """[T, Q, c_in]: the features of each stream position's input, 0 at
-    padding."""
-    imap = plan.imap.long()
-    x = torch.where((imap >= 0)[:, None], features[imap.clamp(min=0)],
-                    features.new_zeros(()))
-    return x.reshape(-1, plan.quant, features.shape[1])
-
-
-def _tile_weights(plan: SpConvPlan, kernel: torch.Tensor) -> torch.Tensor:
-    """[T, c_in, c_out]: each Q-tile's weight slice."""
-    return kernel[plan.widx[::plan.quant].long()]
-
-
-def _esc_forward(features, kernel, plan):
-    """The ESC forward (see the module docstring); products sum in float32
-    and come out in the features' type, as JAX's do."""
-    dtype = features.dtype
-    out = torch.zeros((plan.num_out, kernel.shape[2]), dtype=dtype,
-                      device=features.device)
-    if plan.separate_mid:
-        out += _dot(features, kernel[(plan.k_vol - 1) // 2], dtype)
-    if plan.qkpos[-1]:
-        stream = torch.bmm(_gathered(plan, features).float(),
-                           _tile_weights(plan, kernel).float()).to(dtype)
-        out += _stream_reduce(plan, "out",
-                              stream.reshape(-1, kernel.shape[2])).to(dtype)
-    return out
-
-
-def _esc_backward(features, kernel, plan, g, need_dx, need_dw):
-    """(dX or None, dW or None) of the ESC route: d_stream gathers g
-    through omap; dW from one product per tile, summed per offset over its
-    contiguous tiles; dX the product with Wᵀ reduced by input id."""
-    mid = (plan.k_vol - 1) // 2
-    dtype = features.dtype
-    d_features = torch.zeros_like(features) if need_dx else None
-    d_kernel = torch.zeros_like(kernel) if need_dw else None
-    if plan.separate_mid:
-        if need_dx:
-            d_features += _dot(g, kernel[mid].T, dtype)
-        if need_dw:
-            d_kernel[mid] = _dot(features.T, g, kernel.dtype)
-    if not plan.qkpos[-1]:
-        return d_features, d_kernel
-    q = plan.quant
-    d_stream = torch.where((plan.imap >= 0)[:, None], g[plan.omap.long()],
-                           g.new_zeros(())).reshape(-1, q, g.shape[1])
-    if need_dw:
-        dw_t = torch.bmm(_gathered(plan, features).float().transpose(1, 2),
-                         d_stream.float())
-        for kp in range(plan.k_vol):
-            t0, t1 = plan.qkpos[kp] // q, plan.qkpos[kp + 1] // q
-            if t1 > t0:
-                d_kernel[kp] += dw_t[t0:t1].sum(0).to(kernel.dtype)
-    if need_dx:
-        d_gathered = torch.bmm(
-            d_stream.float(),
-            _tile_weights(plan, kernel).float().transpose(1, 2)).to(dtype)
-        d_features += _stream_reduce(
-            plan, "in", d_gathered.reshape(-1, features.shape[1])).to(dtype)
-    return d_features, d_kernel
-
-
 class _SpConv(torch.autograd.Function):
-    """The fused route, or ESC where `plan.use_esc()`; as in JAX, the
-    forward and the backward each take the route the flag gives when they
-    run."""
+    """The fused route: `spconv_pairs` forward and for dX, `spconv_dw` for
+    dW, the center tap a dense product under `separate_mid`."""
 
     @staticmethod
     def forward(ctx, features, kernel, plan):
         ctx.plan = plan
         ctx.span = metrics.current()
         ctx.save_for_backward(features, kernel)
-        if plan.use_esc():
-            return _esc_forward(features, kernel, plan)
         dtype = features.dtype
         out = spconv_pairs(plan.by_out, features,
                            kernel.to(dtype)).to(dtype)
@@ -513,9 +382,6 @@ class _SpConv(torch.autograd.Function):
         mid = (plan.k_vol - 1) // 2
         dtype = features.dtype
         g = g.to(dtype).contiguous()
-        if plan.use_esc():
-            return _esc_backward(features, kernel, plan, g,
-                                 *ctx.needs_input_grad[:2]) + (None,)
         d_features = d_kernel = None
         if ctx.needs_input_grad[0]:
             wt = kernel.to(dtype).transpose(1, 2).contiguous()
@@ -534,14 +400,12 @@ def spconv(features: torch.Tensor, kernel: torch.Tensor,
     """Sparse conv: features [num_in, c_in], kernel [k_vol, c_in, c_out]
     -> [num_out, c_out] in the features' type (`dgsparse_tpu/ops/
     spconv.py::spconv`). Differentiable in features and kernel; dX runs only
-    when the features need a gradient. The fused kernels unless the ESC
-    route is forced on (`_FORCE_ESC`) and the plan's structure takes it."""
-    route = "esc" if plan.use_esc() else "fused"
-    metrics.record("spconv", path=route, pairs=plan.total_pairs,
+    when the features need a gradient."""
+    metrics.record("spconv", path="fused", pairs=plan.total_pairs,
                    c_in=kernel.shape[1], c_out=kernel.shape[2])
     if not metrics.enabled():
         return _SpConv.apply(features.contiguous(), kernel, plan)
-    with metrics.span(f"dgsparse.op.spconv.{route}.fwd",
+    with metrics.span("dgsparse.op.spconv.fused.fwd",
                       pairs=plan.total_pairs, k_vol=plan.k_vol,
                       num_in=features.shape[0], c_in=kernel.shape[1],
                       c_out=kernel.shape[2], dtype=str(features.dtype)[6:]):

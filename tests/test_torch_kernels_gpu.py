@@ -708,15 +708,13 @@ def test_spmm_maxmin_skewed_rows_and_ties_match_plain(cuda, feat, reduce,
     assert bool((arg[empty] == col.numel()).all()) and not out[empty].any()
 
 
-@pytest.mark.parametrize("path", ["slice 128", "slice 256", "slice 512",
-                                  "wide"])
+@pytest.mark.parametrize("path", ["slice 128", "slice 256", "slice 512"])
 @pytest.mark.parametrize("feat", [41, 256])
 def test_spmm_maxmin_every_slice_width_matches_plain(cuda, feat, path):
     from dgsparse_tpu_torch.kernels import spmm_maxmin as M
 
     rowptr, col, x = _skewed_maxmin_inputs(cuda, 5, feat, True)
-    p = (spmm_csr.wide_path(feat, 1, 4) if path == "wide"
-         else M.maxmin_path(feat, 1, 4, 16, int(path.split()[1])))
+    p = M.maxmin_path(feat, 1, 4, 16, int(path.split()[1]))
     for reduce in ("max", "min"):
         out, arg = M.spmm_maxmin_cuda(rowptr, col, None, x, reduce, path=p)
         ref, ref_arg = M.spmm_maxmin_plain(rowptr, col, None, x, reduce)
@@ -1021,8 +1019,7 @@ def _heavy_bell(cuda):
 @pytest.mark.parametrize("graph", ["hybrid", "long_rows"])
 def test_spmm_bell_matches_plain(cuda, graph, mode, feat, reduce, dtype):
     # the row-run kernels, into fresh zeros or added into a given out,
-    # against the plain version and bitwise against the first port's
-    # kernel (path="tile"), which adds in the same order
+    # against the plain version, and bitwise repeatable
     from dgsparse_tpu_torch.kernels import spmm_bell
 
     if graph == "hybrid":
@@ -1040,11 +1037,11 @@ def test_spmm_bell_matches_plain(cuda, graph, mode, feat, reduce, dtype):
     o = (torch.randn(m, feat, generator=g, device=cuda)
          if mode == "into_out" else None)
 
-    def run(fn, **kw):
+    def run(fn):
         if o is None:
-            return fn(plan, vals, x, reduce, deg, **kw)
+            return fn(plan, vals, x, reduce, deg)
         dst = o.clone()
-        assert fn(plan, vals, x, reduce, deg, out=dst, **kw) is dst
+        assert fn(plan, vals, x, reduce, deg, out=dst) is dst
         return dst
 
     out = run(spmm_bell.spmm_bell_cuda)
@@ -1054,7 +1051,6 @@ def test_spmm_bell_matches_plain(cuda, graph, mode, feat, reduce, dtype):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (m, feat)
     assert_sum_close(out, ref, abs_sum, TOLS[dtype])
-    assert torch.equal(out, run(spmm_bell.spmm_bell_cuda, path="tile"))
     assert torch.equal(out, run(spmm_bell.spmm_bell_cuda))  # repeatable
     if o is not None:
         standalone = spmm_bell.spmm_bell_cuda(plan, vals, x, reduce, deg)
@@ -1129,8 +1125,7 @@ def test_sddmm_cells_bf16_kernel_matches_plain(cuda, feat, offset):
     # the flat 16-byte pieces otherwise, 4-byte and 2-byte element copies
     # off 16 bytes), one or three 64-feature slices a cell, 1500 rows (the
     # last row block holds 92); against its plain version at 1e-5 of the
-    # terms' absolute sum, bitwise repeatable, and against the fp32
-    # kernel's TF32 template it replaced (path="tf32")
+    # terms' absolute sum, and bitwise repeatable
     from dgsparse_tpu_torch.kernels import spmm_cells
 
     plan = _hybrid(cuda).storage.ell_plan().cells
@@ -1153,10 +1148,6 @@ def test_sddmm_cells_bf16_kernel_matches_plain(cuda, feat, offset):
     assert torch.equal(out, spmm_cells.sddmm_cells_cuda(
         plan, d1.float(), d2.float(), torch.bfloat16))
     assert launch_counts()["sddmm_cells"] == 0
-    old = spmm_cells.sddmm_cells_cuda(plan, d1, d2, path="tf32")
-    torch.cuda.synchronize()
-    assert launch_counts()["sddmm_cells"] == 1
-    assert_sum_close(out, old, abs_sum, TOLS["float32"])
 
 
 @pytest.mark.parametrize("chunk", [2, 5, 24])
@@ -1368,11 +1359,6 @@ def test_hybrid_kernels_refuse_bad_inputs(cuda):
                                          x)
     with pytest.raises(TypeError):
         spmm_cells.sddmm_cells_cuda(hp.cells, x, x.bfloat16())
-    with pytest.raises(TypeError):         # the TF32 template: bf16 only
-        spmm_cells.sddmm_cells_cuda(hp.cells, x, x, path="tf32")
-    with pytest.raises(ValueError):
-        spmm_cells.sddmm_cells_cuda(hp.cells, x.bfloat16(), x.bfloat16(),
-                                    path="tile")
     with pytest.raises(ValueError):
         spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"][:5], x)
     with pytest.raises(ValueError):
@@ -1383,8 +1369,6 @@ def test_hybrid_kernels_refuse_bad_inputs(cuda):
                 torch.zeros(8, 1500, device=cuda).t()):
         with pytest.raises(ValueError, match="out"):
             spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x, out=bad)
-    with pytest.raises(ValueError, match="path"):
-        spmm_bell.spmm_bell_cuda(hp.bell, tiers["bell"], x, path="warp")
 
 
 # SUM/MEAN gspmm on a hybrid storage: one forward runs the three tiers, the
@@ -1799,40 +1783,7 @@ def test_attention_matches_frozen_jax_fixture(cuda):
                                    rtol=2e-3, atol=2e-3, err_msg=name)
 
 
-# --- the ESC spconv route, native rulebooks, tuning, validation, bf16 --------
-
-@pytest.mark.parametrize("kind", ["subm-sparse", "strided", "inverse"])
-def test_esc_route_matches_the_fused_route(cuda, kind, monkeypatch):
-    """The ESC route (forced on) through csr_spmm, forward and both
-    gradients, against the fused kernels on the same plan."""
-    from dgsparse_tpu_torch.kernels import spconv
-    from dgsparse_tpu_torch.ops import spconv as ops
-
-    plan = _spconv_plan(cuda, kind)
-    assert plan.use_esc_structure()
-    x = _randn(cuda, 1, plan.num_in, 32)
-    w = _randn(cuda, 2, plan.k_vol, 32, 64) * 0.1
-    ct = _randn(cuda, 3, plan.num_out, 64)
-
-    def run():
-        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
-        out = ops.spconv(xi, wi, plan)
-        return (out, *torch.autograd.grad(out, (xi, wi), ct))
-
-    fused = run()
-    monkeypatch.setattr(ops, "_FORCE_ESC", [True])
-    reset_launch_counts()
-    esc = run()
-    counts = launch_counts()
-    assert counts["csr_spmm"] == 2
-    assert counts["spconv_pairs"] == counts["spconv_dw"] == 0
-    with torch.no_grad():
-        abs_out = ops.spconv(x.abs(), w.abs(), plan)
-    assert_sum_close(esc[0], fused[0], abs_out, 1e-5)
-    for got, want in zip(esc[1:], fused[1:]):
-        torch.testing.assert_close(got, want, rtol=1e-4,
-                                   atol=1e-5 * want.abs().max().item())
-
+# --- native rulebooks, tuning, validation, bf16 -----------------------------
 
 def test_native_rulebooks_on_card_equal_numpy(cuda, monkeypatch):
     from dgsparse_tpu_torch import native

@@ -14,6 +14,9 @@
 - The kernels' plain versions (`kernels/spconv.py`) against the dense
   formulation of `kernels/reference.py`, and dX skipped when the features
   need no gradient.
+- With metrics on, a spconv records the fused route and its pairs, and
+  opens the route's forward span with its backward span inside; a plan
+  without pairs runs the center tap alone.
 """
 
 import jax
@@ -27,6 +30,7 @@ from dgsparse_tpu.ops import spconv as S
 from dgsparse_tpu_torch.kernels import reference
 from dgsparse_tpu_torch.kernels import spconv as K
 from dgsparse_tpu_torch.ops import spconv as P
+from dgsparse_tpu_torch.utils import metrics
 from dgsparse_tpu_torch.utils.testing import random_cloud
 from tests.test_spconv import random_cloud as jx_random_cloud
 
@@ -252,6 +256,44 @@ def test_plain_pairs_and_dw_match_the_dense_formulation(kind):
         dw[mid] = x.T @ g
     torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(dw, rdw, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_spconv_records_the_fused_route(kind):
+    _, pp, feats, kernel, ct = _op_case(kind, 8, 16, seed=81)
+    metrics.reset()
+    metrics.enable()
+    try:
+        _port_out_and_grads(pp, feats, kernel, ct)
+        (key,), = [list(metrics.counters())]
+        spans = {s["name"]: s for s in metrics.spans()}
+    finally:
+        metrics.disable()
+        metrics.reset()
+    assert key[0] == "spconv"
+    assert dict(key[1:]) == {"path": "fused", "pairs": pp.total_pairs,
+                             "c_in": 8, "c_out": 16}
+    fwd = spans.pop("dgsparse.op.spconv.fused.fwd")
+    bwd = spans.pop("dgsparse.op.spconv.fused.bwd")
+    assert not spans and bwd["parent"] == fwd["id"]
+    assert fwd["tags"]["pairs"] == pp.total_pairs > 0
+    assert bwd["tags"]["d_features"] and bwd["tags"]["d_kernel"]
+
+
+def test_spconv_of_a_plan_without_pairs_matches_jax():
+    """A lone voxel's submanifold plan has no pairs: out and both
+    gradients come from the center tap alone."""
+    coords = np.array([[0, 1, 2, 3]], np.int32)
+    jp, _, pp, _ = _plans(coords, (4, 4, 4), 1)
+    assert pp.total_pairs == 0 and pp.separate_mid
+    rng = np.random.default_rng(91)
+    feats = rng.standard_normal((1, 5)).astype(np.float32)
+    kernel = rng.standard_normal((27, 5, 6)).astype(np.float32)
+    ct = rng.standard_normal((1, 6)).astype(np.float32)
+    for got, want, name in zip(_port_out_and_grads(pp, feats, kernel, ct),
+                               _jax_out_and_grads(jp, feats, kernel, ct),
+                               ("out", "dX", "dW")):
+        np.testing.assert_allclose(got, want, err_msg=name, **TOL)
 
 
 def test_pair_csr_refuses_a_repeated_row_and_offset():

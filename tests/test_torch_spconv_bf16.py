@@ -1,16 +1,9 @@
-"""The port's ESC spconv route and its bf16 sparse-conv layers against the
-JAX package's.
+"""The port's bf16 sparse-conv layers against the JAX package's.
 
-- ESC (`ops/spconv.py`, forced on with `_FORCE_ESC` as JAX's tests force
-  theirs): the forward and both gradients against JAX's ESC route on
-  JAX's two cases (`tests/test_spconv_esc.py:19, 51`: submanifold and
-  strided), and against the port's default fused route, at 1e-4 (sums of
-  up to 27 * c_in terms in another order on each side); the reduction
-  runs `csr_spmm` (its plain version here) and the metrics say "esc".
-- bf16 layers: `SubMConv3d`, `SparseConv3d` and `SparseInverseConv3d`
-  with `compute_dtype` and `param_dtype` bfloat16 on flax params carried
-  across (`nn/_flax.py::load_flax_params`) against JAX's layers, at 1e-2
-  of the terms' absolute sum; their gradients against the fp32 layer's.
+`SubMConv3d`, `SparseConv3d` and `SparseInverseConv3d` with `compute_dtype`
+and `param_dtype` bfloat16 on flax params carried across
+(`nn/_flax.py::load_flax_params`) against JAX's layers, at 1e-2 of the
+terms' absolute sum; their gradients against the fp32 layer's.
 """
 
 import flax.linen as fnn
@@ -21,88 +14,9 @@ import pytest
 import torch
 
 from dgsparse_tpu.nn import sparse_conv as jx_layers
-from dgsparse_tpu.ops import spconv as S
 from dgsparse_tpu_torch.nn import sparse_conv as layers
 from dgsparse_tpu_torch.nn._flax import load_flax_params
-from dgsparse_tpu_torch.ops import spconv as P
-from dgsparse_tpu_torch.utils import metrics
 from dgsparse_tpu_torch.utils.testing import assert_sum_close, random_cloud
-from tests.test_torch_spconv import (_jax_out_and_grads, _plans,
-                                     _port_out_and_grads)
-
-TOL = dict(rtol=1e-4, atol=1e-4)
-# JAX's two cases: (stride, shape, points, c_in, c_out, seed)
-CASES = {"subm": (1, (12, 10, 8), 140, 8, 16, 42),
-         "strided": (2, (12, 12, 8), 120, 8, 8, 44)}
-
-
-@pytest.fixture
-def force_esc():
-    S._FORCE_ESC[0] = True
-    P._FORCE_ESC[0] = True
-    yield
-    S._FORCE_ESC[0] = False
-    P._FORCE_ESC[0] = False
-
-
-def _case(kind):
-    stride, shape, n, c_in, c_out, seed = CASES[kind]
-    coords = random_cloud(n, shape, 1, seed=seed)
-    jp, _, pp, _ = _plans(coords, shape, stride)
-    rng = np.random.default_rng(seed + 1)
-    feats = rng.standard_normal((pp.num_in, c_in)).astype(np.float32)
-    kernel = (rng.standard_normal((27, c_in, c_out)) * 0.1).astype(
-        np.float32)
-    ct = rng.standard_normal((pp.num_out, c_out)).astype(np.float32)
-    return jp, pp, feats, kernel, ct
-
-
-@pytest.mark.parametrize("kind", sorted(CASES))
-def test_esc_matches_jax_esc_and_the_fused_route(force_esc, kind):
-    jp, pp, feats, kernel, ct = _case(kind)
-    assert jp.use_esc() and pp.use_esc()
-    want = _jax_out_and_grads(jp, feats, kernel, ct)
-    metrics.reset()
-    metrics.enable()
-    try:
-        got = _port_out_and_grads(pp, feats, kernel, ct)
-    finally:
-        metrics.disable()
-    (key,), = [list(metrics.counters())]
-    metrics.reset()
-    assert dict(key[1:]) == {"path": "esc", "pairs": pp.total_pairs,
-                             "c_in": feats.shape[1],
-                             "c_out": kernel.shape[2]}
-    P._FORCE_ESC[0] = False
-    fused = _port_out_and_grads(pp, feats, kernel, ct)
-    for name, g, w, f in zip(("out", "dX", "dW"), got, want, fused):
-        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
-        np.testing.assert_allclose(g, f, err_msg=name, **TOL)
-
-
-def test_esc_needs_a_sparse_plan(force_esc):
-    """A plan whose pairs fill more than half the probes, or none, takes
-    the fused route even when ESC is forced (JAX's `use_esc_structure`)."""
-    dense = np.array([[0, x, y, z] for x in range(4) for y in range(4)
-                      for z in range(4)], np.int32)
-    plan, _ = P.build_rulebook(dense, 3, 1, 1, spatial_shape=(4, 4, 4))
-    jplan, _ = S.build_rulebook(dense, 3, 1, 1, spatial_shape=(4, 4, 4))
-    assert plan.use_esc() == jplan.use_esc() is False
-    lone, _ = P.build_rulebook(dense[:1], 3, 1, 1, spatial_shape=(4, 4, 4))
-    assert lone.total_pairs == 0 and not lone.use_esc()
-
-
-def test_stream_csr_leaves_out_padding():
-    _, pp, *_ = _case("strided")
-    imap, omap = pp.imap.numpy(), pp.omap.numpy()
-    for by, ids, rows in (("out", omap, pp.num_out),
-                          ("in", imap, pp.num_in)):
-        rowptr, col, coo_row = (t.numpy() for t in pp.stream_csr(by))
-        assert len(col) == pp.total_pairs and (imap[col] >= 0).all()
-        np.testing.assert_array_equal(ids[col], coo_row)
-        np.testing.assert_array_equal(
-            rowptr, np.searchsorted(coo_row, np.arange(rows + 1)))
-        assert (np.diff(col)[np.diff(coo_row) == 0] > 0).all()
 
 
 def _cloud_tensor(coords, shape, feats):

@@ -68,8 +68,8 @@ def test_narrow_widths_take_one_pass_over_each_row():
         assert group * nv * vec >= feat
     # four heads of 16: 16-byte loads, each inside one head
     assert spmm_csr.spmm_path(64, 4, 4) == (4, 16, 1)
-    # F = 256: one 16-byte vector a lane, in two slices (the wide mapping)
-    assert spmm_csr.spmm_path(256, 1, 4) == spmm_csr.wide_path(256, 1, 4)
+    # F = 256: one 16-byte vector a lane, a warp a row, in two slices
+    assert spmm_csr.spmm_path(256, 1, 4) == (4, 32, 1)
 
 
 def test_sddmm_chunks_cover_every_cell_in_one_wave():
