@@ -135,7 +135,11 @@ exits non-zero without a result line:
      "unsplit" without, the split held first to the plain version and,
      bit for bit, to the unsplit launch; and over the Reddit-scale
      storage's non-cell edges (the hybrid sddmm's CSR launch) at F = 64
-     and 41; on the
+     and 41; edge_softmax's forward and backward kernels on the
+     benchmark's graph at GAT's two layers (H = 8 and 1, logits made as
+     GATConv makes them), held to the plain versions in float64, timed
+     beside those versions and, forward and backward together, beside the
+     aten chain they replaced (the plain forward under autograd); on the
      Reddit-scale storage over the
      residue's sub-CSR and the non-cell edges' CSC (the hybrid route's two
      CSR launches) at F = 64 and 41. At Reddit scale (F = 64 and 41):
@@ -318,7 +322,7 @@ RATE_NAMES = {FP32_FLOPS: "fp32 FFMA 67 TFLOP/s",
               TF32X3_FLOPS: "3xTF32 on TF32 tensor cores 165 TFLOP/s",
               BF16_FLOPS: "bf16 tensor cores 989 TFLOP/s"}
 KERNELS = ("spmm_csr", "sddmm_csr", "spmm_maxmin", "spmm_cells", "spmm_bell",
-           "spconv")
+           "spconv", "edge_softmax")
 # the wrappers the main paths launch, as `kernels.launch_counts` names them
 KERNEL_NAMES = ("csr_spmm", "segment_sum_csr", "sddmm_csr", "spmm_maxmin",
                 "spmm_maxmin_d_dense", "spmm_maxmin_d_values",
@@ -1439,6 +1443,7 @@ def unet_plans(st):
 def plain_kernels():
     """The kernels' plain versions in place of their launches, on the
     card: the oracle of the serving and training phases."""
+    from dgsparse_tpu_torch.kernels import edge_softmax as E
     from dgsparse_tpu_torch.kernels import sddmm_csr as S
     from dgsparse_tpu_torch.kernels import spconv as P
     from dgsparse_tpu_torch.kernels import spmm_bell as B
@@ -1446,7 +1451,9 @@ def plain_kernels():
     from dgsparse_tpu_torch.kernels import spmm_csr as K
     from dgsparse_tpu_torch.kernels import spmm_maxmin as M
 
-    swaps = [(P, "spconv_pairs_cuda", P.spconv_pairs_plain),
+    swaps = [(E, "edge_softmax_cuda", E.edge_softmax_plain),
+             (E, "edge_softmax_bwd_cuda", E.edge_softmax_bwd_plain),
+             (P, "spconv_pairs_cuda", P.spconv_pairs_plain),
              (P, "spconv_dw_cuda", P.spconv_dw_plain),
              (K, "csr_spmm_cuda", K.csr_spmm_plain),
              (S, "sddmm_csr_cuda", S.sddmm_csr_plain),
@@ -1717,6 +1724,79 @@ def _citation_graph(cuda):
                                         device=cuda)
 
 
+def _edge_softmax_numbers(torch, cuda, st, gen):
+    """edge_softmax on the benchmark's graph at GAT's two layers (8 heads,
+    then one), logits made as GATConv makes them (a LeakyReLU of two
+    `gather_rows`), the storage's split plan as the main path passes it:
+    forward and backward kernels against the plain versions, and both
+    kernels against the aten chain they replaced (the plain forward under
+    autograd, then its backward)."""
+    from torch.nn import functional as F
+
+    from dgsparse_tpu_torch.core.transform import gather_rows
+    from dgsparse_tpu_torch.kernels import edge_softmax as E
+    from dgsparse_tpu_torch.utils.testing import assert_sum_close
+
+    split, rowptr, row = st.row_split(), st.rowptr(), st.coo_row()
+    m, nnz = st.num_rows, st.nnz
+    out = {}
+    for heads in (8, 1):
+        sd, ss = (torch.randn(m, heads, generator=gen, device=cuda)
+                  for _ in range(2))
+        x = F.leaky_relu(gather_rows(sd, row) + gather_rows(ss, st.col()),
+                         0.2)
+        g = torch.randn(nnz, heads, generator=gen, device=cuda)
+        cm = x.dim() == 2 and x.shape[1] > 1 and x.stride(0) == 1
+        # held to the plain versions in float64: in float32, index_add_'s
+        # atomics move a hub row's sum by more than the kernels' rounding
+        alpha = E.edge_softmax_cuda(rowptr, x, split=split)
+        ref = E.edge_softmax_plain(rowptr, x.double(), row).float()
+        assert_sum_close(alpha, ref, ref, TOL["float32"])
+        dx = E.edge_softmax_bwd_cuda(rowptr, alpha, g, split=split,
+                                     column_major=cm)
+        dref = E.edge_softmax_bwd_plain(rowptr, alpha.double(), g.double(),
+                                        row).float()
+        scale = alpha.abs() * (g.abs() + gather_rows(E._row_sums(
+            (alpha * g).abs(), row, m), row))
+        assert_sum_close(dx, dref, scale, TOL["float32"])
+
+        def kernels(x, g):
+            a = E.edge_softmax_cuda(rowptr, x, split=split)
+            E.edge_softmax_bwd_cuda(rowptr, a, g, split=split,
+                                    column_major=cm)
+
+        def chain(x, g):
+            xr = x.detach().requires_grad_()
+            E.edge_softmax_plain(rowptr, xr, row).backward(g)
+
+        ms = _time_turns({
+            "forward": (functools.partial(E.edge_softmax_cuda, split=split),
+                        (rowptr, x)),
+            "backward": (functools.partial(E.edge_softmax_bwd_cuda,
+                                           split=split, column_major=cm),
+                         (rowptr, alpha, g)),
+            "plain_forward": (E.edge_softmax_plain, (rowptr, x, row)),
+            "plain_backward": (E.edge_softmax_bwd_plain,
+                               (rowptr, alpha, g, row)),
+            "kernels": (kernels, (x, g)),
+            "aten_chain": (chain, (x, g))})
+        e = nnz * heads
+        ms["bound_forward"] = bound(4 * (m + 1 + 2 * e), 5.0 * e)["bound"]
+        ms["bound_backward"] = bound(4 * (m + 1 + 3 * e), 4.0 * e)["bound"]
+        ms.update(path=E.softmax_path(heads), column_major=cm,
+                  split_rows=split.num_split_rows,
+                  split_chunks=split.num_chunks)
+        out[f"citation H={heads}"] = ms
+        log(f"[numbers] edge_softmax citation H={heads} ({m} rows, {nnz} "
+            f"nnz, fp32, logits {'column' if cm else 'row'}-major, path "
+            f"{ms['path']}, {split.num_split_rows} rows split into "
+            f"{split.num_chunks} chunks): "
+            + ", ".join(f"{k} {ms[k] * 1e3:.2f} us" for k in (
+                "forward", "bound_forward", "backward", "bound_backward",
+                "plain_forward", "plain_backward", "kernels", "aten_chain")))
+    return out
+
+
 def phase_numbers(torch, cuda, runs, graphs):
     import numpy as np
 
@@ -1912,6 +1992,8 @@ def phase_numbers(torch, cuda, runs, graphs):
         ms["split_rows"] = split.num_split_rows
         ms["split_chunks"] = split.num_chunks
         _log_sddmm(results, label, m, nnz, ms, S, feat, heads)
+    results["edge_softmax"] = _edge_softmax_numbers(torch, cuda, citation,
+                                                    gen)
     # the hybrid sddmm's CSR launch at Reddit scale: the non-cell edges'
     # sub-CSR (~23 M edges), d2 [N, F] (60 MB at F = 64) past L2
     st = graphs["reddit"][0].storage

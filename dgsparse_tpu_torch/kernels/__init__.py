@@ -7,10 +7,12 @@ reset all of them at once.
 
 
 def _modules():
-    from dgsparse_tpu_torch.kernels import (sddmm_csr, spconv, spmm_bell,
-                                            spmm_cells, spmm_csr, spmm_maxmin)
+    from dgsparse_tpu_torch.kernels import (edge_softmax, sddmm_csr, spconv,
+                                            spmm_bell, spmm_cells, spmm_csr,
+                                            spmm_maxmin)
 
-    return spmm_csr, sddmm_csr, spmm_maxmin, spmm_cells, spmm_bell, spconv
+    return (spmm_csr, sddmm_csr, spmm_maxmin, spmm_cells, spmm_bell, spconv,
+            edge_softmax)
 
 
 def launch_counts() -> dict:

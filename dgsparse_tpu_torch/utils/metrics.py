@@ -162,14 +162,9 @@ class Span:
             self._range = None
         host = self.end_ns - self.start_ns
         stack = _thread()[0]
-        if stack[-1] is self:
-            stack.pop()
-            if stack:
-                stack[-1]._child_ns += host
-        else:
-            # a span closed by an autograd node (see
-            # `ops/edge_softmax.py`) may have others opened above it
-            stack.remove(self)
+        stack.pop()         # spans are `with` blocks: last opened, first closed
+        if stack:
+            stack[-1]._child_ns += host
         with _lock:
             _spans.append(self)
             tot = _totals.get(self.name)

@@ -20,6 +20,7 @@ from dgsparse_tpu.nn import gcn as jx_gcn
 from dgsparse_tpu.utils.testing import random_csr
 import dgsparse_tpu_torch as pt
 from dgsparse_tpu_torch.nn import GAT, load_flax_params
+from tests.test_torch_split_plan import _softmax_oracle
 
 M, N, H, F = 150, 120, 4, 8
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -78,6 +79,68 @@ def test_edge_softmax_matches_jax_with_grad(shape):
     g = jax.grad(lambda a: jnp.vdot(jx.edge_softmax(j, a), jnp.asarray(ct)))(
         jnp.asarray(logits))
     np.testing.assert_allclose(lt.grad.numpy(), np.asarray(g), **GRAD_TOL)
+
+
+def _long_rows_pair(seed):
+    """A graph with empty rows and rows longer than SPLIT_CHUNK (128, 129
+    and 300 entries), as both packages' SparseTensors."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.poisson(6, M)
+    lengths[rng.random(M) < 0.1] = 0
+    lengths[[5, 9, 17]] = (128, 129, 300)
+    rowptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    col = rng.integers(0, N, rowptr[-1]).astype(np.int32)
+    p = pt.SparseTensor.from_csr(rowptr, col, sparse_sizes=(M, N))
+    assert p.storage.row_split().num_split_rows == 2
+    j = jx.SparseTensor.from_csr(jnp.asarray(rowptr), jnp.asarray(col),
+                                 sparse_sizes=(M, N))
+    return p, j, rowptr
+
+
+@pytest.mark.parametrize("layout", ["row_major", "column_major"])
+@pytest.mark.parametrize("shape", [(), (1,), (8,)])
+def test_edge_softmax_function_matches_jax_and_oracle(shape, layout):
+    # the plain path of edge_softmax's Function, forward and its explicit
+    # backward, on hub rows, empty rows and a row of -inf; logits read
+    # through their strides (a column-major [nnz, H], a strided [nnz])
+    p, j, rowptr = _long_rows_pair(seed=8)
+    nnz = int(rowptr[-1])
+    rng = np.random.default_rng(9)
+    logits = (3 * rng.standard_normal((nnz,) + shape)).astype(np.float32)
+    ct = rng.standard_normal((nnz,) + shape).astype(np.float32)
+    inf_row = 2
+    s, e = rowptr[inf_row], rowptr[inf_row + 1]
+    assert e - s > 1
+    finite = np.ones(nnz, bool)
+    finite[s:e] = False
+    with_inf = logits.copy()
+    with_inf[s:e] = -np.inf
+    if layout == "row_major":
+        lt = torch.zeros((nnz,) + shape)
+    elif shape:
+        lt = torch.zeros(shape[::-1] + (nnz,)).t()
+    else:
+        lt = torch.zeros(nnz, 2)[:, 0]           # a strided [nnz]
+    lt.copy_(torch.from_numpy(with_inf))
+    lt.requires_grad_()
+    out = pt.edge_softmax(p, lt)
+    assert out.grad_fn.name() == "_EdgeSoftmaxBackward"
+    torch.sum(out * torch.from_numpy(ct)).backward()
+    alpha = _softmax_oracle(rowptr, with_inf)
+    grad = _softmax_oracle(rowptr, alpha, ct)
+    np.testing.assert_allclose(out.detach().numpy(), alpha, **TOL)
+    np.testing.assert_allclose(lt.grad.numpy(), grad, **GRAD_TOL)
+    assert not out.detach().numpy()[s:e].any()
+    assert not lt.grad.numpy()[s:e].any()
+    # JAX gives NaN on a row of -inf (its floor flushes to 0): compared
+    # on the other rows, with that row's logits finite
+    ref = jx.edge_softmax(j, jnp.asarray(logits))
+    np.testing.assert_allclose(out.detach().numpy()[finite],
+                               np.asarray(ref)[finite], **TOL)
+    g = jax.grad(lambda a: jnp.vdot(jx.edge_softmax(j, a), jnp.asarray(ct)))(
+        jnp.asarray(logits))
+    np.testing.assert_allclose(lt.grad.numpy()[finite],
+                               np.asarray(g)[finite], **GRAD_TOL)
 
 
 def test_gat_forward_matches_flax():

@@ -22,6 +22,7 @@ import torch
 
 import dgsparse_tpu_torch as pt
 from dgsparse_tpu_torch import entry
+from dgsparse_tpu_torch.kernels import edge_softmax as ES
 from dgsparse_tpu_torch.kernels import (launch_counts, reset_launch_counts,
                                         sddmm_csr, spmm_csr)
 from dgsparse_tpu_torch.nn import gcn as pt_gcn
@@ -475,6 +476,230 @@ def test_training_steps_pass_the_sddmm_split_plan(cuda):
     assert counts["gat"][2]["sddmm_csr.split_chunks"] == 2 * plan.num_chunks
 
 
+# --- edge_softmax ------------------------------------------------------------
+#
+# The kernels sum a row's exps and dots in a fixed order. They are held to
+# the plain versions run in float64 (index_add_'s atomics in float32 move a
+# hub row's sum of 13,096 positive exps by ~1e-4 of itself from run to run,
+# more than the kernels' own rounding): alpha at 1e-5 scaled by alpha,
+# d_logits at 1e-5 scaled by |alpha| (|g| + the row's sum of |alpha g|).
+
+@pytest.fixture(scope="module")
+def citation():
+    """The benchmark's citation graph at seed 0 (`portbench/graphs/
+    citation.py`, the sizes of `gat-arxiv.json`), as the GAT cell builds
+    its adjacency, on the card: 2,484,941 nnz."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+
+    from portbench.graphs import citation as generator
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench" / "configs" /
+                      "gat-arxiv.json").read_text())["graph"]
+    g = generator.make(cfg, 0)
+    return pt_gcn.get_gcn_dcsr_from_edge_index(g["edge_index"],
+                                               g["num_nodes"], device="cuda")
+
+
+def _softmax_inputs(st, heads, layout, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = 3 * torch.randn(heads, st.nnz, generator=gen, device="cuda")
+    x = x.t() if layout == "column_major" else x.t().contiguous()
+    g = torch.randn(st.nnz, heads, generator=gen, device="cuda")
+    return x, g
+
+
+def _plain64(fn, rowptr, *tensors):
+    """A plain version of the kernels run in float64, as float32."""
+    return fn(rowptr, *(t.double() for t in tensors)).float()
+
+
+def _softmax_bwd_scale(st, alpha, g):
+    a, b = alpha.abs(), g.abs()
+    row = st.coo_row().long()
+    sums = torch.zeros(st.num_rows, a.shape[1], device=a.device)
+    return a * (b + sums.index_add_(0, row, a * b)[row])
+
+
+@pytest.mark.parametrize("layout", ["row_major", "column_major"])
+@pytest.mark.parametrize("heads", [8, 1])
+def test_edge_softmax_kernels_match_plain_on_citation(cuda, citation, heads,
+                                                      layout):
+    """GAT's two layers on the benchmark's graph, hub rows split: forward
+    and backward against the plain versions, a second call bitwise the
+    first, two launches of each kind a call."""
+    st = citation.storage
+    split = st.row_split()
+    assert (split.num_split_rows, split.num_chunks) == (588, 2151)
+    x, g = _softmax_inputs(st, heads, layout, heads)
+    rowptr = st.rowptr()
+    column_major = layout == "column_major"
+    ES.reset_launch_counts()
+    alpha = ES.edge_softmax_cuda(rowptr, x, split)
+    dx = ES.edge_softmax_bwd_cuda(rowptr, alpha, g, split, column_major)
+    ref = _plain64(ES.edge_softmax_plain, rowptr, x)
+    dref = _plain64(ES.edge_softmax_bwd_plain, rowptr, alpha, g)
+    torch.cuda.synchronize()
+    assert alpha.is_contiguous() and alpha.shape == x.shape
+    assert dx.stride() == x.stride() if column_major else dx.is_contiguous()
+    assert_sum_close(alpha, ref, ref, TOLS["float32"])
+    assert_sum_close(dx, dref, _softmax_bwd_scale(st, alpha, g),
+                     TOLS["float32"])
+    # no atomics: a second call is bitwise the first
+    assert torch.equal(alpha, ES.edge_softmax_cuda(rowptr, x, split))
+    assert torch.equal(dx, ES.edge_softmax_bwd_cuda(rowptr, alpha, g, split,
+                                                    column_major))
+    assert ES.LAUNCHES == {"edge_softmax": 2, "edge_softmax_bwd": 2,
+                           "edge_softmax_split": 4}
+
+
+def test_edge_softmax_kernels_give_zero_on_rows_of_minus_inf(cuda, citation):
+    """A short row and the longest (split) row of -inf give alpha 0 and a
+    zero gradient, nothing NaN; a chunk of -inf in a split row whose other
+    logits lie near -100 adds nothing to its row's sum; a strided [nnz]
+    takes the one-head path."""
+    st = citation.storage
+    rowptr, split = st.rowptr(), st.row_split()
+    rp = rowptr.cpu().numpy()
+    lengths = np.diff(rp)
+    hub = int(np.argmax(lengths))
+    short = int(np.flatnonzero((lengths > 1) & (lengths < 16))[0])
+    other = int(np.flatnonzero(lengths > 2 * spmm_csr.SPLIT_CHUNK)[0])
+    if other == hub:
+        other = int(np.flatnonzero(lengths > 2 * spmm_csr.SPLIT_CHUNK)[1])
+    x, g = _softmax_inputs(st, 8, "row_major", 7)
+    for r in (hub, short):
+        x[rp[r]:rp[r + 1]] = float("-inf")
+    x[rp[other]:rp[other + 1]] -= 100.0
+    x[rp[other]:rp[other] + spmm_csr.SPLIT_CHUNK] = float("-inf")
+    for logits, grad in ((x, g), (x[:, 3], g[:, 3])):
+        alpha = ES.edge_softmax_cuda(rowptr, logits, split)
+        dx = ES.edge_softmax_bwd_cuda(rowptr, alpha, grad, split)
+        ref = _plain64(ES.edge_softmax_plain, rowptr, logits)
+        torch.cuda.synchronize()
+        assert alpha.shape == logits.shape
+        assert torch.isfinite(alpha).all() and torch.isfinite(dx).all()
+        for r in (hub, short):
+            assert not alpha[rp[r]:rp[r + 1]].any()
+            assert not dx[rp[r]:rp[r + 1]].any()
+        assert_sum_close(alpha, ref, ref, TOLS["float32"])
+        a2 = alpha.reshape(st.nnz, -1)
+        assert_sum_close(dx, _plain64(ES.edge_softmax_bwd_plain, rowptr,
+                                      alpha, grad),
+                         _softmax_bwd_scale(st, a2, grad.reshape(st.nnz, -1)
+                                            ).reshape(dx.shape),
+                         TOLS["float32"])
+
+
+def test_edge_softmax_launches_only_its_kernels(cuda, citation):
+    """A forward and backward of the op on GAT's layer-one logits launch
+    the four kernels of csrc/edge_softmax.cu and nothing else: no
+    scatter_reduce, gather or index_add of the op's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, g = _softmax_inputs(citation.storage, 8, "column_major", 5)
+    x.requires_grad_()
+
+    def step():
+        torch.autograd.grad(pt.edge_softmax(citation, x), x, g)
+        torch.cuda.synchronize()
+
+    step()                                  # the kernels built and loaded
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert {n.split("<")[0].split("::")[-1] for n in names} == {
+        "softmax_kernel", "softmax_split_kernel", "softmax_bwd_kernel",
+        "softmax_bwd_split_kernel"}, names
+
+
+def _square(rowptr, col, n):
+    """The first n rows of a CSR as an [n, n] adjacency of unit values on
+    the card (columns below n)."""
+    rows = np.split(col, rowptr[1:-1])[:n]
+    rp = np.concatenate([[0], np.cumsum([len(r) for r in rows])]
+                        ).astype(np.int32)
+    return pt.SparseTensor.from_csr(rp, np.concatenate(rows),
+                                    np.ones(rp[-1], np.float32),
+                                    sparse_sizes=(n, n), device="cuda")
+
+
+def test_gat_step_launches_the_edge_softmax_kernels(cuda):
+    """One GAT training step: each layer's softmax launches the forward and
+    the backward kernel once; the split rows' second launch runs only where
+    the storage's plan has chunks."""
+    from dgsparse_tpu_torch.nn.gat import GAT
+    from dgsparse_tpu_torch.utils import metrics
+
+    rp, _, col, _ = _hub_graph(cuda, "star", False)
+    hub = _square(rp, col.cpu().numpy(), 2500)
+    flat = _square(*random_csr(2500, 2500, avg_degree=6.0, seed=5,
+                               skew=0.5)[:2], 2500)
+    assert hub.storage.row_split().num_split_rows == 1
+    assert flat.storage.row_split().num_chunks == 0
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2500, 32, generator=gen, device=cuda)
+    y = torch.randint(0, 7, (2500,), generator=gen, device=cuda)
+    metrics.enable()
+    try:
+        for adj in (hub, flat):
+            model = GAT(32, 8, 7, num_heads=4).to(cuda)
+            opt = entry.build_optimizer(model)
+            metrics.reset()
+            reset_launch_counts()
+            entry.train_step(model, opt, x, adj, y)
+            plan = adj.storage.row_split()
+            split = 4 if plan.num_chunks else 0
+            assert {k: v for k, v in launch_counts().items()
+                    if k.startswith("edge_softmax")} == {
+                "edge_softmax": 2, "edge_softmax_bwd": 2,
+                "edge_softmax_split": split}
+            counts = metrics.cache_counters()
+            assert counts.get("edge_softmax.split_rows", 0) == \
+                split * plan.num_split_rows
+            assert counts.get("edge_softmax.split_chunks", 0) == \
+                split * plan.num_chunks
+    finally:
+        metrics.disable()
+
+
+def test_edge_softmax_launches_nothing_off_the_kernel(cuda):
+    """CPU logits and CUDA logits of another dtype take the plain versions,
+    forward and backward, with no launch; the kernels refuse what they
+    cannot run."""
+    rp, col, _ = random_csr(2500, 2500, avg_degree=6.0, seed=5, skew=0.5)
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.float64),
+                          ("cuda", torch.bfloat16)):
+        sp = pt.SparseTensor.from_csr(rp, col, sparse_sizes=(2500, 2500),
+                                      device=device)
+        logits = torch.randn(sp.nnz, 4, device=device, dtype=dtype,
+                             requires_grad=True)
+        ES.reset_launch_counts()
+        out = pt.edge_softmax(sp, logits)
+        out.backward(torch.ones_like(out))
+        assert out.dtype == dtype and logits.grad.dtype == dtype
+        assert torch.isfinite(out).all() and torch.isfinite(logits.grad).all()
+        if dtype != torch.bfloat16:    # bf16 row sums by atomics vary
+            torch.testing.assert_close(out, ES.edge_softmax_plain(
+                sp.storage.rowptr(), logits.detach(), sp.storage.coo_row()))
+        assert sum(ES.LAUNCHES.values()) == 0
+    st = pt.SparseTensor.from_csr(rp, col, sparse_sizes=(2500, 2500),
+                                  device="cuda").storage
+    x = torch.randn(st.nnz, 4, device=cuda)
+    with pytest.raises(ValueError, match="at most 128"):
+        ES.edge_softmax_cuda(st.rowptr(), x,
+                             spmm_csr.split_plan(rp, 256, device=cuda))
+    with pytest.raises(ValueError, match="split plan"):
+        ES.edge_softmax_cuda(st.rowptr(), x[1:], st.row_split())
+    with pytest.raises(ValueError):
+        ES.edge_softmax_cuda(st.rowptr().cpu(), x)
+    with pytest.raises(TypeError):
+        ES.edge_softmax_cuda(st.rowptr(), x.double())
+
+
 def test_sddmm_launch_counts_and_empty_inputs(cuda):
     reset_launch_counts()
     rowptr, col, _ = _graph(cuda, 4, False)
@@ -489,7 +714,9 @@ def test_sddmm_launch_counts_and_empty_inputs(cuda):
                                "spmm_dense_cells": 0,
                                "spmm_dense_cells_bf16": 0, "sddmm_cells": 0,
                                "sddmm_cells_bf16": 0, "spmm_bell": 0,
-                               "spconv_pairs": 0, "spconv_dw": 0}
+                               "spconv_pairs": 0, "spconv_dw": 0,
+                               "edge_softmax": 0, "edge_softmax_bwd": 0,
+                               "edge_softmax_split": 0}
     empty = torch.zeros(4, dtype=torch.int32, device=cuda)
     out = sddmm_csr.sddmm_csr(empty, empty[:0], torch.ones(3, 8, device=cuda),
                               torch.ones(5, 8, device=cuda))

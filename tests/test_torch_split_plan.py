@@ -9,7 +9,10 @@ lane per feature, and check that a `Storage` builds, carries and swaps the
 plans of both views. `csrc/sddmm_csr.cu` takes the same plan in both of
 its mappings (chunks first, rows after, no fix-up): `_sddmm_walked`
 replays that launch to show that every (entry, head, feature) is
-multiplied by one lane and every (entry, head) written once. The kernels
+multiplied by one lane and every (entry, head) written once.
+`csrc/edge_softmax.cu` takes it too (chunk partials, then a second launch
+that combines a row's partials): `_softmax_walked` replays both launches
+in float32, forward and backward, against a float64 oracle. The kernels
 themselves run only on a card (`tests/test_torch_kernels_gpu.py`).
 """
 
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 import dgsparse_tpu_torch as pt
+from dgsparse_tpu_torch.kernels import edge_softmax as ES
 from dgsparse_tpu_torch.kernels import sddmm_csr as S
 from dgsparse_tpu_torch.kernels import spmm_csr
 from dgsparse_tpu_torch.utils.testing import random_csr
@@ -329,3 +333,134 @@ def test_views_carry_the_plans(op):
         _same_plan(other.row_split(), st.row_split())
         _same_plan(other.col_split(), st.col_split())
         assert other.row_split().index.device == other.device
+
+
+# --- edge_softmax's two launches ---------------------------------------------
+
+def _softmax_walked(rowptr, plan, x, g=None):
+    """The forward (g None) or backward of `csrc/edge_softmax.cu` replayed
+    in float32 on `softmax_path`'s mapping: the first launch's slots (the
+    plan's chunks first, then the rows of at most C entries, each lane's
+    registers holding entries start + k E + sub for k < NV), its chunk
+    partials, and the second launch's combination of a row's partials.
+    Returns the output and how many times each (entry, head) was written."""
+    nnz, heads = x.shape
+    lanes, group = ES.softmax_path(heads)
+    e, nv = group // lanes, ES.MAX_CHUNK // (group // lanes)
+    slots = WARPS * (WARP // group)
+    num_rows = len(rowptr) - 1
+    chunk_row, chunk_start, _ = _plan_arrays(plan)
+    chunk_blocks = -(-plan.num_chunks // slots)
+    f32, floor = np.float32, np.float32(1e-38)
+    out = np.zeros((nnz, heads), f32)
+    written = np.zeros((nnz, heads), np.int64)
+    work = {}
+
+    def finite(v):
+        return v if np.isfinite(v) else f32(0)
+
+    for y in range(-(-heads // lanes)):
+        for bx in range(chunk_blocks + -(-num_rows // slots)):
+            for slot in range(slots):
+                start = end = 0
+                chunk = -1
+                if bx < chunk_blocks:
+                    c = bx * slots + slot
+                    if c < plan.num_chunks:
+                        chunk, start = c, chunk_start[c]
+                        end = min(start + plan.chunk,
+                                  rowptr[chunk_row[c] + 1])
+                else:
+                    r = (bx - chunk_blocks) * slots + slot
+                    if r < num_rows and rowptr[r + 1] - rowptr[r] <= \
+                            plan.chunk:
+                        start, end = rowptr[r], rowptr[r + 1]
+                for h in range(y * lanes, min((y + 1) * lanes, heads)):
+                    n = end - start
+                    held = [start + k * e + sub for sub in range(e)
+                            for k in range(nv) if k * e < n]
+                    held = np.array([i for i in held if i < end], np.int64)
+                    if g is None:
+                        v = x[held, h]
+                        mx = v.max(initial=-np.inf)
+                        ex = np.exp(v - finite(mx))
+                        total = ex.sum(dtype=f32)
+                        if chunk >= 0:
+                            work[chunk, h] = (mx, total)
+                        else:
+                            out[held, h] = ex / max(total, floor)
+                    else:
+                        dot = (x[held, h] * g[held, h]).sum(dtype=f32)
+                        if chunk >= 0:
+                            work[chunk, h] = dot
+                        else:
+                            out[held, h] = x[held, h] * (g[held, h] - dot)
+                    if chunk < 0:
+                        written[held, h] += 1
+    for c in range(plan.num_chunks):
+        rs, re = rowptr[chunk_row[c]], rowptr[chunk_row[c] + 1]
+        start = chunk_start[c]
+        end = min(start + plan.chunk, re)
+        first = c - (start - rs) // plan.chunk
+        count = -(-(re - rs) // plan.chunk)
+        assert (chunk_row[first:first + count] == chunk_row[c]).all()
+        span = np.arange(start, end)
+        for h in range(heads):
+            parts = [work[k, h] for k in range(first, first + count)]
+            if g is None:
+                mx = max(p[0] for p in parts)
+                total = f32(sum((s * np.exp(finite(m) - finite(mx))
+                                 for m, s in parts if s != 0), f32(0)))
+                out[span, h] = np.exp(x[span, h] - finite(mx)) / max(
+                    total, floor)
+            else:
+                dot = f32(sum(parts, f32(0)))
+                out[span, h] = x[span, h] * (g[span, h] - dot)
+            written[span, h] += 1
+    return out, written
+
+
+def _softmax_oracle(rowptr, x, g=None):
+    """float64 softmax per row (and head) of x [nnz] or [nnz, H], 0 for a
+    row of -inf; or, given a cotangent g, the backward for alpha x."""
+    out = np.zeros(x.shape)
+    for s, e in zip(rowptr[:-1], rowptr[1:]):
+        v = x[s:e].astype(np.float64)
+        if g is not None:
+            w = g[s:e].astype(np.float64)
+            out[s:e] = v * (w - (v * w).sum(0))
+            continue
+        mx = v.max(0, initial=-np.inf)
+        ex = np.exp(v - np.where(np.isfinite(mx), mx, 0))
+        out[s:e] = ex / np.maximum(ex.sum(0), 1e-38)
+    return out
+
+
+@pytest.mark.parametrize("heads", [1, 3, 8, 16])
+@pytest.mark.parametrize("chunk", [16, spmm_csr.SPLIT_CHUNK])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_edge_softmax_launches_write_every_entry_once(graph, chunk, heads):
+    rowptr = GRAPHS[graph]
+    nnz = int(rowptr[-1])
+    plan = spmm_csr.split_plan(rowptr, chunk)
+    rng = np.random.default_rng(heads)
+    x = (3 * rng.standard_normal((nnz, heads))).astype(np.float32)
+    long_rows = np.flatnonzero(np.diff(rowptr) > chunk)
+    if len(long_rows):
+        # a chunk of -inf in a row whose other logits lie near -100: its
+        # partial must add nothing, not 0 * exp(100)
+        s = rowptr[long_rows[0]]
+        x[s:rowptr[long_rows[0] + 1]] -= 100
+        x[s:s + chunk] = -np.inf
+    r = int(np.argmax(np.diff(rowptr) > 0))
+    x[rowptr[r]:rowptr[r + 1]] = -np.inf           # a row of -inf: alpha 0
+    alpha, written = _softmax_walked(rowptr, plan, x)
+    assert (written == 1).all()
+    ref = _softmax_oracle(rowptr, x)
+    np.testing.assert_allclose(alpha, ref, rtol=2e-5, atol=1e-7)
+    g = rng.standard_normal((nnz, heads)).astype(np.float32)
+    dx, written = _softmax_walked(rowptr, plan, alpha, g)
+    assert (written == 1).all()
+    ref = _softmax_oracle(rowptr, alpha, g)
+    np.testing.assert_allclose(dx, ref, rtol=1e-4, atol=1e-6)
+    assert not dx[rowptr[r]:rowptr[r + 1]].any()
